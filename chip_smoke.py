@@ -6,21 +6,33 @@
 Phases, each of which raises (and so exits nonzero) on failure:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. the nvcc build of the sm_90a sweep kernels, timed;
-  3. each of the four sweep kernels against its plain torch version on the
-     card, on a 32^3 dam break after a few WCSPH steps (max abs/rel error vs
-     KERNEL_REL_TOL);
-  4. the slice at full size: the 1M-particle (n3=100) dam break stepped by
-     the plane-resident WCSPH and PCISPH solvers with the bench parameters;
-     the four launch counters are reset just before each solver's steps and
-     read just after them;
+  3. each sweep kernel, forward and backward, against its plain torch
+     version on the card, on a 32^3 dam break after a few WCSPH steps
+     (max abs/rel error vs KERNEL_REL_TOL, per output vs KERNEL_BWD_REL_TOL
+     for the backward sweeps, which take seeded cotangent planes);
+  4. the serving path at full size: the 1M-particle (n3=100) dam break
+     stepped by the plane-resident WCSPH and PCISPH solvers with the bench
+     parameters; the launch counters are reset just before each solver's
+     steps and read just after them;
   5. health checks on both runs (finite, inside the box, no overflow,
      max|v| under the sound speed, mean y falls (PCISPH: by the end of
      burn-in), rho_max/d0 in [1.0, 1.2], PCISPH iterations in 1..5, every
      launch counter > 0);
-  6. each kernel against its plain version again at the main path's shapes:
-     on the 1M plane state the PCISPH run ends in (off the lattice, pairs
-     asymmetric), with kernel and plain times (CUDA events, median of reps);
-  7. a short Simulation.create(...) PCISPH run, the normal entry point.
+  6. each kernel against its plain version again at the main paths'
+     shapes: on the 1M plane state the PCISPH run ends in (off the lattice,
+     pairs asymmetric), with kernel and plain times (CUDA events, median of
+     reps) and each kernel's bound (bytes and operations of this data);
+  7. the training path at full size: the loss sum(next.pos * w) through
+     dense_pcisph_step(materials=m, unroll_for_grad=True, unroll_iters=3)
+     and through dense_wcsph_step(materials=m) on the 1M dam break with
+     seeded velocities, then backward to the Materials and the positions:
+     ms per forward+backward, peak memory, the gradients (finite), and the
+     launch counters (reset just before, read just after; every kernel of
+     the path launched);
+  8. a trainer's 3 steps of sign descent on mu on that PCISPH path;
+  9. whole-step gradients at n3=16: the kernel path on the card against the
+     plain path on the CPU from the same numpy state;
+ 10. a short Simulation.create(...) PCISPH run, the normal entry point.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -41,6 +53,25 @@ EXTENT = 0.5
 CAPACITY = 16
 SKIN = 0.05
 SOUND_SPEED = 25.0      # FluidParams.for_spacing's default
+UNROLL_ITERS = 3        # bench.py:436, the config-4 gradient's unroll
+# Card (kernels) vs CPU (plain) whole-step gradients at n3=16, relative (the
+# position gradient to its largest entry). Measured on an H100 at most
+# 2.6e-6 (WCSPH, mu); the bound is about 10x that. (On the CPU, moving every
+# position by 3e-7 of itself moves these gradients by up to 6e-6:
+# tools/torch_grad_kinks.py.)
+STEP_GRAD_REL_TOL = 3e-5
+
+# H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes
+# per second and float32 operations per second outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# Operations per candidate pair of each sweep's pair functor in
+# csrc/sph_sweep.cu, each add, multiply, compare, select, divide and rsqrt
+# counted as one; work on the own slot alone is hoisted out of the pair loop
+# and not counted.
+OPS_PER_PAIR = {"density": 16, "force": 44, "viscosity": 31,
+                "pressure_pq": 30, "pressure": 33, "density_bwd": 23,
+                "pressure_bwd": 74, "viscosity_bwd": 73}
 
 
 def log(msg: str):
@@ -97,10 +128,21 @@ def bench_setup(n3: int, device):
     return params, state, spec, compute_pci_delta(params, dx)
 
 
-def sweep_calls(planes, spec, params, plain: bool):
-    """name -> zero-argument call of each public sweep on `planes` (or of
-    its plain version), with the density, Tait pressure and pq planes the
-    solvers would feed it."""
+def seeded_cotangents(spec, device, seed: int):
+    """Three output-cotangent planes for the backward sweeps, N(0, 1) from
+    a seeded generator on the card."""
+    import torch
+
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return tuple(torch.randn(spec.plane_shape, generator=g, device=device)
+                 for _ in range(3))
+
+
+def sweep_calls(planes, spec, params, plain: bool, cts):
+    """name -> zero-argument call of each public sweep and backward sweep on
+    `planes` (or of its plain version), with the density, Tait pressure and
+    pq planes the solvers would feed it and the cotangent planes `cts`."""
     from dieselfluid_tpu_torch.ops import sph_sweep as sw
     from dieselfluid_tpu_torch.ops.smoothing import KernelCoeffs, tait_eos
     import torch
@@ -113,49 +155,62 @@ def sweep_calls(planes, spec, params, plain: bool):
                         0.0)
     rff = torch.clamp(rho, min=0.5 * params.d0)
     pq = torch.where(m > 0, press / (rff * rff), 0.0)
-    mu = float(params.mu)
+    mu, mass = float(params.mu), params.mass
     fns = sw.plain if plain else sw
     return {
-        "density": lambda: (fns.density_planes(planes, spec, k,
-                                               params.mass),),
-        "force": lambda: fns.force_planes(planes, rho, press, spec, k,
-                                          params.mass, mu),
+        "density": lambda: (fns.density_planes(planes, spec, k, mass),),
+        "force": lambda: fns.force_planes(planes, rho, press, spec, k, mass,
+                                          mu),
         "viscosity": lambda: fns.viscosity_force_planes(
-            planes, rho, spec, k, params.mass, mu),
+            planes, rho, spec, k, mass, mu),
         "pressure_pq": lambda: fns.pressure_force_pq_planes(
-            planes, pq, spec, k, params.mass),
+            planes, pq, spec, k, mass),
+        "pressure": lambda: fns.pressure_force_planes(
+            planes, rho, press, spec, k, mass),
+        "density_bwd": lambda: fns.density_sum_bwd(planes, cts[0], spec, k),
+        "pressure_bwd": lambda: fns.press_sum_bwd(planes, rho, press, cts,
+                                                  spec, k),
+        "viscosity_bwd": lambda: fns.visc_sum_bwd(planes, rho, cts, spec,
+                                                  k),
     }
 
 
-def compare_kernels(planes, spec, params, label: str) -> dict:
-    """Each public sweep against its plain version on the same planes;
-    fails over KERNEL_REL_TOL. Returns name -> max abs error."""
+def compare_kernels(planes, spec, params, cts, label: str) -> dict:
+    """Each sweep against its plain version on the same planes; fails over
+    KERNEL_REL_TOL (forward, relative to the largest output) or
+    KERNEL_BWD_REL_TOL (backward, per output). Returns name -> (max abs
+    error, max relative error)."""
     import torch
-    from dieselfluid_tpu_torch.ops.sph_sweep import KERNEL_REL_TOL
+    from dieselfluid_tpu_torch.ops.sph_sweep import (KERNEL_BWD_REL_TOL,
+                                                     KERNEL_REL_TOL)
 
-    kern = sweep_calls(planes, spec, params, plain=False)
-    ref = sweep_calls(planes, spec, params, plain=True)
+    kern = sweep_calls(planes, spec, params, False, cts)
+    ref = sweep_calls(planes, spec, params, True, cts)
     errs = {}
     for name in kern:
         got, want = kern[name](), ref[name]()
         torch.cuda.synchronize()
-        abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        scale = max(float(w.abs().max()) for w in want)
-        rel = abs_err / scale
+        diffs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+        scales = [float(w.abs().max()) for w in want]
+        if name.endswith("_bwd"):
+            rel, tol = max(d / s for d, s in zip(diffs, scales)), \
+                KERNEL_BWD_REL_TOL
+        else:
+            rel, tol = max(diffs) / max(scales), KERNEL_REL_TOL
         check(all(bool(torch.isfinite(g).all()) for g in got),
               f"{name} {label}: non-finite kernel output")
-        log(f"kernel {name:12s} {label}: max_abs_err={abs_err!r} "
-            f"max|plain|={scale!r} rel={rel!r} tol={KERNEL_REL_TOL!r}")
-        check(rel <= KERNEL_REL_TOL, f"{name} kernel disagrees with plain "
-              f"version at {label}: rel {rel} > {KERNEL_REL_TOL}")
-        errs[name] = abs_err
+        log(f"kernel {name:14s} {label}: max_abs_err={max(diffs)!r} "
+            f"max|plain|={max(scales)!r} rel={rel!r} tol={tol!r}")
+        check(rel <= tol, f"{name} kernel disagrees with plain version at "
+              f"{label}: rel {rel} > {tol}")
+        errs[name] = (max(diffs), rel)
     return errs
 
 
 def check_kernels_small(device) -> dict:
     """compare_kernels on a 32^3 dam break that has taken a few WCSPH
     steps from a seeded velocity jitter (off the lattice, so pairs are
-    asymmetric)."""
+    asymmetric), with seeded cotangents."""
     import torch
     from dieselfluid_tpu_torch.solvers.dense_resident import (
         dense_wcsph_resident_step, plane_state_from_fluid)
@@ -168,19 +223,63 @@ def check_kernels_small(device) -> dict:
     ps = plane_state_from_fluid(state, spec)
     for _ in range(5):
         ps = dense_wcsph_resident_step(ps, params, spec, skin=0.0)
-    return compare_kernels(ps.planes, spec, params, "n3=32")
+    return compare_kernels(ps.planes, spec, params,
+                           seeded_cotangents(spec, device, 1), "n3=32")
 
 
-def time_kernels(planes, spec, params) -> dict:
+def candidate_pairs(mask, spec) -> int:
+    """Occupied (own, candidate) slot pairs of the 27-cell stencil: the
+    pairs each sweep evaluates on this data."""
+    import torch
+
+    occ = mask.view(spec.px, spec.py, spec.row_len // spec.capacity,
+                    spec.capacity).sum(-1)
+    nbr = torch.nn.functional.avg_pool3d(
+        occ[None, None], 3, stride=1, padding=1,
+        count_include_pad=True)[0, 0] * 27.0
+    return int(round(float((occ.double() * nbr.double()).sum())))
+
+
+def kernel_bounds(planes, spec) -> dict:
+    """name -> (bound ms, "bytes" or "operations"): the larger of the bytes
+    each sweep must move over the HBM rate, and its pair operations on this
+    data over the float32 peak. Bytes: the mask plane read and every output
+    plane written in full; every other input channel read once over the
+    128-slot blocks that hold an occupied slot (an empty block's values are
+    masked out, and the kernel skips such a block), as the operations count
+    only occupied pairs."""
+    from dieselfluid_tpu_torch.ops import sph_sweep as sw
+
+    mask = planes["mask"]
+    pairs = candidate_pairs(mask, spec)
+    plane_bytes = spec.size * 4
+    blocks = int((mask.view(-1, 128).amax(-1) > 0).sum())
+    block_bytes = blocks * 128 * 4
+    out = {}
+    for s in sw.SWEEPS:
+        n_bytes = ((1 + s.n_out) * plane_bytes
+                   + (len(s.in_names) - 1) * block_bytes)
+        t_bytes = n_bytes / HBM_BYTES_PER_S
+        t_ops = pairs * OPS_PER_PAIR[s.name] / FP32_OPS_PER_S
+        out[s.name] = ((max(t_bytes, t_ops) * 1e3,
+                        "bytes" if t_bytes >= t_ops else "operations"))
+    log(f"bounds: {pairs} candidate pairs, {blocks} of "
+        f"{spec.size // 128} blocks occupied, plane {plane_bytes} B: "
+        + json.dumps(out))
+    return out
+
+
+def time_kernels(planes, spec, params, cts) -> dict:
     """name -> (kernel ms, plain ms) of the public sweep calls on `planes`
-    (kernel: median of 20; plain: median of 2, chunked)."""
-    kern = sweep_calls(planes, spec, params, plain=False)
-    ref = sweep_calls(planes, spec, params, plain=True)
+    (kernel: median of 20; plain: median of 2, chunked; compare_kernels
+    already ran both once)."""
+    kern = sweep_calls(planes, spec, params, False, cts)
+    ref = sweep_calls(planes, spec, params, True, cts)
     out = {}
     for name in kern:
         ms = cuda_ms(kern[name], reps=20, warmup=2)
-        plain_ms = cuda_ms(ref[name], reps=2, warmup=1)
-        log(f"time {name:12s} 1M: kernel {ms!r} ms  plain {plain_ms!r} ms")
+        plain_ms = cuda_ms(ref[name], reps=2, warmup=0)
+        log(f"time {name:14s} 1M: kernel {ms!r} ms  plain {plain_ms!r} ms")
         out[name] = (ms, plain_ms)
     return out
 
@@ -315,6 +414,153 @@ def run_pcisph(params, state, spec, delta, sync):
     return ps, out
 
 
+def grad_setup(n3: int, device):
+    """bench.py's config-4 state (bench.py:404-421): the dam break with
+    N(0, 0.05) velocities from a numpy seed, and a seeded loss weight w."""
+    import torch
+
+    params, state, spec, delta = bench_setup(n3, device)
+    rng = np.random.default_rng(2)
+    vel = rng.normal(scale=0.05, size=tuple(state.vel.shape))
+    w = rng.normal(size=tuple(state.pos.shape))
+    state = state._replace(vel=torch.from_numpy(
+        vel.astype(np.float32)).to(device))
+    return params, state, spec, delta, torch.from_numpy(
+        w.astype(np.float32)).to(device)
+
+
+def loss_and_grads(solver, params, state, spec, delta, w, mats):
+    """The loss sum(next.pos * w) through one differentiable step, and its
+    gradients (mu, d0, mass, pos) by torch.autograd."""
+    import torch
+    from dieselfluid_tpu_torch.solvers.dense_step import (
+        dense_pcisph_step, dense_wcsph_step)
+
+    pos = state.pos.detach().clone().requires_grad_()
+    st = state._replace(pos=pos)
+    if solver == "pcisph":
+        nxt, diag = dense_pcisph_step(st, params, spec, delta,
+                                      materials=mats, unroll_for_grad=True,
+                                      unroll_iters=UNROLL_ITERS)
+        check(diag.iters == UNROLL_ITERS, f"unrolled iters {diag.iters}")
+    else:
+        nxt, _ = dense_wcsph_step(st, params, spec, materials=mats)
+    loss = (nxt.pos * w).sum()
+    grads = torch.autograd.grad(loss, [mats.mu, mats.d0, mats.mass, pos])
+    return loss.detach(), grads
+
+
+def grad_summary(loss, grads) -> dict:
+    g_mu, g_d0, g_mass, g_pos = grads
+    return {"loss": float(loss), "grad_mu": float(g_mu),
+            "grad_d0": float(g_d0), "grad_mass": float(g_mass),
+            "grad_pos_norm_sq": float((g_pos.double() ** 2).sum())}
+
+
+def run_gradients(device, sync) -> dict:
+    """The training path at 1M: forward+backward of the loss through the
+    unrolled PCISPH step and the WCSPH step with traced Materials, timed
+    (median of 3 after 1 warm-up); launch counters reset just before and
+    read just after."""
+    import torch
+    from dieselfluid_tpu_torch.models.materials import Materials
+    from dieselfluid_tpu_torch.ops.sph_sweep import reset_launch_counts
+
+    params, state, spec, delta, w = grad_setup(100, device)
+    mats = Materials.from_params(params, device, requires_grad=True)
+    out = {"n": state.pos.shape[0], "unroll_iters": UNROLL_ITERS}
+    reset_launch_counts()
+    for solver in ("pcisph", "wcsph"):
+        loss, grads = loss_and_grads(solver, params, state, spec, delta, w,
+                                     mats)
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            loss, grads = loss_and_grads(solver, params, state, spec, delta,
+                                         w, mats)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        res = grad_summary(loss, grads)
+        res.update(fwd_bwd_ms=float(np.median(times)), fwd_bwd_ms_runs=times,
+                   max_memory_allocated=torch.cuda.max_memory_allocated())
+        log(f"grad_{solver}_1m " + json.dumps(res))
+        check(all(np.isfinite(v) for v in (res["loss"], res["grad_mu"],
+                                             res["grad_d0"],
+                                             res["grad_mass"],
+                                             res["grad_pos_norm_sq"])),
+              f"{solver}: non-finite loss or gradient")
+        check(bool(torch.isfinite(grads[3]).all()),
+              f"{solver}: non-finite position gradient")
+        check(res["grad_pos_norm_sq"] > 0.0 and res["grad_mu"] != 0.0,
+              f"{solver}: zero gradient")
+        out[solver] = res
+    out["launches"] = launch_counts()
+    return out
+
+
+def run_trainer(device) -> list:
+    """examples/fit_material.py's sign descent on mu (3 steps) through the
+    1M unrolled PCISPH step and the loss above."""
+    import torch
+    from dieselfluid_tpu_torch.models.materials import Materials
+
+    params, state, spec, delta, w = grad_setup(100, device)
+    base = Materials.from_params(params, device)
+    mu = base.mu.clone()
+    steps = []
+    for it in range(3):
+        mats = Materials.from_params(params, device, requires_grad=True)
+        mats = mats._replace(mu=mu.clone().requires_grad_())
+        loss, grads = loss_and_grads("pcisph", params, state, spec, delta, w,
+                                     mats)
+        mu = torch.clamp(mu - 0.02 * torch.sign(grads[0]), 0.01, 2.0)
+        steps.append({"step": it, "loss": float(loss),
+                      "grad_mu": float(grads[0]), "mu": float(mu)})
+        log("trainer " + json.dumps(steps[-1]))
+        check(np.isfinite(steps[-1]["loss"]) and np.isfinite(
+            steps[-1]["mu"]), "trainer: non-finite loss or mu")
+    return steps
+
+
+def check_step_grads_cpu(device) -> dict:
+    """Whole-step gradients at n3=16, kernels on the card against the plain
+    path on the CPU from the same numpy state (the config-4 state with its
+    positions jittered), both differentiable steps."""
+    import torch
+    from dieselfluid_tpu_torch.models.materials import Materials
+
+    def step_grads(solver, dev):
+        params, state, spec, delta, w = grad_setup(16, dev)
+        # Off the lattice: at the lattice's rest density the Tait and
+        # pressure clamps sit at their kinks, where summation-order noise
+        # picks the side and so the gradient.
+        dx = (2.0 / 16) * EXTENT
+        jitter = np.random.default_rng(3).uniform(
+            -0.2 * dx, 0.2 * dx, size=tuple(state.pos.shape))
+        state = state._replace(pos=state.pos + torch.from_numpy(
+            jitter.astype(np.float32)).to(dev))
+        mats = Materials.from_params(params, dev, requires_grad=True)
+        _, grads = loss_and_grads(solver, params, state, spec, delta, w,
+                                  mats)
+        return [g.detach().cpu().double() for g in grads]
+
+    out = {}
+    for solver in ("pcisph", "wcsph"):
+        card = step_grads(solver, device)
+        host = step_grads(solver, torch.device("cpu"))
+        rel = {name: float((g - c).abs().max() / c.abs().max())
+               for name, g, c in zip(("mu", "d0", "mass", "pos"), card,
+                                     host)}
+        log(f"step_grads_n16_{solver} card vs cpu: " + json.dumps(rel)
+            + f" tol={STEP_GRAD_REL_TOL!r}")
+        check(all(v <= STEP_GRAD_REL_TOL for v in rel.values()),
+              f"{solver}: card and CPU step gradients differ: {rel}")
+        out[solver] = rel
+    return out
+
+
 def run_simulation(device) -> dict:
     import torch
     from dieselfluid_tpu_torch.config import SimConfig
@@ -335,6 +581,12 @@ def run_simulation(device) -> dict:
     check(y1 < y0, "simulation: mean y did not fall")
     return {"n": sim.n(), "steps": sim.step_count,
             "max_v": float(vmax.max()), "iters": int(diag.iters)}
+
+
+def jax_package_modules():
+    """Loaded modules of JAX or of the JAX package (none may be)."""
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "dieselfluid_tpu"))
 
 
 def main() -> int:
@@ -376,32 +628,52 @@ def main() -> int:
     def sync():
         torch.cuda.synchronize()
 
+    # The serving path: K1-K4.
     params, state, spec, delta = bench_setup(100, device)
     log(f"1M spec: nx={spec.nx} ny={spec.ny} nz={spec.nz} sub={spec.sub} "
         f"rows={spec.rows} plane={spec.size * 4 / 1e6!r} MB, "
         f"n={state.pos.shape[0]}")
     _, wc = run_wcsph(params, state, spec, sync)
     ps, pc = run_pcisph(params, state, spec, delta, sync)
-    launches = {name: wc["launches"][name] + pc["launches"][name]
-                for name in wc["launches"]}
-    log("main-path launches " + json.dumps(launches))
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} was not launched by the main path")
+    serving = {name: wc["launches"][name] + pc["launches"][name]
+               for name in wc["launches"]}
+    log("serving-path launches " + json.dumps(serving))
+    for name in ("density", "force", "viscosity", "pressure_pq"):
+        check(serving[name] > 0,
+              f"kernel {name} was not launched by the serving path")
 
-    errs = compare_kernels(ps.planes, spec, params, "1M after PCISPH")
-    times = time_kernels(ps.planes, spec, params)
+    cts = seeded_cotangents(spec, device, 3)
+    errs = compare_kernels(ps.planes, spec, params, cts, "1M after PCISPH")
+    times = time_kernels(ps.planes, spec, params, cts)
+    bounds = kernel_bounds(ps.planes, spec)
+    del ps, cts
+
+    # The training path: K1, K3, K5, K6, K8, K9.
+    grad = run_gradients(device, sync)
+    training = grad["launches"]
+    log("training-path launches " + json.dumps(training))
+    for name in ("density", "viscosity", "pressure", "density_bwd",
+                 "pressure_bwd", "viscosity_bwd"):
+        check(training[name] > 0,
+              f"kernel {name} was not launched by the training path")
+    run_trainer(device)
+    check_step_grads_cpu(device)
 
     sim = run_simulation(device)
     log("simulation_n3_16_pcisph " + json.dumps(sim))
-    check("jax" not in sys.modules, "jax was imported")
+    check(not jax_package_modules(),
+          f"the JAX package was imported: {jax_package_modules()}")
 
     kernels = []
     for s in sw.SWEEPS:
         ms, plain_ms = times[s.name]
+        bound_ms, bound_by = bounds[s.name]
         kernels.append({"name": s.name, "route": "cuda", "source": sw.SOURCE,
-                        "replaces": s.replaces, "launches": launches[s.name],
-                        "max_abs_err": errs[s.name], "ms": ms,
-                        "plain_ms": plain_ms})
+                        "replaces": s.replaces,
+                        "launches": serving[s.name] + training[s.name],
+                        "max_abs_err": errs[s.name][0], "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": None})
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -3,17 +3,19 @@
 The JAX package `dieselfluid_tpu` stays the reference; this package keeps its
 module paths so each counterpart is found by name:
 
-  config.py               FluidParams / SimConfig (re-exported, JAX-free)
+  config.py               FluidParams / SimConfig (the port's own copy)
   ops/smoothing.py        kernel coefficients, smoothing kernels, Tait EOS
   ops/cellops.py          dense (rows, sub, 128) cell planes: binning, scatter, gather
-  ops/sph_sweep.py        the four forward stencil sweeps (CUDA kernels + plain torch)
+  ops/sph_sweep.py        the stencil sweeps and their backward sweeps as autograd
+                          Functions (CUDA kernels + plain torch)
   csrc/sph_sweep.cu       the hand-written sm_90a sweep kernel
   geometry/grid.py        lattice grids
+  models/materials.py     Materials: traced material parameters (0-d tensors)
   models/particles.py     FluidState and the dam-break initial state
   models/sph.py           Simulation facade (neighbors="dense")
   neighbors/calibrate.py  analytic lattice rest density
   solvers/                integrator, PCISPH delta, per-step and plane-resident dense solvers
-  interop.py              numpy <-> torch state conversion (state carried across packages)
+  interop.py              numpy <-> torch state and config conversion (across packages)
 
 Every tensor is float32 (slot indices int64) and every state constructor takes
 an explicit `device=`. The package imports `torch` and never `jax`.

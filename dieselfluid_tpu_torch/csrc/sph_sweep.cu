@@ -1,18 +1,26 @@
-// Forward SPH stencil sweeps over the dense cell planes, for sm_90a.
+// SPH stencil sweeps over the dense cell planes, forward and backward, for
+// sm_90a.
 //
 // Replaces the Pallas TPU kernel `_sweep` (dieselfluid_tpu/ops/pallas_sph.py,
-// pallas_call at :370) in its four forward instantiations:
+// pallas_call at :370) in these instantiations:
 //   density            _density_pair     (pallas_sph.py:454)
 //   fused force        _force_fold_pair  (pallas_sph.py:564), with and
 //                      without the viscosity term (mu == 0)
 //   viscosity          _visc_pair        (pallas_sph.py:729)
 //   prefolded pressure _press_pq_pair    (pallas_sph.py:806)
+//   pressure           _press_pair       (pallas_sph.py:660, `_press_sum`)
+//   and the backward sweeps `_density_sum_bwd` (:484), `_press_sum_bwd`
+//   (:699) and `_visc_sum_bwd` (:765), whose pair functions the JAX package
+//   derives with jax.vjp (`_bwd_pair`, :415) and which are written out by
+//   hand here (DensityBwdPair, PressBwdPair, ViscBwdPair).
 //
 // Every sweep computes, for each occupied slot i of the (rows, sub, 128)
 // float32 planes,
 //     out_c[i] = mask_i * sum_j pair(own_i, cand_j)_c
 // over the slots j of the 27 cells around i's cell. One templated kernel
-// with a pair functor serves all of them.
+// with a pair functor serves all of them. A backward pair for forward pair
+// g returns  d_own g(u_i, u_j)^T ct_i + d_cand g(u_j, u_i)^T ct_j: the
+// stencil is symmetric, so the adjoint is another gather, with no atomics.
 //
 // Layout (ops/cellops.py): row = (i+1)*py + (j+1), col = (k + z_block)*cap
 // + rank. A z-cell's `cap` slots are contiguous, so the candidates of slot i
@@ -25,35 +33,41 @@
 // drop farther cells; under a fresh binning both sets give the same pairs.)
 //
 // What bounds it on the H100: at the 1M-particle bench spec (101^3 cells,
-// cap 16, sub 15, 10,609 rows) a plane is 81.5 MB and a sweep reads at most
-// 9 planes, ~0.73 GB, ~0.2 ms at 3.35 TB/s. The pair work is ~1M x 27 x 16
-// candidate evaluations of 20-40 flops each (plus a divide or rsqrt), so the
-// sweep is bound by arithmetic and by occupancy, not by bytes.
+// cap 16, sub 15, 10,609 rows) a plane is 81.5 MB; a sweep moves its input
+// and output planes once, 0.33 GB (density) to 1.5 GB (viscosity backward,
+// 11 in + 7 out), 0.1-0.45 ms at 3.35 TB/s. The pair work is ~1M x 27 x 16
+// candidate slots of 20-80 flops each (plus divides and an rsqrt), so the
+// sweeps are bound by arithmetic, occupancy and the shared-memory reads, not
+// by bytes.
 //
 // Design (simple first): one 128-thread CTA per 128-slot own block of one
 // row. A CTA with no occupied own slot exits at once (__syncthreads_or): a
 // dam break fills about an eighth of the domain. Otherwise the CTA stages
 // the (128 + 2*cap)-slot window of the 9 stencil rows for every input
-// channel in dynamic shared memory (9 channels x 9 rows x 160 slots x 4 B =
-// 51.8 KB for the force sweep at cap 16), then each thread sums the pair
-// function over its 9 x 3*cap candidates. Threads of one cell read the same
-// shared words (broadcast); threads of neighbouring cells read words cap
-// apart (different banks). Outputs of slots the kernel does not write stay
-// at the zeros the caller allocated. No fast-math: rsqrtf where the JAX pair
-// uses lax.rsqrt, IEEE divides elsewhere.
+// channel in dynamic shared memory (11 channels x 9 rows x 160 slots x 4 B =
+// 63.4 KB for the viscosity backward at cap 16, hence cudaFuncSetAttribute),
+// then each thread sums the pair function over its 9 x 3*cap candidates.
+// Threads of one cell read the same shared words (broadcast); threads of
+// neighbouring cells read words cap apart (different banks). Outputs of slots
+// the kernel does not write stay at the zeros the caller allocated. No
+// fast-math: rsqrtf where the JAX pair uses lax.rsqrt, IEEE divides
+// elsewhere. Every masked branch is a select, never a multiply by a mask, so
+// no 0 * inf reaches an output.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kBlock = 128;       // own slots per CTA (= slots per sub row)
-constexpr int kMaxIn = 9;
-constexpr int kMaxOut = 3;
 constexpr float kEps = 1e-12f;
 
+// Sized per sweep: one struct as wide as the widest sweep (11 in, 7 out)
+// made the 9-channel force kernel 15% slower on an H100 than with its own
+// 9 + 3 pointers (tools/torch_serving_ab.py).
+template <int kIn, int kOut>
 struct SweepArgs {
-  const float* in[kMaxIn];
-  float* out[kMaxOut];
+  const float* in[kIn];
+  float* out[kOut];
   int ny;    // interior cell columns in y
   int py;    // ny + 2
   int sub;   // 128-slot blocks per row, ghosts included
@@ -62,7 +76,7 @@ struct SweepArgs {
 
 // Pair functors: `o` and `c` hold the own and candidate channel values in
 // the order the launcher passes the planes; results are added into `acc`.
-// Each mirrors its JAX pair function term for term.
+// Each mirrors its plain torch pair (ops/sph_sweep.py) term for term.
 
 struct DensityPair {  // x y z mask -> rho-sum (self term included)
   static constexpr int kIn = 4, kOut = 1, kMask = 3;
@@ -143,10 +157,143 @@ struct PressPqPair {  // x y z mask pq -> 3 (mass^2 applied outside)
   }
 };
 
+// p_i / max(rho_i, eps)^2 + p_j / max(rho_j, eps)^2
+__device__ __forceinline__ float press_coeff(float rho_i, float p_i,
+                                             float rho_j, float p_j) {
+  return p_i / (rho_i * rho_i) + p_j / (rho_j * rho_j);
+}
+
+struct PressPair {  // x y z mask rho press -> 3 (mass^2 applied outside)
+  static constexpr int kIn = 6, kOut = 3, kMask = 3, kRho = 4, kPress = 5;
+  float h, h2, b;
+  __device__ __forceinline__ void operator()(const float* o, const float* c,
+                                             float* acc) const {
+    const float dx = c[0] - o[0], dy = c[1] - o[1], dz = c[2] - o[2];
+    const float d2 = dx * dx + dy * dy + dz * dz;
+    const bool live = (d2 > kEps) && (d2 < h2) && (c[kMask] > 0.0f);
+    const float inv_d = rsqrtf(live ? d2 : 1.0f);
+    const float dist = d2 * inv_d;
+    const float q1 = 1.0f - dist / h;
+    const float o1d = b * q1 * q1;
+    const float coeff = press_coeff(fmaxf(o[kRho], kEps), o[kPress],
+                                    fmaxf(c[kRho], kEps), c[kPress]);
+    const float s_p = live ? coeff * o1d * inv_d : 0.0f;
+    acc[0] += s_p * dx;
+    acc[1] += s_p * dy;
+    acc[2] += s_p * dz;
+  }
+};
+
+// value * d max(x, eps)/dx, with jnp.maximum's half at the tie.
+__device__ __forceinline__ float max_eps_grad(float x, float value) {
+  return (x > kEps) ? value : ((x == kEps) ? 0.5f * value : 0.0f);
+}
+
+// Backward pairs. `a` marks the pair live with own as receiver (cand's
+// mask), `bb` with own as source (own's mask: the role swap).
+
+// For W(d2) m_j both roles give W'(d2) (-2 d) (ct_i m_j + ct_j m_i) with
+// W' = -2 A q / h^2; the self pair has d = 0.
+struct DensityBwdPair {  // x y z mask ct -> dx dy dz
+  static constexpr int kIn = 5, kOut = 3, kMask = 3, kCt = 4;
+  float h2, a;
+  __device__ __forceinline__ void operator()(const float* o, const float* c,
+                                             float* acc) const {
+    const float dx = c[0] - o[0], dy = c[1] - o[1], dz = c[2] - o[2];
+    const float d2 = dx * dx + dy * dy + dz * dz;
+    const float q = 1.0f - d2 / h2;
+    const float s = (d2 < h2) ? (4.0f * a / h2) * q *
+                                    (o[kCt] * c[kMask] + c[kCt] * o[kMask])
+                              : 0.0f;
+    acc[0] += s * dx;
+    acc[1] += s * dy;
+    acc[2] += s * dz;
+  }
+};
+
+// g = coeff * phi(d2) * d, phi = B q1^2 / r. With e = bb ct_j - a ct_i:
+//   d/dx_i = coeff (2 phi'(d2) (e.d) d + phi e)
+//   d/dp_i = -phi (e.d) / rho_i^2,  d/drho_i = 2 phi (e.d) p_i / rho_i^3.
+struct PressBwdPair {  // x y z mask rho press ct0..2 -> dx dy dz drho dpress
+  static constexpr int kIn = 9, kOut = 5, kMask = 3, kRho = 4, kPress = 5,
+                       kCt = 6;
+  float h, h2, b;
+  __device__ __forceinline__ void operator()(const float* o, const float* c,
+                                             float* acc) const {
+    const float dx = c[0] - o[0], dy = c[1] - o[1], dz = c[2] - o[2];
+    const float d2 = dx * dx + dy * dy + dz * dz;
+    const bool near = (d2 > kEps) && (d2 < h2);
+    const bool a = near && (c[kMask] > 0.0f);
+    const bool bb = near && (o[kMask] > 0.0f);
+    const float inv_d = rsqrtf(near ? d2 : 1.0f);
+    const float dist = d2 * inv_d;
+    const float q1 = 1.0f - dist / h;
+    const float o1d = b * q1 * q1;
+    const float phi = o1d * inv_d;
+    const float inv_d2 = inv_d * inv_d;
+    const float dphi = -(b / h) * q1 * inv_d2 - 0.5f * o1d * inv_d2 * inv_d;
+    const float rho_i = fmaxf(o[kRho], kEps);
+    const float coeff =
+        press_coeff(rho_i, o[kPress], fmaxf(c[kRho], kEps), c[kPress]);
+    const float ex = (bb ? c[kCt] : 0.0f) - (a ? o[kCt] : 0.0f);
+    const float ey = (bb ? c[kCt + 1] : 0.0f) - (a ? o[kCt + 1] : 0.0f);
+    const float ez = (bb ? c[kCt + 2] : 0.0f) - (a ? o[kCt + 2] : 0.0f);
+    const float ed = ex * dx + ey * dy + ez * dz;
+    const float g = 2.0f * coeff * dphi * ed;
+    const float sp = coeff * phi;
+    const float t = phi * ed;
+    const float inv_r2 = 1.0f / (rho_i * rho_i);
+    acc[0] += g * dx + sp * ex;
+    acc[1] += g * dy + sp * ey;
+    acc[2] += g * dz + sp * ez;
+    acc[3] += max_eps_grad(o[kRho], 2.0f * t * o[kPress] * inv_r2 / rho_i);
+    acc[4] += -t * inv_r2;
+  }
+};
+
+// g = o2d(d2) / rho_j * (v_j - v_i). With e = bb ct_j / rho_i - a ct_i /
+// rho_j:  d/dx_i = 2 o2d'(d2) (e.dv) d,  d/dv_i = o2d e,
+// d/drho_i = bb o2d (ct_j.dv) / rho_i^2 (i's rho as the source's).
+struct ViscBwdPair {  // x y z vx vy vz mask rho ct0..2 -> 7
+  static constexpr int kIn = 11, kOut = 7, kMask = 6, kRho = 7, kCt = 8;
+  float h, h2, cw;
+  __device__ __forceinline__ void operator()(const float* o, const float* c,
+                                             float* acc) const {
+    const float dx = c[0] - o[0], dy = c[1] - o[1], dz = c[2] - o[2];
+    const float d2 = dx * dx + dy * dy + dz * dz;
+    const bool near = (d2 > kEps) && (d2 < h2);
+    const bool a = near && (c[kMask] > 0.0f);
+    const bool bb = near && (o[kMask] > 0.0f);
+    const float inv_d = rsqrtf(near ? d2 : 1.0f);
+    const float dist = d2 * inv_d;
+    const float o2d = cw * (1.0f - dist / h);
+    const float do2d = -0.5f * (cw / h) * inv_d;
+    const float inv_ri = 1.0f / fmaxf(o[kRho], kEps);
+    const float inv_rj = 1.0f / fmaxf(c[kRho], kEps);
+    const float ex = (bb ? c[kCt] * inv_ri : 0.0f) - (a ? o[kCt] * inv_rj : 0.0f);
+    const float ey =
+        (bb ? c[kCt + 1] * inv_ri : 0.0f) - (a ? o[kCt + 1] * inv_rj : 0.0f);
+    const float ez =
+        (bb ? c[kCt + 2] * inv_ri : 0.0f) - (a ? o[kCt + 2] * inv_rj : 0.0f);
+    const float dvx = c[3] - o[3], dvy = c[4] - o[4], dvz = c[5] - o[5];
+    const float g = 2.0f * do2d * (ex * dvx + ey * dvy + ez * dvz);
+    const float wdv =
+        bb ? (c[kCt] * dvx + c[kCt + 1] * dvy + c[kCt + 2] * dvz) * inv_ri
+           : 0.0f;
+    acc[0] += g * dx;
+    acc[1] += g * dy;
+    acc[2] += g * dz;
+    acc[3] += o2d * ex;
+    acc[4] += o2d * ey;
+    acc[5] += o2d * ez;
+    acc[6] += max_eps_grad(o[kRho], o2d * wdv * inv_ri);
+  }
+};
+
 // grid = (nx * ny interior columns, sub - 2 interior blocks), block = 128.
 template <class Pair>
 __global__ void __launch_bounds__(kBlock)
-sweep_kernel(const Pair pair, const SweepArgs args) {
+sweep_kernel(const Pair pair, const SweepArgs<Pair::kIn, Pair::kOut> args) {
   constexpr int C = Pair::kIn;
   extern __shared__ float smem[];  // [C][9][W]
 
@@ -198,100 +345,83 @@ sweep_kernel(const Pair pair, const SweepArgs args) {
 }
 
 template <class Pair>
-int launch(const Pair& pair, const SweepArgs& args, int nx, void* stream) {
-  const int smem = Pair::kIn * 9 * (kBlock + 2 * args.cap) *
+int launch(const Pair& pair, const float* const* in, float* const* out,
+           int nx, int ny, int sub, int cap, void* stream) {
+  SweepArgs<Pair::kIn, Pair::kOut> args{};
+  for (int i = 0; i < Pair::kIn; ++i) args.in[i] = in[i];
+  for (int o = 0; o < Pair::kOut; ++o) args.out[o] = out[o];
+  args.ny = ny;
+  args.py = ny + 2;
+  args.sub = sub;
+  args.cap = cap;
+  const int smem = Pair::kIn * 9 * (kBlock + 2 * cap) *
                    static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
       sweep_kernel<Pair>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(nx * args.ny),
-                  static_cast<unsigned>(args.sub - 2));
+  const dim3 grid(static_cast<unsigned>(nx * ny),
+                  static_cast<unsigned>(sub - 2));
   sweep_kernel<Pair><<<grid, kBlock, smem,
                        static_cast<cudaStream_t>(stream)>>>(pair, args);
   return static_cast<int>(cudaGetLastError());
 }
 
-SweepArgs make_args(int ny, int sub, int cap) {
-  SweepArgs a{};
-  a.ny = ny;
-  a.py = ny + 2;
-  a.sub = sub;
-  a.cap = cap;
-  return a;
-}
-
 }  // namespace
 
-// C interface, one launcher per sweep. Pointers are device pointers to
-// contiguous float32 planes of shape (rows, sub, 128); outputs must be
-// zero-filled by the caller. Returns the cudaError_t of the launch.
+// C interface, one launcher per sweep. `in` and `out` are host arrays of
+// device pointers to contiguous float32 planes of shape (rows, sub, 128), in
+// the channel order of each functor above; outputs must be zero-filled by
+// the caller. Returns the cudaError_t of the launch.
+#define DFT_SWEEP_ARGS                                                    \
+  const float* const* in, float* const* out, int nx, int ny, int sub, \
+      int cap
+#define DFT_SWEEP_PASS in, out, nx, ny, sub, cap, stream
+
 extern "C" {
 
-int dft_density_sweep(const float* x, const float* y, const float* z,
-                      const float* mask, float* out, int nx, int ny, int sub,
-                      int cap, float h2, float a, void* stream) {
-  SweepArgs args = make_args(ny, sub, cap);
-  const float* ins[] = {x, y, z, mask};
-  for (int i = 0; i < 4; ++i) args.in[i] = ins[i];
-  args.out[0] = out;
-  return launch(DensityPair{h2, a}, args, nx, stream);
+int dft_density_sweep(DFT_SWEEP_ARGS, float h2, float a, void* stream) {
+  return launch(DensityPair{h2, a}, DFT_SWEEP_PASS);
 }
 
-int dft_force_sweep(const float* x, const float* y, const float* z,
-                    const float* vx, const float* vy, const float* vz,
-                    const float* mask, const float* pq, const float* iv,
-                    float* fx, float* fy, float* fz, int nx, int ny, int sub,
-                    int cap, float h, float h2, float b, float cw, float mass2,
-                    float mu_mass, void* stream) {
-  SweepArgs args = make_args(ny, sub, cap);
-  const float* ins[] = {x, y, z, vx, vy, vz, mask, pq, iv};
-  for (int i = 0; i < 9; ++i) args.in[i] = ins[i];
-  args.out[0] = fx;
-  args.out[1] = fy;
-  args.out[2] = fz;
-  return launch(ForceFoldPair<true>{h, h2, b, cw, mass2, mu_mass}, args, nx,
-                stream);
+int dft_force_sweep(DFT_SWEEP_ARGS, float h, float h2, float b, float cw,
+                    float mass2, float mu_mass, void* stream) {
+  return launch(ForceFoldPair<true>{h, h2, b, cw, mass2, mu_mass},
+                DFT_SWEEP_PASS);
 }
 
-int dft_force_p_sweep(const float* x, const float* y, const float* z,
-                      const float* mask, const float* pq, float* fx,
-                      float* fy, float* fz, int nx, int ny, int sub, int cap,
-                      float h, float h2, float b, float mass2, void* stream) {
-  SweepArgs args = make_args(ny, sub, cap);
-  const float* ins[] = {x, y, z, mask, pq};
-  for (int i = 0; i < 5; ++i) args.in[i] = ins[i];
-  args.out[0] = fx;
-  args.out[1] = fy;
-  args.out[2] = fz;
-  return launch(ForceFoldPair<false>{h, h2, b, 0.0f, mass2, 0.0f}, args, nx,
-                stream);
+int dft_force_p_sweep(DFT_SWEEP_ARGS, float h, float h2, float b,
+                      float mass2, void* stream) {
+  return launch(ForceFoldPair<false>{h, h2, b, 0.0f, mass2, 0.0f},
+                DFT_SWEEP_PASS);
 }
 
-int dft_visc_sweep(const float* x, const float* y, const float* z,
-                   const float* vx, const float* vy, const float* vz,
-                   const float* mask, const float* rho, float* fx, float* fy,
-                   float* fz, int nx, int ny, int sub, int cap, float h,
-                   float h2, float cw, void* stream) {
-  SweepArgs args = make_args(ny, sub, cap);
-  const float* ins[] = {x, y, z, vx, vy, vz, mask, rho};
-  for (int i = 0; i < 8; ++i) args.in[i] = ins[i];
-  args.out[0] = fx;
-  args.out[1] = fy;
-  args.out[2] = fz;
-  return launch(ViscPair{h, h2, cw}, args, nx, stream);
+int dft_visc_sweep(DFT_SWEEP_ARGS, float h, float h2, float cw,
+                   void* stream) {
+  return launch(ViscPair{h, h2, cw}, DFT_SWEEP_PASS);
 }
 
-int dft_press_pq_sweep(const float* x, const float* y, const float* z,
-                       const float* mask, const float* pq, float* fx,
-                       float* fy, float* fz, int nx, int ny, int sub, int cap,
-                       float h2, float inv_h, float b, void* stream) {
-  SweepArgs args = make_args(ny, sub, cap);
-  const float* ins[] = {x, y, z, mask, pq};
-  for (int i = 0; i < 5; ++i) args.in[i] = ins[i];
-  args.out[0] = fx;
-  args.out[1] = fy;
-  args.out[2] = fz;
-  return launch(PressPqPair{h2, inv_h, b}, args, nx, stream);
+int dft_press_pq_sweep(DFT_SWEEP_ARGS, float h2, float inv_h, float b,
+                       void* stream) {
+  return launch(PressPqPair{h2, inv_h, b}, DFT_SWEEP_PASS);
+}
+
+int dft_press_sweep(DFT_SWEEP_ARGS, float h, float h2, float b,
+                    void* stream) {
+  return launch(PressPair{h, h2, b}, DFT_SWEEP_PASS);
+}
+
+int dft_density_bwd_sweep(DFT_SWEEP_ARGS, float h2, float a, void* stream) {
+  return launch(DensityBwdPair{h2, a}, DFT_SWEEP_PASS);
+}
+
+int dft_press_bwd_sweep(DFT_SWEEP_ARGS, float h, float h2, float b,
+                        void* stream) {
+  return launch(PressBwdPair{h, h2, b}, DFT_SWEEP_PASS);
+}
+
+int dft_visc_bwd_sweep(DFT_SWEEP_ARGS, float h, float h2, float cw,
+                       void* stream) {
+  return launch(ViscBwdPair{h, h2, cw}, DFT_SWEEP_PASS);
 }
 
 }  // extern "C"

@@ -4,8 +4,10 @@ The "weights" of this system are its state and parameters. The JAX package
 holds them as arrays that convert to numpy (`np.asarray`); these helpers take
 such numpy arrays (float64 is cast to float32, slot indices to int64) and
 give them back, so one numpy state feeds both packages and a JAX
-DensePlaneState resumes in the port. Nothing here imports JAX: a JAX state
-is converted with `np.asarray` on the caller's side.
+DensePlaneState resumes in the port. Static configs (FluidParams, SimConfig,
+DenseCellSpec) are rebuilt field for field from any object with the same
+fields. Nothing here imports JAX: a JAX state is converted with `np.asarray`
+on the caller's side.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from dieselfluid_tpu_torch.config import FluidParams, SimConfig
+from dieselfluid_tpu_torch.models.materials import Materials
 from dieselfluid_tpu_torch.models.particles import FluidState
 from dieselfluid_tpu_torch.ops.cellops import DenseCellSpec
 from dieselfluid_tpu_torch.solvers.dense_resident import DensePlaneState
@@ -80,8 +84,37 @@ def plane_state_to_numpy(ps: DensePlaneState) -> Dict[str, object]:
     return out
 
 
+def _same_fields(cls, obj):
+    return cls(**{f.name: getattr(obj, f.name)
+                  for f in dataclasses.fields(cls)})
+
+
 def cell_spec_from_jax(spec) -> DenseCellSpec:
     """The port's DenseCellSpec from any object with the JAX
     DenseCellSpec's fields (nx, ny, nz, capacity, cell, lo)."""
-    names = [f.name for f in dataclasses.fields(DenseCellSpec)]
-    return DenseCellSpec(**{n: getattr(spec, n) for n in names})
+    return _same_fields(DenseCellSpec, spec)
+
+
+def fluid_params_from(obj) -> FluidParams:
+    """The port's FluidParams from any object with its fields (the JAX
+    package's FluidParams, for one)."""
+    return _same_fields(FluidParams, obj)
+
+
+def sim_config_from(obj) -> SimConfig:
+    """The port's SimConfig from any object with its fields."""
+    return _same_fields(SimConfig, obj)
+
+
+def materials_from_numpy(mu, d0, tait_gamma, tait_w, mass, *, device,
+                         requires_grad: bool = False) -> Materials:
+    """Materials of 0-d float32 tensors on `device` from numpy-convertible
+    scalars (a JAX Materials' fields through `np.asarray`), each a leaf that
+    requires grad when `requires_grad`."""
+    def f(x):
+        return torch.tensor(float(np.asarray(x, np.float32)),
+                            dtype=torch.float32, device=device,
+                            requires_grad=requires_grad)
+
+    return Materials(mu=f(mu), d0=f(d0), tait_gamma=f(tait_gamma),
+                     tait_w=f(tait_w), mass=f(mass))

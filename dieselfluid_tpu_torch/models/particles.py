@@ -30,10 +30,13 @@ class FluidState(NamedTuple):
         return self.pos.shape[0]
 
 
-def gravity_force(params: FluidParams, n: int, device) -> torch.Tensor:
-    """(n, 3) gravity * mass, the force every frame starts from."""
+def gravity_force(params: FluidParams, n: int, device,
+                  mass=None) -> torch.Tensor:
+    """(n, 3) gravity * mass, the force every frame starts from; `mass` (a
+    traced Materials scalar) overrides params.mass."""
     g = torch.tensor(params.gravity, dtype=torch.float32, device=device)
-    return (g * params.mass).expand(n, 3).contiguous()
+    m = params.mass if mass is None else mass
+    return (g * m).expand(n, 3).contiguous()
 
 
 def init_lattice_state(n3: int, params: FluidParams, device,

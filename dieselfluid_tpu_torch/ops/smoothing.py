@@ -63,6 +63,11 @@ def grad_w(r: torch.Tensor, direction: torch.Tensor,
 
 
 def tait_eos(density: torch.Tensor, d0, p0=0.0, gamma=7.16, w=2.15):
-    """p = (w/gamma) ((rho/d0)^gamma - 1) + p0 with rho clamped to >= d0."""
-    x = torch.clamp(density, min=d0)
+    """p = (w/gamma) ((rho/d0)^gamma - 1) + p0 with rho clamped to >= d0.
+
+    d0, gamma and w may be 0-d tensors (traced Materials). The clamp is
+    `torch.maximum`, which like `jnp.maximum` splits the gradient at a tie
+    (`torch.clamp` with a tensor bound would give it all to `density`)."""
+    x = torch.maximum(density, torch.as_tensor(d0, dtype=density.dtype,
+                                               device=density.device))
     return (w / gamma) * (torch.pow(x / d0, gamma) - 1.0) + p0

@@ -1,32 +1,51 @@
-"""The forward SPH stencil sweeps over the dense cell planes.
+"""The SPH stencil sweeps over the dense cell planes, and their backward
+sweeps.
 
-Counterpart of the forward half of dieselfluid_tpu/ops/pallas_sph.py. Every
-sweep computes, for each occupied slot i of the (rows, sub, 128) planes,
+Counterpart of dieselfluid_tpu/ops/pallas_sph.py. Every sweep computes, for
+each occupied slot i of the (rows, sub, 128) planes,
 
     out_c[i] = mask_i * sum_j pair(own_i, cand_j)_c
 
-over the slots j of the 27 cells around i's cell. The four public sweeps keep
-the JAX names: `density_planes`, `force_planes` (forward only),
-`viscosity_force_planes` and `pressure_force_pq_planes` (no `active=`).
+over the slots j of the 27 cells around i's cell. The public sweeps keep the
+JAX names: `density_planes`, `pressure_force_planes` and
+`viscosity_force_planes` (differentiable), `force_planes` and
+`pressure_force_pq_planes` (forward only, no `active=`).
 
-Dispatch is by the device of the input planes:
+Gradients. Each public sweep is a `torch.autograd.Function`. For the three
+differentiable ones the backward is another stencil sweep, the adjoint the
+JAX package derives with `jax.vjp` inside its kernel (`_bwd_pair`), written
+here by hand: for f_i = sum_j g(u_i, u_j),
+
+    d/du_i = sum_j  d_own g(u_i, u_j)^T ct_i  +  d_cand g(u_j, u_i)^T ct_j
+
+over the same symmetric stencil, so it is a gather with no atomics. Its
+channels are the forward's plus the masked output cotangents ct_0..; its
+outputs are the gradients of every forward input but the mask, in order.
+`density_sum_bwd`, `press_sum_bwd` and `visc_sum_bwd` run these adjoint
+sweeps directly. `force_planes` (fused, K7 of PERF.md) and
+`pressure_force_pq_planes` have no adjoint yet and raise in backward: a
+gradient without their force term would be silently wrong.
+
+Dispatch is by the device of the input planes, forward and backward alike:
   * CUDA tensors launch the hand-written sm_90a kernel in csrc/sph_sweep.cu
     (one templated kernel, one pair functor per sweep), built by nvcc at the
     first launch (ops/_build.py). A failed build or launch raises; nothing
     falls back to the plain version.
   * CPU tensors run the plain torch version below: the same pair functions
-    over the same 27-cell candidate set, vectorized as (cells, cap, cap)
-    broadcasts per cell offset and chunked over x. The CPU tests use it and
-    chip_smoke.py holds each kernel against it on the card.
+    (term for term as the CUDA functors) over the same 27-cell candidate set,
+    vectorized as (cells, cap, cap) broadcasts per cell offset and chunked
+    over x. The backward runs the plain adjoint pairs, not autograd through
+    the plain forward, so the CPU tests check the hand derivation.
 
-`plain` holds the plain versions of the four public sweeps under the same
-names; they run on any device (for that comparison). Each CUDA launch adds
-one to its sweep's `launches` count (`SWEEPS`), so a run can show that its
-main path went through the kernels. Scales the JAX package applies outside
-its kernel (mass, mu*mass, mass^2) are applied here outside the kernel too,
-and every output is masked with `torch.where(mask > 0, out, 0)` as the JAX
-`_mask_where` does; slots the kernel does not compute, ghost rows included,
-read 0.
+`plain` holds the plain versions of the public sweeps and of the three
+adjoint sweeps under the same names; they run on any device (chip_smoke.py
+holds each kernel against them on the card). Each CUDA launch adds one to its
+sweep's `launches` count (`SWEEPS`). Scales the JAX package applies outside
+its kernel (mass, mu*mass, mass^2) are applied here outside the kernel too, so
+Materials gradients flow through plain torch. Cotangents are masked before a
+backward sweep and every output after a sweep with `torch.where(mask > 0,
+out, 0)` as the JAX `_mask_where` does; slots the kernel does not compute,
+ghost rows included, read 0.
 """
 
 from __future__ import annotations
@@ -35,7 +54,7 @@ import ctypes
 import dataclasses
 import functools
 from types import SimpleNamespace
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -48,8 +67,13 @@ SOURCE = "dieselfluid_tpu_torch/csrc/sph_sweep.cu"
 #: Kernel vs plain version: max |kernel - plain| / max |plain| per output.
 #: Both are float32; they differ in summation order, in nvcc's FMA
 #: contraction and in rsqrtf's 2-ulp approximation. Measured on an H100 at
-#: most 6.1e-7 (32^3 dam break, all four sweeps); the bound is 8x that.
+#: most 6.1e-7 (32^3 dam break, the forward sweeps); the bound is 8x that.
 KERNEL_REL_TOL = 5e-6
+#: The same for the backward sweeps, per output (the gradients of
+#: positions, densities and pressures differ in scale). Measured on an H100
+#: at most 4.7e-7 (pressure backward, 32^3 dam break, seeded cotangents);
+#: the bound is about 10x that.
+KERNEL_BWD_REL_TOL = 5e-6
 
 Planes = Dict[str, torch.Tensor]
 
@@ -60,14 +84,18 @@ Planes = Dict[str, torch.Tensor]
 # ---------------------------------------------------------------------------
 
 
+def _delta(own, cand):
+    dx = cand["x"] - own["x"]
+    dy = cand["y"] - own["y"]
+    dz = cand["z"] - own["z"]
+    return dx, dy, dz, dx * dx + dy * dy + dz * dz
+
+
 def _density_pair(k: KernelCoeffs):
     a_w, h2 = float(k.a), float(k.h) ** 2
 
     def pair(own, cand):
-        dx = cand["x"] - own["x"]
-        dy = cand["y"] - own["y"]
-        dz = cand["z"] - own["z"]
-        d2 = dx * dx + dy * dy + dz * dz
+        _, _, _, d2 = _delta(own, cand)
         q = 1.0 - d2 / h2
         w = torch.where(d2 < h2, a_w * q * q, 0.0) * cand["mask"]
         return (w,)
@@ -76,10 +104,7 @@ def _density_pair(k: KernelCoeffs):
 
 
 def _geom(own, cand, h2):
-    dx = cand["x"] - own["x"]
-    dy = cand["y"] - own["y"]
-    dz = cand["z"] - own["z"]
-    d2 = dx * dx + dy * dy + dz * dz
+    dx, dy, dz, d2 = _delta(own, cand)
     live = (d2 > _EPS) & (d2 < h2) & (cand["mask"] > 0)
     inv_d = torch.rsqrt(torch.where(live, d2, 1.0))
     return dx, dy, dz, d2, live, inv_d
@@ -138,6 +163,122 @@ def _press_pq_pair(k: KernelCoeffs):
     return pair
 
 
+def _press_coeff(own, cand):
+    """(p_i / max(rho_i, eps)^2 + p_j / max(rho_j, eps)^2, max(rho_i, eps))."""
+    rho_i = torch.clamp(own["rho"], min=_EPS)
+    rho_j = torch.clamp(cand["rho"], min=_EPS)
+    return (own["press"] / (rho_i * rho_i) + cand["press"] / (rho_j * rho_j),
+            rho_i)
+
+
+def _press_pair(k: KernelCoeffs):
+    h, b_w = float(k.h), float(k.b)
+    h2 = h * h
+
+    def pair(own, cand):
+        dx, dy, dz, d2, live, inv_d = _geom(own, cand, h2)
+        dist = d2 * inv_d
+        q1 = 1.0 - dist / h
+        o1d = b_w * q1 * q1
+        coeff, _ = _press_coeff(own, cand)
+        s_p = torch.where(live, coeff * o1d * inv_d, 0.0)
+        return (s_p * dx, s_p * dy, s_p * dz)
+
+    return pair
+
+
+# Adjoint pairs. `a` marks the pair live with own as receiver (cand's mask),
+# `b` with own as source (own's mask: the role swap). Every masked branch is
+# a select, never a multiply by the mask, so nothing computes 0 * inf.
+
+
+def _adjoint_geom(own, cand, h2):
+    dx, dy, dz, d2 = _delta(own, cand)
+    near = (d2 > _EPS) & (d2 < h2)
+    a = near & (cand["mask"] > 0)
+    b = near & (own["mask"] > 0)
+    inv_d = torch.rsqrt(torch.where(near, d2, 1.0))
+    return dx, dy, dz, a, b, d2 * inv_d, inv_d
+
+
+def _max_eps_grad(x, value):
+    """value * d max(x, eps)/dx, with jnp.maximum's half at the tie."""
+    return torch.where(x > _EPS, value,
+                       torch.where(x == _EPS, 0.5 * value, 0.0))
+
+
+def _density_bwd_pair(k: KernelCoeffs):
+    """For W(d2) m_j: both roles give W'(d2) (-2 d) (ct_i m_j + ct_j m_i)
+    with W' = -2 A q / h^2; the self pair has d = 0."""
+    a_w, h2 = float(k.a), float(k.h) ** 2
+
+    def pair(own, cand):
+        dx, dy, dz, d2 = _delta(own, cand)
+        q = 1.0 - d2 / h2
+        s = torch.where(d2 < h2, (4.0 * a_w / h2) * q
+                        * (own["ct_0"] * cand["mask"]
+                           + cand["ct_0"] * own["mask"]), 0.0)
+        return (s * dx, s * dy, s * dz)
+
+    return pair
+
+
+def _press_bwd_pair(k: KernelCoeffs):
+    """g = coeff * phi(d2) * d with phi = B q1^2 / r. With e = b ct_j - a ct_i
+    (the cotangents of the two roles; d flips sign with the role):
+      d/dx_i = coeff (2 phi'(d2) (e.d) d + phi e)
+      d/dp_i = -phi (e.d) / rho_i^2,  d/drho_i = 2 phi (e.d) p_i / rho_i^3."""
+    h, b_w = float(k.h), float(k.b)
+    h2 = h * h
+
+    def pair(own, cand):
+        dx, dy, dz, a, b, dist, inv_d = _adjoint_geom(own, cand, h2)
+        q1 = 1.0 - dist / h
+        o1d = b_w * q1 * q1
+        phi = o1d * inv_d
+        inv_d2 = inv_d * inv_d
+        dphi = -(b_w / h) * q1 * inv_d2 - 0.5 * o1d * inv_d2 * inv_d
+        coeff, rho_i = _press_coeff(own, cand)
+        e = [torch.where(b, cand[f"ct_{c}"], 0.0)
+             - torch.where(a, own[f"ct_{c}"], 0.0) for c in range(3)]
+        ed = e[0] * dx + e[1] * dy + e[2] * dz
+        g = 2.0 * coeff * dphi * ed
+        sp = coeff * phi
+        t = phi * ed
+        inv_r2 = 1.0 / (rho_i * rho_i)
+        return (g * dx + sp * e[0], g * dy + sp * e[1], g * dz + sp * e[2],
+                _max_eps_grad(own["rho"],
+                              2.0 * t * own["press"] * inv_r2 / rho_i),
+                -t * inv_r2)
+
+    return pair
+
+
+def _visc_bwd_pair(k: KernelCoeffs):
+    """g = o2d(d2) / rho_j * (v_j - v_i). With e = b ct_j / rho_i -
+    a ct_i / rho_j:  d/dx_i = 2 o2d'(d2) (e.dv) d,  d/dv_i = o2d e,
+    d/drho_i = b o2d (ct_j.dv) / rho_i^2 (i's rho as the source's)."""
+    h, c_w = float(k.h), float(k.c)
+    h2 = h * h
+
+    def pair(own, cand):
+        dx, dy, dz, a, b, dist, inv_d = _adjoint_geom(own, cand, h2)
+        o2d = c_w * (1.0 - dist / h)
+        do2d = -0.5 * (c_w / h) * inv_d
+        inv_ri = 1.0 / torch.clamp(own["rho"], min=_EPS)
+        inv_rj = 1.0 / torch.clamp(cand["rho"], min=_EPS)
+        e = [torch.where(b, cand[f"ct_{c}"] * inv_ri, 0.0)
+             - torch.where(a, own[f"ct_{c}"] * inv_rj, 0.0) for c in range(3)]
+        dv = [cand[v] - own[v] for v in ("vx", "vy", "vz")]
+        g = 2.0 * do2d * (e[0] * dv[0] + e[1] * dv[1] + e[2] * dv[2])
+        wdv = torch.where(b, (cand["ct_0"] * dv[0] + cand["ct_1"] * dv[1]
+                              + cand["ct_2"] * dv[2]) * inv_ri, 0.0)
+        return (g * dx, g * dy, g * dz, o2d * e[0], o2d * e[1], o2d * e[2],
+                _max_eps_grad(own["rho"], o2d * wdv * inv_ri))
+
+    return pair
+
+
 # ---------------------------------------------------------------------------
 # The sweep: plain torch version and CUDA launch
 # ---------------------------------------------------------------------------
@@ -156,23 +297,33 @@ class Sweep:
     launches: int = 0
 
 
+_PALLAS = "dieselfluid_tpu/ops/pallas_sph.py"
+_CT3 = ("ct_0", "ct_1", "ct_2")
+
 DENSITY = Sweep("density", "dft_density_sweep", ("x", "y", "z", "mask"), 1,
-                "dieselfluid_tpu/ops/pallas_sph.py:473")
+                f"{_PALLAS}:473")
 FORCE = Sweep("force", "dft_force_sweep",
               ("x", "y", "z", "vx", "vy", "vz", "mask", "pq", "iv"), 3,
-              "dieselfluid_tpu/ops/pallas_sph.py:593")
+              f"{_PALLAS}:593")
 FORCE_P = Sweep("force_p", "dft_force_p_sweep",
-                ("x", "y", "z", "mask", "pq"), 3,
-                "dieselfluid_tpu/ops/pallas_sph.py:593")
+                ("x", "y", "z", "mask", "pq"), 3, f"{_PALLAS}:593")
 VISC = Sweep("viscosity", "dft_visc_sweep",
              ("x", "y", "z", "vx", "vy", "vz", "mask", "rho"), 3,
-             "dieselfluid_tpu/ops/pallas_sph.py:752")
+             f"{_PALLAS}:752")
 PRESS_PQ = Sweep("pressure_pq", "dft_press_pq_sweep",
-                 ("x", "y", "z", "mask", "pq"), 3,
-                 "dieselfluid_tpu/ops/pallas_sph.py:825")
+                 ("x", "y", "z", "mask", "pq"), 3, f"{_PALLAS}:825")
+PRESS = Sweep("pressure", "dft_press_sweep",
+              ("x", "y", "z", "mask", "rho", "press"), 3, f"{_PALLAS}:684")
+DENSITY_BWD = Sweep("density_bwd", "dft_density_bwd_sweep",
+                    DENSITY.in_names + ("ct_0",), 3, f"{_PALLAS}:484")
+PRESS_BWD = Sweep("pressure_bwd", "dft_press_bwd_sweep",
+                  PRESS.in_names + _CT3, 5, f"{_PALLAS}:699")
+VISC_BWD = Sweep("viscosity_bwd", "dft_visc_bwd_sweep",
+                 VISC.in_names + _CT3, 7, f"{_PALLAS}:765")
 
-#: The four sweeps of the dense path (FORCE_P is force_planes at mu == 0).
-SWEEPS = (DENSITY, FORCE, VISC, PRESS_PQ)
+#: The sweeps of the dense paths (FORCE_P is force_planes at mu == 0).
+SWEEPS = (DENSITY, FORCE, VISC, PRESS_PQ, PRESS, DENSITY_BWD, PRESS_BWD,
+          VISC_BWD)
 
 
 def reset_launch_counts():
@@ -240,16 +391,18 @@ def _sweep_cuda(sweep: Sweep, ins: Sequence[torch.Tensor],
     if spec.nx * spec.ny >= 2 ** 31 or spec.sub - 2 > 65535:
         raise ValueError(f"domain too large for the sweep grid: {spec}")
     fn = getattr(load_library(), sweep.symbol)
-    n_ptr = len(ins) + sweep.n_out
-    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
                    + [ctypes.c_float] * len(consts) + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     with torch.cuda.device(ins[0].device):
         outs = [torch.zeros(spec.plane_shape, dtype=torch.float32,
                             device=ins[0].device) for _ in range(sweep.n_out)]
+        in_ptrs = (ctypes.c_void_p * len(ins))(*[p.data_ptr() for p in ins])
+        out_ptrs = (ctypes.c_void_p * len(outs))(
+            *[o.data_ptr() for o in outs])
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*[p.data_ptr() for p in ins], *[o.data_ptr() for o in outs],
-                 spec.nx, spec.ny, spec.sub, spec.capacity, *consts, stream)
+        err = fn(in_ptrs, out_ptrs, spec.nx, spec.ny, spec.sub,
+                 spec.capacity, *consts, stream)
     if err != 0:
         raise RuntimeError(f"{sweep.symbol} launch failed: cudaError {err}")
     sweep.launches += 1
@@ -284,15 +437,101 @@ def _mask_where(mask_plane: torch.Tensor, value_plane: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
+# Autograd: a forward sweep and its adjoint sweep
+# ---------------------------------------------------------------------------
+
+#: (Sweep, pair function, kernel constants) of one sweep.
+Op = Tuple[Sweep, Callable, Tuple[float, ...]]
+
+
+def _backward_sweep(run, spec: DenseCellSpec, adjoint: Op, ins: Planes,
+                    cts: Sequence[Optional[torch.Tensor]]
+                    ) -> List[torch.Tensor]:
+    """The adjoint sweep on the forward's input planes and the output
+    cotangents (None reads 0; expanded or strided ones are copied): masked
+    cotangents in, masked gradients out, one per forward input but the
+    mask, in order."""
+    sweep, pair, consts = adjoint
+    m = ins["mask"]
+    ins = dict(ins)
+    for o, ct in enumerate(cts):
+        ins[f"ct_{o}"] = (torch.zeros_like(m) if ct is None
+                          else _mask_where(m, ct).contiguous())
+    return [_mask_where(m, g) for g in run(sweep, pair, ins, spec, consts)]
+
+
+class _SweepFunction(torch.autograd.Function):
+    """A masked forward sweep whose backward is its adjoint sweep, run by
+    the same `run` (kernel on CUDA, plain on the CPU; plain anywhere for
+    `plain`). A sweep without an adjoint raises in backward."""
+
+    @staticmethod
+    def forward(ctx, run, spec, fwd: Op, adjoint: Optional[Op], *arrs):
+        sweep, pair, consts = fwd
+        ins = dict(zip(sweep.in_names, arrs))
+        ctx.set_materialize_grads(False)
+        ctx.run, ctx.spec, ctx.fwd, ctx.adjoint = run, spec, fwd, adjoint
+        ctx.save_for_backward(*arrs)
+        m = ins["mask"]
+        return tuple(_mask_where(m, o)
+                     for o in run(sweep, pair, ins, spec, consts))
+
+    @staticmethod
+    def backward(ctx, *cts):
+        sweep = ctx.fwd[0]
+        if ctx.adjoint is None:
+            raise NotImplementedError(
+                f"the {sweep.name} sweep ({sweep.replaces}) has no backward "
+                "sweep yet: the fused force_planes backward is K7 (ROADMAP "
+                "B8), and pressure_force_pq_planes is forward-only in the JAX "
+                "package too; differentiate through materials= / "
+                "unroll_for_grad=True, which use the factored sweeps")
+        ins = dict(zip(sweep.in_names, ctx.saved_tensors))
+        grads = iter(_backward_sweep(ctx.run, ctx.spec, ctx.adjoint, ins,
+                                     cts))
+        return (None,) * 4 + tuple(None if n == "mask" else next(grads)
+                                   for n in sweep.in_names)
+
+
+def _apply(run, spec: DenseCellSpec, fwd: Op, adjoint: Optional[Op],
+           ins: Planes):
+    return _SweepFunction.apply(run, spec, fwd, adjoint,
+                                *[ins[n] for n in fwd[0].in_names])
+
+
+def _density_ops(k: KernelCoeffs) -> Tuple[Op, Op]:
+    c = (float(k.h) ** 2, float(k.a))
+    return ((DENSITY, _density_pair(k), c),
+            (DENSITY_BWD, _density_bwd_pair(k), c))
+
+
+def _press_ops(k: KernelCoeffs) -> Tuple[Op, Op]:
+    h = float(k.h)
+    c = (h, h * h, float(k.b))
+    return (PRESS, _press_pair(k), c), (PRESS_BWD, _press_bwd_pair(k), c)
+
+
+def _visc_ops(k: KernelCoeffs) -> Tuple[Op, Op]:
+    h = float(k.h)
+    c = (h, h * h, float(k.c))
+    return (VISC, _visc_pair(k), c), (VISC_BWD, _visc_bwd_pair(k), c)
+
+
+# ---------------------------------------------------------------------------
 # Public sweeps (JAX names); `run` is _run or _run_plain
 # ---------------------------------------------------------------------------
 
 
+def _with(planes: Planes, **extra) -> Planes:
+    ins = dict(planes)
+    ins.update(extra)
+    return ins
+
+
 def _density(run, planes: Planes, spec: DenseCellSpec, k: KernelCoeffs,
-             mass: float) -> torch.Tensor:
-    (s,) = run(DENSITY, _density_pair(k), planes, spec,
-               (float(k.h) ** 2, float(k.a)))
-    return mass * _mask_where(planes["mask"], s)
+             mass) -> torch.Tensor:
+    (s,) = _apply(run, spec, *_density_ops(k), planes)
+    return mass * s
 
 
 def _force(run, planes: Planes, rho_plane: torch.Tensor,
@@ -300,49 +539,69 @@ def _force(run, planes: Planes, rho_plane: torch.Tensor,
            mass: float, mu: float):
     m = planes["mask"]
     rho_c = torch.clamp(rho_plane, min=_EPS)
-    ins = dict(planes)
-    ins["pq"] = torch.where(m > 0, press_plane / (rho_c * rho_c), 0.0)
+    ins = _with(planes, pq=torch.where(m > 0, press_plane / (rho_c * rho_c),
+                                       0.0))
     h = float(k.h)
     if mu == 0.0:
-        sweep = FORCE_P
-        consts = (h, h * h, float(k.b), mass * mass)
+        fwd = (FORCE_P, _force_fold_pair(k, mass, mu),
+               (h, h * h, float(k.b), mass * mass))
     else:
-        sweep = FORCE
         ins["iv"] = torch.where(m > 0, 1.0 / rho_c, 0.0)
-        consts = (h, h * h, float(k.b), float(k.c), mass * mass, mu * mass)
-    fx, fy, fz = run(sweep, _force_fold_pair(k, mass, mu), ins, spec, consts)
-    return _mask_where(m, fx), _mask_where(m, fy), _mask_where(m, fz)
+        fwd = (FORCE, _force_fold_pair(k, mass, mu),
+               (h, h * h, float(k.b), float(k.c), mass * mass, mu * mass))
+    return _apply(run, spec, fwd, None, ins)
+
+
+def _pressure(run, planes: Planes, rho_plane: torch.Tensor,
+              press_plane: torch.Tensor, spec: DenseCellSpec,
+              k: KernelCoeffs, mass):
+    fx, fy, fz = _apply(run, spec, *_press_ops(k),
+                        _with(planes, rho=rho_plane, press=press_plane))
+    m2 = mass * mass
+    return m2 * fx, m2 * fy, m2 * fz
 
 
 def _viscosity(run, planes: Planes, rho_plane: torch.Tensor,
-               spec: DenseCellSpec, k: KernelCoeffs, mass: float, mu: float):
-    ins = dict(planes)
-    ins["rho"] = rho_plane
-    h = float(k.h)
-    fx, fy, fz = run(VISC, _visc_pair(k), ins, spec, (h, h * h, float(k.c)))
-    m = planes["mask"]
+               spec: DenseCellSpec, k: KernelCoeffs, mass, mu):
+    fx, fy, fz = _apply(run, spec, *_visc_ops(k),
+                        _with(planes, rho=rho_plane))
     s = mu * mass
-    return (s * _mask_where(m, fx), s * _mask_where(m, fy),
-            s * _mask_where(m, fz))
+    return s * fx, s * fy, s * fz
 
 
 def _pressure_pq(run, planes: Planes, pq_plane: torch.Tensor,
-                 spec: DenseCellSpec, k: KernelCoeffs, mass: float):
-    ins = dict(planes)
-    ins["pq"] = pq_plane
+                 spec: DenseCellSpec, k: KernelCoeffs, mass):
     h = float(k.h)
-    fx, fy, fz = run(PRESS_PQ, _press_pq_pair(k), ins, spec,
-                     (h * h, 1.0 / h, float(k.b)))
-    m = planes["mask"]
+    fwd = (PRESS_PQ, _press_pq_pair(k), (h * h, 1.0 / h, float(k.b)))
+    fx, fy, fz = _apply(run, spec, fwd, None, _with(planes, pq=pq_plane))
     m2 = mass * mass
-    return (m2 * _mask_where(m, fx), m2 * _mask_where(m, fy),
-            m2 * _mask_where(m, fz))
+    return m2 * fx, m2 * fy, m2 * fz
+
+
+def _density_bwd(run, planes: Planes, ct: torch.Tensor, spec: DenseCellSpec,
+                 k: KernelCoeffs):
+    return _backward_sweep(run, spec, _density_ops(k)[1], planes, (ct,))
+
+
+def _press_bwd(run, planes: Planes, rho_plane: torch.Tensor,
+               press_plane: torch.Tensor, cts, spec: DenseCellSpec,
+               k: KernelCoeffs):
+    return _backward_sweep(run, spec, _press_ops(k)[1],
+                           _with(planes, rho=rho_plane, press=press_plane),
+                           cts)
+
+
+def _visc_bwd(run, planes: Planes, rho_plane: torch.Tensor, cts,
+              spec: DenseCellSpec, k: KernelCoeffs):
+    return _backward_sweep(run, spec, _visc_ops(k)[1],
+                           _with(planes, rho=rho_plane), cts)
 
 
 def density_planes(planes: Planes, spec: DenseCellSpec, k: KernelCoeffs,
-                   mass: float) -> torch.Tensor:
+                   mass) -> torch.Tensor:
     """rho plane from x/y/z/mask planes: mass * sum_j A (1 - d^2/h^2)^2
-    over d < h, self term included."""
+    over d < h, self term included. Differentiable in the positions and in
+    `mass` (which may be a 0-d tensor)."""
     return _density(_run, planes, spec, k, mass)
 
 
@@ -351,30 +610,68 @@ def force_planes(planes: Planes, rho_plane: torch.Tensor,
                  k: KernelCoeffs, mass: float, mu: float):
     """(fx, fy, fz): symmetric pressure force + viscosity, with the per-slot
     folds pq = p / max(rho, eps)^2 and iv = 1 / max(rho, eps) built outside
-    the sweep. mu == 0 runs the pressure-only sweep, which reads no velocity
-    planes. Forward only."""
+    the sweep and mass, mu baked into the kernel. mu == 0 runs the
+    pressure-only sweep, which reads no velocity planes. Forward only: its
+    backward raises."""
     return _force(_run, planes, rho_plane, press_plane, spec, k, mass, mu)
 
 
+def pressure_force_planes(planes: Planes, rho_plane: torch.Tensor,
+                          press_plane: torch.Tensor, spec: DenseCellSpec,
+                          k: KernelCoeffs, mass):
+    """Symmetric pressure force from unfolded rho/press planes, mass^2
+    applied outside the sweep (`mass` may be a 0-d tensor). Differentiable
+    in positions, rho, press and mass."""
+    return _pressure(_run, planes, rho_plane, press_plane, spec, k, mass)
+
+
 def viscosity_force_planes(planes: Planes, rho_plane: torch.Tensor,
-                           spec: DenseCellSpec, k: KernelCoeffs, mass: float,
-                           mu: float):
-    """Laplacian viscosity force, mu * mass applied outside the sweep."""
+                           spec: DenseCellSpec, k: KernelCoeffs, mass, mu):
+    """Laplacian viscosity force, mu * mass applied outside the sweep (both
+    may be 0-d tensors). Differentiable in positions, velocities, rho, mass
+    and mu."""
     return _viscosity(_run, planes, rho_plane, spec, k, mass, mu)
 
 
 def pressure_force_pq_planes(planes: Planes, pq_plane: torch.Tensor,
-                             spec: DenseCellSpec, k: KernelCoeffs,
-                             mass: float):
+                             spec: DenseCellSpec, k: KernelCoeffs, mass):
     """Pressure force from a prefolded pq = press / rho_ff^2 plane; the
-    mass^2 scale applies outside the sweep."""
+    mass^2 scale applies outside the sweep. Forward only: its backward
+    raises."""
     return _pressure_pq(_run, planes, pq_plane, spec, k, mass)
 
 
-#: The plain versions of the four public sweeps, same names and arguments,
-#: on any device: the reference each kernel is held against on the card.
+def density_sum_bwd(planes: Planes, ct: torch.Tensor, spec: DenseCellSpec,
+                    k: KernelCoeffs):
+    """[d/dx, d/dy, d/dz] of sum(ct * mask-free density sum): the adjoint
+    sweep density_planes' backward runs (mass applied outside)."""
+    return _density_bwd(_run, planes, ct, spec, k)
+
+
+def press_sum_bwd(planes: Planes, rho_plane: torch.Tensor,
+                  press_plane: torch.Tensor, cts, spec: DenseCellSpec,
+                  k: KernelCoeffs):
+    """[d/dx, d/dy, d/dz, d/drho, d/dpress] of the mass-free pressure sum
+    against the cotangents (ct_x, ct_y, ct_z)."""
+    return _press_bwd(_run, planes, rho_plane, press_plane, cts, spec, k)
+
+
+def visc_sum_bwd(planes: Planes, rho_plane: torch.Tensor, cts,
+                 spec: DenseCellSpec, k: KernelCoeffs):
+    """[d/dx, d/dy, d/dz, d/dvx, d/dvy, d/dvz, d/drho] of the mu*mass-free
+    viscosity sum against the cotangents (ct_x, ct_y, ct_z)."""
+    return _visc_bwd(_run, planes, rho_plane, cts, spec, k)
+
+
+#: The plain versions of the public sweeps and adjoint sweeps, same names
+#: and arguments, on any device: the reference each kernel is held against
+#: on the card (differentiable through the plain adjoints).
 plain = SimpleNamespace(
     density_planes=functools.partial(_density, _run_plain),
     force_planes=functools.partial(_force, _run_plain),
+    pressure_force_planes=functools.partial(_pressure, _run_plain),
     viscosity_force_planes=functools.partial(_viscosity, _run_plain),
-    pressure_force_pq_planes=functools.partial(_pressure_pq, _run_plain))
+    pressure_force_pq_planes=functools.partial(_pressure_pq, _run_plain),
+    density_sum_bwd=functools.partial(_density_bwd, _run_plain),
+    press_sum_bwd=functools.partial(_press_bwd, _run_plain),
+    visc_sum_bwd=functools.partial(_visc_bwd, _run_plain))

@@ -9,10 +9,19 @@ The PCISPH correction loop, a `lax.while_loop` in the JAX package, is a
 Python loop here: each iteration reads one scalar (`err.item()`, a host
 sync) against `pci_max_iters` and `pci_max_density_error_ratio`.
 
-Not ported in this slice (each raises NotImplementedError): `materials=`
-(traced material gradients), `unroll_for_grad=True` (reverse-differentiable
-PCISPH) and `column_skip=True` (active-gated sweeps) — ROADMAP A7 and B11 —
-and `collider=` (geometry/mesh.py is not ported yet, ROADMAP A10).
+Gradients (the training path). `materials=` (models.materials.Materials)
+supplies traced mass, mu, d0, tait_gamma and tait_w: every material scale is
+applied outside the sweeps, and WCSPH then runs the two factored sweeps
+(pressure + viscosity) in place of the fused, forward-only force sweep.
+`unroll_for_grad=True` replaces the PCISPH correction loop by a fixed
+number of particle-resident iterations (the JAX `body`, differentiated as
+JAX differentiates its `lax.scan`), each rematerialized in the backward pass
+on CUDA (`torch.utils.checkpoint`). Backward sweeps run as hand-written
+kernels on CUDA and as their plain adjoints on the CPU.
+
+Not ported (each raises NotImplementedError): `column_skip=True`
+(active-gated sweeps, ROADMAP B11) and `collider=` (geometry/mesh.py,
+ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from dieselfluid_tpu_torch.config import FluidParams
 from dieselfluid_tpu_torch.models.particles import FluidState
@@ -35,6 +45,7 @@ from dieselfluid_tpu_torch.ops.smoothing import KernelCoeffs, tait_eos
 from dieselfluid_tpu_torch.ops.sph_sweep import (
     density_planes,
     force_planes,
+    pressure_force_planes,
     pressure_force_pq_planes,
     viscosity_force_planes,
 )
@@ -47,16 +58,7 @@ from dieselfluid_tpu_torch.solvers.integrate import (
 _BOX = ((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0))
 
 
-def _not_ported(collider=None, materials=None, unroll_for_grad=False,
-                column_skip=False):
-    if materials is not None:
-        raise NotImplementedError(
-            "materials= (traced Materials gradients) is not ported yet: "
-            "ROADMAP A7 (gradient slice)")
-    if unroll_for_grad:
-        raise NotImplementedError(
-            "unroll_for_grad=True (differentiable PCISPH) is not ported yet: "
-            "ROADMAP A7 (gradient slice)")
+def _not_ported(collider=None, column_skip=False):
     if column_skip:
         raise NotImplementedError(
             "column_skip=True (active-gated sweeps) is not ported yet: "
@@ -64,6 +66,23 @@ def _not_ported(collider=None, materials=None, unroll_for_grad=False,
     if collider is not None:
         raise NotImplementedError(
             "collider= needs geometry/mesh.py, not ported yet: ROADMAP A10")
+
+
+def _rematerialize(device) -> bool:
+    """Whether the unrolled PCISPH recomputes each iteration in the backward
+    pass: on CUDA, where the planes of every iteration would otherwise stay
+    in memory (the JAX package remats on the chip only, dense_step.py:476)."""
+    return device.type == "cuda"
+
+
+def _material_scalars(params: FluidParams, materials):
+    """(mass, mu, d0, gamma, w): the traced Materials when given, the
+    static FluidParams otherwise."""
+    if materials is None:
+        return (params.mass, params.mu, params.d0, params.tait_gamma,
+                params.tait_w)
+    return (materials.mass, materials.mu, materials.d0,
+            materials.tait_gamma, materials.tait_w)
 
 
 def _gravity(params: FluidParams, device) -> torch.Tensor:
@@ -91,21 +110,30 @@ def dense_density_forces(state: FluidState, params: FluidParams,
     """(rho, pressure, force, overflow) for the current positions, fluid
     particles only. Overflowed particles get rho = d0 and zero interaction
     force (every gather is masked with `valid`: their clamped slot aliases a
-    live one)."""
-    _not_ported(materials=materials)
-    mass, d0 = params.mass, params.d0
+    live one).
+
+    Without `materials` the force is the fused forward-only sweep (mass and
+    mu baked in); with them it is the factored pressure + viscosity sweeps,
+    with every material scale applied outside the kernels."""
+    mass, mu, d0, gamma, w = _material_scalars(params, materials)
     n = state.pos.shape[0]
     pos, vel = _boundary_extended(state)
     flat, valid, overflow = dense_indices(pos, spec)
     planes = _pos_vel_planes(pos, vel, flat, valid, spec)
     k = KernelCoeffs.build(params.h)
     rho_plane = density_planes(planes, spec, k, mass)
-    press_plane = torch.where(
-        planes["mask"] > 0,
-        tait_eos(rho_plane, d0, params.p0, params.tait_gamma, params.tait_w),
-        0.0)
-    fx_p, fy_p, fz_p = force_planes(planes, rho_plane, press_plane, spec, k,
-                                    mass, float(params.mu))
+    press_plane = torch.where(planes["mask"] > 0,
+                              tait_eos(rho_plane, d0, params.p0, gamma, w),
+                              0.0)
+    if materials is None:
+        fx_p, fy_p, fz_p = force_planes(planes, rho_plane, press_plane, spec,
+                                        k, mass, float(mu))
+    else:
+        px, py, pz = pressure_force_planes(planes, rho_plane, press_plane,
+                                           spec, k, mass)
+        vx, vy, vz = viscosity_force_planes(planes, rho_plane, spec, k, mass,
+                                            mu)
+        fx_p, fy_p, fz_p = px + vx, py + vy, pz + vz
     flat_f, valid_f = flat[:n], valid[:n]
     out = gather_planes([rho_plane, press_plane, fx_p, fy_p, fz_p], flat_f)
     rho = torch.where(valid_f, out[:, 0], d0)
@@ -119,12 +147,16 @@ def dense_wcsph_step(state: FluidState, params: FluidParams,
                      collider=None, materials=None
                      ) -> Tuple[FluidState, StepDiagnostics]:
     """One WCSPH frame on the dense pipeline. diag.overflow counts particles
-    dropped for cell capacity (nonzero: raise the spec's capacity)."""
-    _not_ported(collider=collider, materials=materials)
-    rho, pressure, f, overflow = dense_density_forces(state, params, spec)
-    gravity = _gravity(params, state.pos.device) * params.mass
+    dropped for cell capacity (nonzero: raise the spec's capacity).
+    `materials` makes the step differentiable in the Materials (and in the
+    state) through the factored sweeps."""
+    _not_ported(collider=collider)
+    mass = params.mass if materials is None else materials.mass
+    rho, pressure, f, overflow = dense_density_forces(state, params, spec,
+                                                      materials)
+    gravity = _gravity(params, state.pos.device) * mass
     state = state._replace(density=rho, pressure=pressure, force=gravity + f)
-    state, diag = semi_implicit_euler(state, params)
+    state, diag = semi_implicit_euler(state, params, mass=mass)
     diag = diag._replace(overflow=overflow)
     if bounds is not None:
         state = box_collide(state, *bounds)
@@ -140,15 +172,23 @@ def external_force_planes(visc_planes, params: FluidParams):
 
 
 def pcisph_correction_loop(planes, fluid_occ, extf, press0, spec, k,
-                           params: FluidParams, delta: float):
+                           params: FluidParams, delta: float, mass=None,
+                           d0=None):
     """The plane-resident PCISPH correction loop shared by the per-step and
     resident solvers: per iteration, predict positions in plane form,
     sweep density at them, accumulate pressure, sweep the prefolded pressure
     force. Two sweeps and elementwise plane math per iteration; the exit test
     reads one scalar on the host.
 
+    `mass` and `d0` default to the params' and may be 0-d tensors (traced
+    Materials): a gradient through them then reaches the prefolded pressure
+    sweep, whose backward raises, as reverse mode through the JAX
+    while_loop does.
+
     Returns (iterations, pressure plane, (fpx, fpy, fpz) planes)."""
-    mass, d0, dt = params.mass, params.d0, params.dt
+    mass = params.mass if mass is None else mass
+    d0 = params.d0 if d0 is None else d0
+    dt = params.dt
     mask_p = planes["mask"]
     vels = (planes["vx"], planes["vy"], planes["vz"])
     poss = (planes["x"], planes["y"], planes["z"])
@@ -185,14 +225,20 @@ def dense_pcisph_step(state: FluidState, params: FluidParams,
                       warm_start: bool = False, column_skip: bool = False,
                       unroll_iters: Optional[int] = None
                       ) -> Tuple[FluidState, StepDiagnostics]:
-    """One PCISPH frame on the dense pipeline (the JAX `plane_loop` path).
+    """One PCISPH frame on the dense pipeline.
 
     The binning is frozen for the frame (pre-step positions) while the
     predicted positions update the plane values each correction iteration.
     `warm_start=True` keeps the accumulated pressure in the returned state
-    for the next frame's loop."""
-    _not_ported(collider, materials, unroll_for_grad, column_skip)
-    mass, mu, d0 = params.mass, float(params.mu), params.d0
+    for the next frame's loop. `materials` supplies traced mass/mu/d0.
+
+    The default correction loop is the JAX `plane_loop` (forward only: its
+    prefolded pressure sweep has no backward, so a gradient through it, to
+    the state or to the Materials, raises). `unroll_for_grad=True` runs
+    the JAX `body` instead, particle-resident, for exactly `unroll_iters`
+    (default `pci_max_iters`) iterations, so the step is differentiable."""
+    _not_ported(collider, column_skip)
+    mass, mu, d0, _, _ = _material_scalars(params, materials)
     k = KernelCoeffs.build(params.h)
     dev = state.pos.device
     n = state.pos.shape[0]
@@ -209,37 +255,88 @@ def dense_pcisph_step(state: FluidState, params: FluidParams,
     gravity = _gravity(params, dev) * mass
     ext_force = gravity + visc
 
+    has_boundary = state.boundary_pos is not None
+
     def to_plane(values_f, boundary_value=None):
         """Per-fluid values -> plane over the frozen binning; boundary slots
-        get boundary_value."""
+        get boundary_value (a number or a 0-d tensor)."""
         out = torch.zeros(spec.size, dtype=torch.float32, device=dev)
         out.index_put_((torch.where(valid_f, flat_f, 0),),
                        torch.where(valid_f, values_f, 0.0), accumulate=True)
-        if state.boundary_pos is not None and boundary_value is not None:
+        if has_boundary and boundary_value is not None:
             flat_b, valid_b = flat[n:], valid[n:]
-            vals = torch.full(flat_b.shape, boundary_value,
-                              dtype=torch.float32, device=dev)
+            bv = torch.as_tensor(boundary_value, dtype=torch.float32,
+                                 device=dev)
             out.index_put_((torch.where(valid_b, flat_b, 0),),
-                           torch.where(valid_b, vals, 0.0), accumulate=True)
+                           torch.where(valid_b, bv, 0.0), accumulate=True)
         return out.view(spec.plane_shape)
 
-    occ = planes["mask"] > 0
-    bnd_p = to_plane(torch.zeros((n,), dtype=torch.float32, device=dev),
-                     boundary_value=1.0)
-    fluid_occ = occ & (bnd_p == 0)
-    extf = external_force_planes((vx_p, vy_p, vz_p), params)
-    it, press_plane, fps = pcisph_correction_loop(
-        planes, fluid_occ, extf, to_plane(state.pressure), spec, k, params,
-        delta)
-    # Back to particle-resident state, once. Overflowed particles: zero
-    # interaction force, pressure = clamp(initial).
-    pressure = torch.where(valid_f, gather_plane(press_plane, flat_f),
-                           torch.clamp(state.pressure, min=0.0))
-    f_p = torch.where(valid_f[:, None], gather_planes(list(fps), flat_f), 0.0)
+    if unroll_for_grad:
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        d0_t = torch.as_tensor(d0, dtype=torch.float32, device=dev)
+        # Bound here, not read from `state` in the body: a checkpointed
+        # body reruns in the backward pass, after `state` is rebound below.
+        pos_in, vel_in, bnd_in = state.pos, state.vel, state.boundary_pos
+
+        def body(pressure, f_p):
+            """One correction iteration, particle-resident: predict, scatter
+            the predicted positions into the frozen binning, sweep density,
+            accumulate pressure, sweep the pressure force on the unfolded
+            rho/press planes at the pre-step positions, gather."""
+            accel = (ext_force + f_p) / mass
+            vel_star = vel_in + accel * params.dt
+            pos_star = pos_in + vel_star * params.dt
+            if bnd_in is not None:
+                pos_star = torch.cat([pos_star, bnd_in], dim=0)
+            p_star = build_planes(
+                {"x": pos_star[:, 0], "y": pos_star[:, 1],
+                 "z": pos_star[:, 2]}, flat, valid, spec,
+                mask=planes["mask"])
+            rho_star = torch.where(
+                valid_f, gather_plane(density_planes(p_star, spec, k, mass),
+                                      flat_f), d0)
+            # torch.maximum splits the gradient at a tie, as jnp.maximum
+            # does (an overflowed particle's err is exactly 0).
+            pressure = torch.maximum(pressure + delta * (rho_star - d0),
+                                     zero)
+            # Boundary slots: zero pressure, rest density as the divisor.
+            rff_plane = to_plane(torch.maximum(rho_star, 0.5 * d0_t),
+                                 boundary_value=d0)
+            fps = pressure_force_planes(planes, rff_plane, to_plane(pressure),
+                                        spec, k, mass)
+            f_p = torch.where(valid_f[:, None], gather_planes(fps, flat_f),
+                              0.0)
+            return pressure, f_p
+
+        # Iteration zero accumulates onto state.pressure from a zero force.
+        pressure, f_p = state.pressure, torch.zeros_like(state.force)
+        it = unroll_iters or params.pci_max_iters
+        for _ in range(it):
+            if _rematerialize(dev):
+                pressure, f_p = checkpoint(body, pressure, f_p,
+                                           use_reentrant=False)
+            else:
+                pressure, f_p = body(pressure, f_p)
+    else:
+        occ = planes["mask"] > 0
+        bnd_p = to_plane(torch.zeros((n,), dtype=torch.float32, device=dev),
+                         boundary_value=1.0)
+        fluid_occ = occ & (bnd_p == 0)
+        extf = tuple(v + gravity[ax]
+                     for ax, v in enumerate((vx_p, vy_p, vz_p)))
+        it, press_plane, fps = pcisph_correction_loop(
+            planes, fluid_occ, extf, to_plane(state.pressure), spec, k,
+            params, delta, mass=mass, d0=d0)
+        # Back to particle-resident state, once. Overflowed particles: zero
+        # interaction force, pressure = clamp(initial).
+        pressure = torch.where(valid_f, gather_plane(press_plane, flat_f),
+                               torch.clamp(state.pressure, min=0.0))
+        f_p = torch.where(valid_f[:, None], gather_planes(list(fps), flat_f),
+                          0.0)
 
     state = state._replace(density=rho, pressure=pressure,
                            force=ext_force + f_p)
-    state, diag = semi_implicit_euler(state, params)
+    state, diag = semi_implicit_euler(state, params, mass=mass)
     if warm_start:
         state = state._replace(pressure=pressure)
     diag = diag._replace(overflow=overflow, iters=it)

@@ -23,11 +23,15 @@ class StepDiagnostics(NamedTuple):
     iters: Union[torch.Tensor, int] = 0
 
 
-def semi_implicit_euler(state: FluidState, params: FluidParams
+def semi_implicit_euler(state: FluidState, params: FluidParams, mass=None
                         ) -> Tuple[FluidState, StepDiagnostics]:
     """a = F/m; v += a dt; x += v dt; then pressure := 0 and
-    force := gravity * mass for the next frame."""
-    m = params.mass
+    force := gravity * mass for the next frame.
+
+    `mass` (a traced Materials scalar) overrides params.mass, in the
+    acceleration and in the reset gravity force, so d(step)/d(mass) is
+    complete."""
+    m = params.mass if mass is None else mass
     a = state.force / m
     vel = state.vel + a * params.dt
     pos = state.pos + vel * params.dt
@@ -38,7 +42,7 @@ def semi_implicit_euler(state: FluidState, params: FluidParams
     new = state._replace(
         pos=pos,
         vel=vel,
-        force=gravity_force(params, pos.shape[0], pos.device),
+        force=gravity_force(params, pos.shape[0], pos.device, mass),
         pressure=torch.zeros_like(state.pressure),
     )
     return new, diag

@@ -14,13 +14,14 @@ import numpy as np
 import pytest
 import torch
 
-from dieselfluid_tpu.config import FluidParams
+from dieselfluid_tpu.config import FluidParams, SimConfig
 from dieselfluid_tpu.models import particles as jparticles
 from dieselfluid_tpu.neighbors import calibrate as jcalibrate
 from dieselfluid_tpu.ops import cellops as jcellops
 from dieselfluid_tpu.ops import smoothing as jsm
 from dieselfluid_tpu.solvers import integrate as jintegrate
 from dieselfluid_tpu.solvers import pcisph as jpcisph
+from dieselfluid_tpu_torch import config as tconfig
 from dieselfluid_tpu_torch import interop
 from dieselfluid_tpu_torch.geometry.grid import kern_grid
 from dieselfluid_tpu_torch.models import particles
@@ -84,9 +85,10 @@ def test_tait_eos_matches_jax():
 def test_lattice_rest_density_and_pci_delta_match_jax(n3):
     dx = (2.0 / n3) * 0.5
     params = FluidParams.for_spacing(dx)
-    got = lattice_rest_density(dx, params)
+    got = lattice_rest_density(dx, interop.fluid_params_from(params))
     want = jcalibrate.lattice_rest_density(dx, params)
-    assert got == want       # numpy float64 on both sides: identical
+    # numpy float64 on both sides: identical
+    assert got == interop.fluid_params_from(want)
     # Kernel gradients in float32 on both sides, sums in numpy.
     np.testing.assert_allclose(compute_pci_delta(got, dx),
                                jpcisph.compute_pci_delta(want, dx),
@@ -96,7 +98,8 @@ def test_lattice_rest_density_and_pci_delta_match_jax(n3):
 @pytest.mark.parametrize("n3", [8, 16])
 def test_dam_break_state_equal(n3):
     params = FluidParams.for_spacing(1.0 / n3)
-    got = particles.dam_break_state(n3, params, "cpu", extent=0.5)
+    got = particles.dam_break_state(n3, interop.fluid_params_from(params),
+                                    "cpu", extent=0.5)
     want = jparticles.dam_break_state(n3, params, extent=0.5)
     for f in ("pos", "vel", "force", "density", "pressure"):
         np.testing.assert_array_equal(getattr(got, f).numpy(),
@@ -129,7 +132,8 @@ def test_semi_implicit_euler_and_box_collide_match_jax(random_state):
     ts = interop.fluid_state_from_numpy(**random_state, device="cpu")
     js = jparticles.FluidState(**{k: jnp.asarray(v)
                                   for k, v in random_state.items()})
-    got, gd = integrate.semi_implicit_euler(ts, params)
+    got, gd = integrate.semi_implicit_euler(
+        ts, interop.fluid_params_from(params))
     want, wd = jintegrate.semi_implicit_euler(js, params)
     got = integrate.box_collide(got)
     want = jintegrate.box_collide(want)
@@ -166,28 +170,96 @@ def test_cell_spec_from_jax_field_for_field():
     assert spec.plane_shape == (10609, 15, 128)
 
 
+def test_config_is_the_ports_own_copy_field_for_field():
+    """The port's FluidParams/SimConfig are its own classes with the JAX
+    package's fields, defaults and constructors; interop converts both
+    ways."""
+    import dataclasses
+
+    assert tconfig.FluidParams is not FluidParams
+    for tcls, jcls in ((tconfig.FluidParams, FluidParams),
+                       (tconfig.SimConfig, SimConfig)):
+        tf, jf = dataclasses.fields(tcls), dataclasses.fields(jcls)
+        assert [(f.name, f.default) for f in tf] == \
+            [(f.name, f.default) for f in jf]
+    for got, want in (
+            (tconfig.FluidParams(), FluidParams()),
+            (tconfig.FluidParams.for_spacing(0.01),
+             FluidParams.for_spacing(0.01)),
+            (tconfig.FluidParams.for_spacing(0.03, 2.5, 1.3, 30.0, 0.2),
+             FluidParams.for_spacing(0.03, 2.5, 1.3, 30.0, 0.2)),
+            (tconfig.FluidParams.reference_lattice(16, 1.5),
+             FluidParams.reference_lattice(16, 1.5))):
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        assert interop.fluid_params_from(want) == got
+    p = tconfig.FluidParams().replace(mu=0.3, pci_max_iters=3)
+    assert (p.mu, p.pci_max_iters) == (0.3, 3)
+    cfg = SimConfig(n3=12, solver="pcisph", neighbors="dense",
+                    warm_start=True)
+    tcfg = interop.sim_config_from(cfg)
+    assert tcfg.to_json() == cfg.to_json()
+    assert tconfig.SimConfig.from_json(cfg.to_json()) == tcfg
+    m = interop.materials_from_numpy(*(np.float64(v) for v in (
+        0.05, 1000.0, 7.16, 6.25e5, 1.0)), device="cpu", requires_grad=True)
+    assert all(t.dtype == torch.float32 and t.shape == () and t.is_leaf
+               and t.requires_grad for t in m)
+    assert m.tait_w.item() == 6.25e5
+
+
 def test_import_pulls_in_no_jax():
-    code = ("import sys, dieselfluid_tpu_torch, dieselfluid_tpu_torch.interop, "
+    code = ("import sys, dieselfluid_tpu_torch, "
+            "dieselfluid_tpu_torch.interop, "
             "dieselfluid_tpu_torch.models.sph, "
+            "dieselfluid_tpu_torch.models.materials, "
             "dieselfluid_tpu_torch.solvers.dense_resident; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
-            "if m.startswith('jax'))")
+            "if m.startswith('jax')); "
+            "ref = [m for m in sys.modules if m == 'dieselfluid_tpu' "
+            "or m.startswith('dieselfluid_tpu.')]; "
+            "assert not ref, ref")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 
 
 def test_unported_options_raise():
-    from dieselfluid_tpu_torch.config import SimConfig
     from dieselfluid_tpu_torch.models.sph import Simulation
     from dieselfluid_tpu_torch.ops.cellops import DenseCellSpec
     from dieselfluid_tpu_torch.solvers import dense_step
 
     for nb in ("cellgrid", "bruteforce"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Simulation.create(SimConfig(n3=4, neighbors=nb), device="cpu")
-    params = FluidParams.for_spacing(0.25)
+            Simulation.create(tconfig.SimConfig(n3=4, neighbors=nb),
+                              device="cpu")
+    params = tconfig.FluidParams.for_spacing(0.25)
     s = particles.dam_break_state(4, params, "cpu")
     spec = DenseCellSpec.for_domain((-1,) * 3, (1,) * 3, params.h)
-    for kw in ({"materials": object()}, {"unroll_for_grad": True},
-               {"column_skip": True}, {"collider": object()}):
+    for kw in ({"column_skip": True}, {"collider": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             dense_step.dense_pcisph_step(s, params, spec, 1.0, **kw)
+
+
+@pytest.mark.parametrize("sweep", ["force", "force_mu0", "pressure_pq"])
+def test_backward_through_forward_only_sweep_raises(sweep):
+    """The fused force sweep (its backward, K7, is not ported) and the
+    prefolded pressure sweep raise in backward, on the CPU as on the card,
+    rather than return a gradient without their force term."""
+    from dieselfluid_tpu_torch.ops import cellops as tc
+    from dieselfluid_tpu_torch.ops import sph_sweep as sw
+
+    params = tconfig.FluidParams.for_spacing(0.25)
+    pos = particles.dam_break_state(4, params, "cpu").pos
+    spec = tc.DenseCellSpec.for_domain((-1,) * 3, (1,) * 3, params.h)
+    flat, valid, _ = tc.dense_indices(pos, spec)
+    x = pos.clone().requires_grad_()
+    zero = torch.zeros_like(pos[:, 0])
+    p = tc.build_planes({"x": x[:, 0], "y": x[:, 1], "z": x[:, 2],
+                         "vx": zero, "vy": zero, "vz": zero},
+                        flat, valid, spec)
+    k = sm.KernelCoeffs.build(params.h)
+    rho = sw.density_planes(p, spec, k, params.mass)
+    if sweep == "pressure_pq":
+        out = sw.pressure_force_pq_planes(p, rho, spec, k, params.mass)
+    else:
+        out = sw.force_planes(p, rho, rho, spec, k, params.mass,
+                              params.mu if sweep == "force" else 0.0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        torch.autograd.grad(out[0].sum(), x)

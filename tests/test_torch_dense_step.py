@@ -69,17 +69,18 @@ def _pair_states(arrays, boundary=None):
 
 def _run_both(setup, solver, arrays, steps, boundary=None):
     params, jspec, spec, delta = setup
+    tparams = interop.fluid_params_from(params)
     js, ts = _pair_states(arrays, boundary)
     out = []
     with pltpu.force_tpu_interpret_mode():
         for _ in range(steps):
             if solver == "wcsph":
                 js, jd = jds.dense_wcsph_step(js, params, jspec)
-                ts, td = tds.dense_wcsph_step(ts, params, spec)
+                ts, td = tds.dense_wcsph_step(ts, tparams, spec)
             else:
                 js, jd = jds.dense_pcisph_step(js, params, jspec, delta,
                                                warm_start=True)
-                ts, td = tds.dense_pcisph_step(ts, params, spec, delta,
+                ts, td = tds.dense_pcisph_step(ts, tparams, spec, delta,
                                                warm_start=True)
             out.append((js, jd, ts, td))
     return out
@@ -141,7 +142,8 @@ def test_pcisph_overflowed_particles_get_gravity_only(setup):
                                         device="cpu")
     _, valid, overflow = tds.dense_indices(ts.pos, tight)
     assert int(overflow) > 0
-    nxt, diag = tds.dense_pcisph_step(ts, params, tight, delta, bounds=None)
+    nxt, diag = tds.dense_pcisph_step(ts, interop.fluid_params_from(params),
+                                      tight, delta, bounds=None)
     assert int(diag.overflow) == int(overflow)
     inval = ~valid.numpy()
     np.testing.assert_allclose(nxt.density.numpy()[inval], params.d0,
@@ -162,7 +164,8 @@ def test_simulation_facade_matches_jax_setup():
     cfg = SimConfig(n3=N3, neighbors="dense", solver="pcisph")
     sim = Simulation.create(cfg, device="cpu")
     jsim = JSimulation.create(cfg)
-    assert sim.params == jsim.params and sim.delta == jsim.delta
+    assert sim.params == interop.fluid_params_from(jsim.params)
+    assert sim.delta == jsim.delta
     np.testing.assert_array_equal(sim.state.pos.numpy(),
                                   np.asarray(jsim.state.pos))
     d = sim.step(1)

@@ -1,4 +1,5 @@
-"""The port's sm_90a sweep kernels against their plain torch versions.
+"""The port's sm_90a sweep kernels, forward and backward, against their
+plain torch versions, and autograd through them on the card.
 
 Needs a CUDA device; every test skips with the reason where
 torch.cuda.is_available() is false. On the card (the machine there has no
@@ -23,7 +24,9 @@ pytestmark = pytest.mark.cuda
 
 N3 = 16
 DX = (2.0 / N3) * 0.5
-SWEEP_NAMES = ["density", "force", "force_mu0", "viscosity", "pressure_pq"]
+SWEEP_NAMES = ["density", "force", "force_mu0", "viscosity", "pressure_pq",
+               "pressure"]
+BWD_NAMES = ["density_bwd", "pressure_bwd", "viscosity_bwd"]
 
 
 @pytest.fixture(scope="module")
@@ -36,8 +39,8 @@ def cuda():
 
 @pytest.fixture(scope="module")
 def planes(cuda):
-    """A jittered 16^3 dam break binned on the card, with random rho, Tait
-    pressure and pq planes."""
+    """A jittered 16^3 dam break binned on the card, with random rho,
+    pressure, pq and cotangent planes."""
     params = lattice_rest_density(DX, FluidParams.for_spacing(DX))
     pos = dam_break_state(N3, params, "cpu").pos.numpy()
     rng = np.random.default_rng(9)
@@ -49,6 +52,8 @@ def planes(cuda):
     vals["rho"] = (rng.uniform(0.9, 1.2, n) * params.d0).astype(np.float32)
     vals["press"] = rng.uniform(0.0, 50.0, n).astype(np.float32)
     vals["pq"] = vals["press"] / vals["rho"] ** 2
+    for c in ("ct_0", "ct_1", "ct_2"):       # seeded output cotangents
+        vals[c] = rng.normal(size=n).astype(np.float32)
     off = params.h / 4.0
     spec = tc.DenseCellSpec.for_domain((-1 - off,) * 3, (1 + off,) * 3,
                                        params.h, capacity=16)
@@ -70,15 +75,26 @@ def _call(name, params, spec, p, plain):
                                 mu if name == "force" else 0.0)
     if name == "viscosity":
         return fns.viscosity_force_planes(p, p["rho"], spec, k, m, mu)
+    if name == "pressure":
+        return fns.pressure_force_planes(p, p["rho"], p["press"], spec, k, m)
+    cts = (p["ct_0"], p["ct_1"], p["ct_2"])
+    if name == "density_bwd":
+        return fns.density_sum_bwd(p, p["ct_0"], spec, k)
+    if name == "pressure_bwd":
+        return fns.press_sum_bwd(p, p["rho"], p["press"], cts, spec, k)
+    if name == "viscosity_bwd":
+        return fns.visc_sum_bwd(p, p["rho"], cts, spec, k)
     return fns.pressure_force_pq_planes(p, p["pq"], spec, k, m)
 
 
 _SWEEP_OF = {"density": sw.DENSITY, "force": sw.FORCE,
              "force_mu0": sw.FORCE_P, "viscosity": sw.VISC,
-             "pressure_pq": sw.PRESS_PQ}
+             "pressure_pq": sw.PRESS_PQ, "pressure": sw.PRESS,
+             "density_bwd": sw.DENSITY_BWD, "pressure_bwd": sw.PRESS_BWD,
+             "viscosity_bwd": sw.VISC_BWD}
 
 
-@pytest.mark.parametrize("name", SWEEP_NAMES)
+@pytest.mark.parametrize("name", SWEEP_NAMES + BWD_NAMES)
 def test_kernel_matches_plain_and_counts_launch(planes, name):
     params, spec, p = planes
     counter = _SWEEP_OF[name]
@@ -88,9 +104,15 @@ def test_kernel_matches_plain_and_counts_launch(planes, name):
     assert counter.launches == before + 1
     want = _call(name, params, spec, p, plain=True)
     assert counter.launches == before + 1      # the plain version counts 0
-    scale = max(float(w.abs().max()) for w in want)
-    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    assert err / scale <= sw.KERNEL_REL_TOL
+    if name in BWD_NAMES:
+        # Per output: the gradients of x, rho and press differ in scale.
+        for g, w in zip(got, want):
+            err = float((g - w).abs().max()) / float(w.abs().max())
+            assert err <= sw.KERNEL_BWD_REL_TOL
+    else:
+        scale = max(float(w.abs().max()) for w in want)
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        assert err / scale <= sw.KERNEL_REL_TOL
     empty = p["mask"] == 0
     for g in got:
         assert g.is_cuda and bool(torch.isfinite(g).all())
@@ -132,3 +154,45 @@ def test_resident_step_on_card_matches_cpu(planes):
     torch.testing.assert_close(g.pos.cpu(), c.pos, rtol=0, atol=1e-6)
     torch.testing.assert_close(g.vel.cpu(), c.vel, rtol=0,
                                atol=5e-5 * float(c.vel.abs().max()))
+
+
+def test_autograd_on_card_launches_backward_kernels_and_matches_cpu(planes):
+    """d/d(x, rho, press) of a seeded loss through pressure_force_planes and
+    viscosity_force_planes: on the card the backward runs the K8 and K9
+    kernels (counted), on the CPU the plain adjoints; both agree."""
+    params, spec, p = planes
+    k = KernelCoeffs.build(params.h)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        q = {n: v.to(dev) for n, v in p.items()}
+        x, rho, press = (q["x"].clone().requires_grad_(),
+                         q["rho"].clone().requires_grad_(),
+                         q["press"].clone().requires_grad_())
+        ins = dict(q, x=x)
+        fp = sw.pressure_force_planes(ins, rho, press, spec, k, params.mass)
+        fv = sw.viscosity_force_planes(ins, rho, spec, k, params.mass, 0.3)
+        loss = sum(((a + b) * q[f"ct_{c}"]).sum()
+                   for c, (a, b) in enumerate(zip(fp, fv)))
+        before = (sw.PRESS_BWD.launches, sw.VISC_BWD.launches)
+        grads[dev] = torch.autograd.grad(loss, (x, rho, press))
+        after = (sw.PRESS_BWD.launches, sw.VISC_BWD.launches)
+        expect = 1 if dev == "cuda" else 0
+        assert after == (before[0] + expect, before[1] + expect), dev
+    for g, c in zip(grads["cuda"], grads["cpu"]):
+        err = float((g.cpu() - c).abs().max()) / float(c.abs().max())
+        assert err <= sw.KERNEL_BWD_REL_TOL
+
+
+def test_backward_without_kernel_raises_on_card(planes):
+    """force_planes (K7 not ported) and pressure_force_pq_planes raise in
+    backward instead of dropping their force from the gradient."""
+    params, spec, p = planes
+    k = KernelCoeffs.build(params.h)
+    x = p["x"].clone().requires_grad_()
+    ins = dict(p, x=x)
+    for out in (sw.force_planes(ins, p["rho"], p["press"], spec, k,
+                                params.mass, 0.3),
+                sw.pressure_force_pq_planes(ins, p["pq"], spec, k,
+                                            params.mass)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            torch.autograd.grad(out[0].sum(), x)

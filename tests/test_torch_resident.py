@@ -51,7 +51,9 @@ def setup():
               "pressure": np.asarray(s.pressure)}
     jspec = jc.DenseCellSpec.for_domain((-1,) * 3, (1,) * 3, params.h,
                                         capacity=16)
-    return dict(params=params, arrays=arrays, jspec=jspec,
+    # "params" is the port's FluidParams, "jparams" the JAX package's.
+    return dict(params=interop.fluid_params_from(params), jparams=params,
+                arrays=arrays, jspec=jspec,
                 spec=interop.cell_spec_from_jax(jspec),
                 delta=compute_pci_delta(params, DX))
 
@@ -116,7 +118,7 @@ def _assert_no_pair_two_z_cells_apart(ps, n, spec, h):
 
 def _run_skin(setup, solver):
     params, jspec, spec = setup["params"], setup["jspec"], setup["spec"]
-    delta = setup["delta"]
+    jparams, delta = setup["jparams"], setup["delta"]
     from dieselfluid_tpu.models.particles import FluidState
 
     js = FluidState(**{k: jnp.asarray(v) for k, v in setup["arrays"].items()})
@@ -130,13 +132,13 @@ def _run_skin(setup, solver):
     with pltpu.force_tpu_interpret_mode():
         for _ in range(SKIN_STEPS):
             if solver == "wcsph":
-                jps = jdr.dense_wcsph_resident_step(jps, params, jspec,
+                jps = jdr.dense_wcsph_resident_step(jps, jparams, jspec,
                                                     skin=0.05)
                 ps = tdr.dense_wcsph_resident_step(ps, params, spec,
                                                    skin=0.05)
                 ji = ti = None
             else:
-                jps, ji = jdr.dense_pcisph_resident_step(jps, params, jspec,
+                jps, ji = jdr.dense_pcisph_resident_step(jps, jparams, jspec,
                                                          delta, skin=0.05)
                 ps, ti = tdr.dense_pcisph_resident_step(ps, params, spec,
                                                         delta, skin=0.05)

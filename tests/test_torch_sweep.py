@@ -82,7 +82,8 @@ def fresh():
             "pressure_pq": jps.pressure_force_pq_planes(jp, jp["pq"], jspec,
                                                         jk, m),
         }
-    return dict(params=params, spec=spec, planes=tp, jax=jax_out)
+    return dict(params=interop.fluid_params_from(params), spec=spec,
+                planes=tp, jax=jax_out)
 
 
 def _port_sweep(name, planes, spec, params):

@@ -64,6 +64,7 @@ def main() -> int:
     jspec = DenseCellSpec.for_domain((-1 - off,) * 3, (1 + off,) * 3,
                                      params.h, capacity=16)
     spec = interop.cell_spec_from_jax(jspec)
+    tparams = interop.fluid_params_from(params)
     n = int(state.pos.shape[0])
     ts = interop.fluid_state_from_numpy(
         np.asarray(state.pos), np.asarray(state.vel), np.asarray(state.force),
@@ -79,10 +80,10 @@ def main() -> int:
         for i in range(1, args.steps + 1):
             jps, jit_ = jstep(jps)
             ps, tit = tdr.dense_pcisph_resident_step(
-                ps, params, spec, delta, skin=0.05, warm_start=True)
+                ps, tparams, spec, delta, skin=0.05, warm_start=True)
             js = jdr.fluid_state_from_planes(jps, n, params, jspec)
             jpos, jvel = np.asarray(js.pos), np.asarray(js.vel)
-            st = tdr.fluid_state_from_planes(ps, n, params, spec)
+            st = tdr.fluid_state_from_planes(ps, n, tparams, spec)
             tpos, tvel = st.pos.numpy(), st.vel.numpy()
             print(json.dumps({
                 "step": i, "iters": [int(jit_), tit],
