@@ -5,34 +5,58 @@
 
 Phases, each of which raises (and so exits nonzero) on failure:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. the nvcc build of the sm_90a sweep kernels, timed;
-  3. each sweep kernel, forward and backward, against its plain torch
-     version on the card, on a 32^3 dam break after a few WCSPH steps
-     (max abs/rel error vs KERNEL_REL_TOL, per output vs KERNEL_BWD_REL_TOL
-     for the backward sweeps, which take seeded cotangent planes);
-  4. the serving path at full size: the 1M-particle (n3=100) dam break
+  2. the nvcc build of the sm_90a kernels (one nvcc per source, started
+     together), timed;
+  3. each sweep kernel, forward and backward (the fused force's backward,
+     K7, with and without viscosity included), against its plain torch
+     version on the card, on a 32^3 dam break after a few WCSPH steps (max
+     abs/rel error vs KERNEL_REL_TOL, per output vs KERNEL_BWD_REL_TOL for
+     the backward sweeps, which take seeded cotangent planes);
+  4. the tile rasterizer kernels K11 and K12, 6 and 9 outputs, against
+     their plain versions on a 256x144 frame (RASTER_REL_TOL,
+     RASTER_BWD_REL_TOL per output);
+  5. the serving path at full size: the 1M-particle (n3=100) dam break
      stepped by the plane-resident WCSPH and PCISPH solvers with the bench
      parameters; the launch counters are reset just before each solver's
      steps and read just after them;
-  5. health checks on both runs (finite, inside the box, no overflow,
+  6. health checks on both runs (finite, inside the box, no overflow,
      max|v| under the sound speed, mean y falls (PCISPH: by the end of
      burn-in), rho_max/d0 in [1.0, 1.2], PCISPH iterations in 1..5, every
      launch counter > 0);
-  6. each kernel against its plain version again at the main paths'
+  7. each sweep kernel against its plain version again at the main paths'
      shapes: on the 1M plane state the PCISPH run ends in (off the lattice,
      pairs asymmetric), with kernel and plain times (CUDA events, median of
      reps) and each kernel's bound (bytes and operations of this data);
-  7. the training path at full size: the loss sum(next.pos * w) through
+  8. the training path at full size: the loss sum(next.pos * w) through
      dense_pcisph_step(materials=m, unroll_for_grad=True, unroll_iters=3)
      and through dense_wcsph_step(materials=m) on the 1M dam break with
      seeded velocities, then backward to the Materials and the positions:
      ms per forward+backward, peak memory, the gradients (finite), and the
      launch counters (reset just before, read just after; every kernel of
      the path launched);
-  8. a trainer's 3 steps of sign descent on mu on that PCISPH path;
-  9. whole-step gradients at n3=16: the kernel path on the card against the
+  9. a trainer's 3 steps of sign descent on mu on that PCISPH path;
+ 10. whole-step gradients at n3=16: the kernel path on the card against the
      plain path on the CPU from the same numpy state;
- 10. a short Simulation.create(...) PCISPH run, the normal entry point.
+ 11. the sim -> render gradient path at full size (bench.py config 3): the
+     512k-particle (n3=80) static-params WCSPH step, the 1920x1080 tiled
+     splat render (k = 8192) of the next positions with the bench camera,
+     the loss sum(color^2) and its gradient to the pre-step positions:
+     forward+backward ms (median of 3 after a warm-up), peak memory, tile
+     overflow (must be 0), peak tile occupancy, the loss and |grad|^2; then
+     the same for an inviscid fluid (mu = 0: the pressure-only forms of the
+     fused force and of K7). Launch counters reset just before, read just
+     after: every kernel of the path launched. Then the path's sweeps (K1,
+     K2 and K7 in both forms, K6) against their plain versions on the
+     step's own 81^3 planes with config 3's mass and mu;
+ 12. K11 and K12 against their plain versions on that frame's 1080p slot
+     planes, with times and bounds;
+ 13. the env-lit variant: one 1080p forward+backward with a seeded (6, 48,
+     48, 3) cubemap; gradients to positions and texels finite and nonzero;
+ 14. the sim -> render gradient at n3=16, 256x144, jittered: kernels on the
+     card against the plain versions on the CPU, from the same numpy state,
+     and its two halves from identical inputs: the render from the same
+     slot planes, the step's pull-back of the same cotangent;
+ 15. a short Simulation.create(...) PCISPH run, the normal entry point.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -68,10 +92,45 @@ FP32_OPS_PER_S = 67e12
 # Operations per candidate pair of each sweep's pair functor in
 # csrc/sph_sweep.cu, each add, multiply, compare, select, divide and rsqrt
 # counted as one; work on the own slot alone is hoisted out of the pair loop
-# and not counted.
-OPS_PER_PAIR = {"density": 16, "force": 44, "viscosity": 31,
-                "pressure_pq": 30, "pressure": 33, "density_bwd": 23,
-                "pressure_bwd": 74, "viscosity_bwd": 73}
+# and not counted. The fused force's adjoint runs the pressure and the
+# viscosity adjoint terms, each output scaled (one multiply per output).
+OPS_PER_PAIR = {"density": 16, "force": 44, "force_p": 31,
+                "viscosity": 31, "pressure_pq": 30, "pressure": 33,
+                "density_bwd": 23,
+                "pressure_bwd": 74, "viscosity_bwd": 73,
+                "force_bwd": 74 + 5 + 73 + 7, "force_p_bwd": 74 + 5}
+# Operations per live (slot, pixel) pair of csrc/splat_raster.cu, counted
+# the same way (exp, sqrt, rsqrt and divide as one each), for the 6-output
+# form the main path runs: the forward's pair and its 6 sums; the
+# backward's recomputed forward and adjoint chain. Per-slot work (1/r,
+# exp(-falloff z), the box bounds) is not counted.
+RASTER_OPS_PER_PAIR = {"splat_fwd": 44, "splat_bwd": 104}
+
+# The sim -> render path (bench.py:326-383, config 3).
+SR_N3 = 80
+SR_WIDTH, SR_HEIGHT, SR_K = 1920, 1080, 8192
+# Card (kernels) vs CPU (plain) sim -> render position gradient at n3=16,
+# 256x144: the largest difference relative to the largest entry, and the
+# norm of the difference relative to the gradient's norm. Measured on an
+# H100 5.2e-3 and 1.4e-3 (jitter seed 45; 5.3e-3 and 1.2e-3 with seed 41,
+# 1.2e-3 and 3.6e-4 with seed 3). The render's inputs differ by an ulp
+# across devices (the card's projection puts v one ulp off the CPU's on
+# the same positions; the steps put positions up to an ulp apart), and
+# the render's gradient near the disc's rim is that sensitive
+# (check_sim_render_cpu). The bounds are about 10x and 7x.
+SR_GRAD_REL_TOL = 5e-2
+SR_GRAD_NORM_TOL = 1e-2
+# The two halves of that gradient apart (check_sim_render_cpu), relative to
+# the largest entry, from identical inputs: the render's gradient to the
+# CPU's slot planes, K11/K12 on the card against the plain versions on the
+# CPU (measured on an H100 3.9e-7); the step's pull-back of the CPU render's
+# gradient, the card's step (K1, K2, K6, K7) against the CPU's (measured
+# 6.2e-8). The bounds are about 10x and 16x.
+SR_RENDER_GRAD_REL_TOL = 4e-6
+SR_STEP_GRAD_REL_TOL = 1e-6
+# The sweeps of the sim -> render path (K1, K2 and K6, K7, both forms).
+SR_SWEEPS = ("density", "force", "force_p", "density_bwd", "force_bwd",
+             "force_p_bwd")
 
 
 def log(msg: str):
@@ -161,6 +220,8 @@ def sweep_calls(planes, spec, params, plain: bool, cts):
         "density": lambda: (fns.density_planes(planes, spec, k, mass),),
         "force": lambda: fns.force_planes(planes, rho, press, spec, k, mass,
                                           mu),
+        "force_p": lambda: fns.force_planes(planes, rho, press, spec, k,
+                                            mass, 0.0),
         "viscosity": lambda: fns.viscosity_force_planes(
             planes, rho, spec, k, mass, mu),
         "pressure_pq": lambda: fns.pressure_force_pq_planes(
@@ -172,14 +233,28 @@ def sweep_calls(planes, spec, params, plain: bool, cts):
                                                   spec, k),
         "viscosity_bwd": lambda: fns.visc_sum_bwd(planes, rho, cts, spec,
                                                   k),
+        "force_bwd": lambda: fns.force_sum_bwd(planes, rho, press, cts, spec,
+                                               k, mass, mu),
+        "force_p_bwd": lambda: fns.force_sum_bwd(planes, rho, press, cts,
+                                                 spec, k, mass, 0.0),
     }
 
 
-def compare_kernels(planes, spec, params, cts, label: str) -> dict:
-    """Each sweep against its plain version on the same planes; fails over
-    KERNEL_REL_TOL (forward, relative to the largest output) or
-    KERNEL_BWD_REL_TOL (backward, per output). Returns name -> (max abs
-    error, max relative error)."""
+def _rel_err(diff: float, scale: float) -> float:
+    """diff / scale; where the plain output is all zero (the step's planes
+    at rest: zero velocities, zero Tait pressure) the kernel's must be
+    too."""
+    if scale > 0.0:
+        return diff / scale
+    return 0.0 if diff == 0.0 else float("inf")
+
+
+def compare_kernels(planes, spec, params, cts, label: str,
+                    names=None) -> dict:
+    """Each sweep (or each of `names`) against its plain version on the
+    same planes; fails over KERNEL_REL_TOL (forward, relative to the
+    largest output) or KERNEL_BWD_REL_TOL (backward, per output). Returns
+    name -> (max abs error, max relative error)."""
     import torch
     from dieselfluid_tpu_torch.ops.sph_sweep import (KERNEL_BWD_REL_TOL,
                                                      KERNEL_REL_TOL)
@@ -187,16 +262,16 @@ def compare_kernels(planes, spec, params, cts, label: str) -> dict:
     kern = sweep_calls(planes, spec, params, False, cts)
     ref = sweep_calls(planes, spec, params, True, cts)
     errs = {}
-    for name in kern:
+    for name in names or kern:
         got, want = kern[name](), ref[name]()
         torch.cuda.synchronize()
         diffs = [float((g - w).abs().max()) for g, w in zip(got, want)]
         scales = [float(w.abs().max()) for w in want]
         if name.endswith("_bwd"):
-            rel, tol = max(d / s for d, s in zip(diffs, scales)), \
+            rel, tol = max(_rel_err(d, s) for d, s in zip(diffs, scales)), \
                 KERNEL_BWD_REL_TOL
         else:
-            rel, tol = max(diffs) / max(scales), KERNEL_REL_TOL
+            rel, tol = _rel_err(max(diffs), max(scales)), KERNEL_REL_TOL
         check(all(bool(torch.isfinite(g).all()) for g in got),
               f"{name} {label}: non-finite kernel output")
         log(f"kernel {name:14s} {label}: max_abs_err={max(diffs)!r} "
@@ -286,8 +361,17 @@ def time_kernels(planes, spec, params, cts) -> dict:
 
 def launch_counts() -> dict:
     from dieselfluid_tpu_torch.ops import sph_sweep as sw
+    from dieselfluid_tpu_torch.render import splat_tiled as st
 
-    return {s.name: s.launches for s in sw.SWEEPS}
+    return {k.name: k.launches for k in sw.SWEEPS + st.KERNELS}
+
+
+def reset_all_launch_counts():
+    from dieselfluid_tpu_torch.ops.sph_sweep import reset_launch_counts
+    from dieselfluid_tpu_torch.render import splat_tiled as st
+
+    reset_launch_counts()
+    st.reset_launch_counts()
 
 
 def mean_y(ps, params, spec, n) -> float:
@@ -333,13 +417,12 @@ def resident_health(ps, params, spec, n, fell_to, mean_y0, label, summary):
 def run_wcsph(params, state, spec, sync):
     """The WCSPH main path; returns (final plane state, summary with the
     launch counts of its steps)."""
-    from dieselfluid_tpu_torch.ops.sph_sweep import reset_launch_counts
     from dieselfluid_tpu_torch.solvers.dense_resident import (
         dense_wcsph_resident_step, plane_state_from_fluid)
 
     n = state.pos.shape[0]
     mean_y0 = float(state.pos[:, 1].mean())
-    reset_launch_counts()
+    reset_all_launch_counts()
     ps = plane_state_from_fluid(state, spec)
     ps = dense_wcsph_resident_step(ps, params, spec, skin=SKIN)
     for _ in range(60):
@@ -367,13 +450,12 @@ def run_wcsph(params, state, spec, sync):
 def run_pcisph(params, state, spec, delta, sync):
     """The PCISPH main path; returns (final plane state, summary with the
     launch counts of its steps)."""
-    from dieselfluid_tpu_torch.ops.sph_sweep import reset_launch_counts
     from dieselfluid_tpu_torch.solvers.dense_resident import (
         dense_pcisph_resident_step, plane_state_from_fluid)
 
     n = state.pos.shape[0]
     mean_y0 = float(state.pos[:, 1].mean())
-    reset_launch_counts()
+    reset_all_launch_counts()
     ps = plane_state_from_fluid(state, spec)
 
     def step(p):
@@ -464,12 +546,11 @@ def run_gradients(device, sync) -> dict:
     read just after."""
     import torch
     from dieselfluid_tpu_torch.models.materials import Materials
-    from dieselfluid_tpu_torch.ops.sph_sweep import reset_launch_counts
 
     params, state, spec, delta, w = grad_setup(100, device)
     mats = Materials.from_params(params, device, requires_grad=True)
     out = {"n": state.pos.shape[0], "unroll_iters": UNROLL_ITERS}
-    reset_launch_counts()
+    reset_all_launch_counts()
     for solver in ("pcisph", "wcsph"):
         loss, grads = loss_and_grads(solver, params, state, spec, delta, w,
                                      mats)
@@ -561,6 +642,385 @@ def check_step_grads_cpu(device) -> dict:
     return out
 
 
+def raster_calls(planes, spec, cts, plain: bool, emit: bool):
+    """name -> zero-argument call of K11 (forward) and K12 (backward), or of
+    its plain version, on the slot planes and the cotangent tile planes."""
+    from dieselfluid_tpu_torch.render import splat_tiled as st
+
+    fns = st.plain if plain else st
+    n = 9 if emit else 6
+    return {"splat_fwd": lambda: fns.rasterize_fwd(planes, spec, 12.0, 2.0,
+                                                   emit),
+            "splat_bwd": lambda: fns.rasterize_bwd(planes, cts[:n], spec,
+                                                   12.0, 2.0, emit)}
+
+
+def compare_raster(planes, spec, cts, label: str) -> dict:
+    """K11 and K12, 6 and 9 outputs, against their plain versions, per
+    output relative to its largest magnitude (RASTER_REL_TOL,
+    RASTER_BWD_REL_TOL). Returns name -> (max abs error, max relative error)
+    of the 6-output forms."""
+    import torch
+    from dieselfluid_tpu_torch.render import splat_tiled as st
+
+    errs = {}
+    for emit in (False, True):
+        kern = raster_calls(planes, spec, cts, False, emit)
+        ref = raster_calls(planes, spec, cts, True, emit)
+        for name in kern:
+            got, want = kern[name](), ref[name]()
+            torch.cuda.synchronize()
+            diffs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+            scales = [float(w.abs().max()) for w in want]
+            check(min(scales) > 0.0, f"{name} {label}: an all-zero output")
+            rel = max(d / sc for d, sc in zip(diffs, scales))
+            tol = (st.RASTER_BWD_REL_TOL if name == "splat_bwd"
+                   else st.RASTER_REL_TOL)
+            check(all(bool(torch.isfinite(g).all()) for g in got),
+                  f"{name} {label}: non-finite kernel output")
+            tag = f"{name}{9 if emit else 6}"
+            log(f"kernel {tag:14s} {label}: max_abs_err={max(diffs)!r} "
+                f"max|plain|={max(scales)!r} rel={rel!r} tol={tol!r}")
+            check(rel <= tol, f"{tag} kernel disagrees with plain version "
+                  f"at {label}: rel {rel} > {tol}")
+            if not emit:
+                errs[name] = (max(diffs), rel)
+    return errs
+
+
+def seeded_tile_cotangents(spec, device, seed: int):
+    """Nine cotangent tile planes for K12, N(0, 1) from a seeded generator
+    on the card."""
+    import torch
+
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return [torch.randn(spec.tile_shape, generator=g, device=device)
+            for _ in range(9)]
+
+
+def sr_setup(n3: int, device):
+    """bench.py's config 3 (bench.py:335-347): the dam break, params, cell
+    spec, camera and splat radius 0.7 dx."""
+    from dieselfluid_tpu_torch.render.camera import Camera
+
+    params, state, spec, _ = bench_setup(n3, device)
+    cam = Camera.at((0.0, 0.6, -2.8), front=(0.0, -0.35, 1.0), fov_deg=55.0,
+                    aspect=1920.0 / 1080.0, device=device)
+    return params, state, spec, cam, (2.0 / n3) * EXTENT * 0.7
+
+
+def sr_loss_grad(params, state, spec, cam, radius, width, height, k,
+                 env_cube=None):
+    """The config-3 loss sum(color^2) of the render of one static-params
+    WCSPH step, and its gradients to the pre-step positions (and to the
+    cube's texels when lit). -> (loss, grads, overflow, next positions)."""
+    import torch
+    from dieselfluid_tpu_torch.render.splat_tiled import splat_particles_tiled
+    from dieselfluid_tpu_torch.solvers.dense_step import dense_wcsph_step
+
+    pos = state.pos.detach().clone().requires_grad_()
+    nxt, _ = dense_wcsph_step(state._replace(pos=pos), params, spec)
+    img, ovf = splat_particles_tiled(nxt.pos, radius, cam, width=width,
+                                     height=height, k=k,
+                                     return_overflow=True, env_cube=env_cube)
+    loss = (img.color ** 2).sum()
+    wrt = [pos] if env_cube is None else [pos, env_cube]
+    grads = torch.autograd.grad(loss, wrt)
+    return loss.detach(), grads, ovf, nxt.pos.detach()
+
+
+def tile_occupancy(pos, radius, cam):
+    """(slot planes, TileSpec, peak entries of a tile, entries) of the
+    1080p frame of `pos`."""
+    from dieselfluid_tpu_torch.render import splat_tiled as st
+
+    spec = st.TileSpec(SR_WIDTH, SR_HEIGHT, k=SR_K)
+    planes, _, _, _ = st.tile_entries(pos, radius, cam, spec)
+    occ = (planes["r"] >= 0.5).view(spec.n_tiles, -1).sum(-1)
+    return planes, spec, int(occ.max()), int(occ.sum())
+
+
+def run_sim_render(device, sync) -> dict:
+    """The sim -> render path at full size: forward+backward of the config-3
+    loss, timed (median of 3 after 1 warm-up), then once for an inviscid
+    fluid (mu = 0); launch counters reset just before, read just after.
+    Then the path's sweeps against their plain versions on the step's
+    planes."""
+    import torch
+    from dieselfluid_tpu_torch.ops.cellops import build_planes, dense_indices
+
+    params, state, spec, cam, radius = sr_setup(SR_N3, device)
+    args = (spec, cam, radius, SR_WIDTH, SR_HEIGHT, SR_K)
+    reset_all_launch_counts()
+    loss, (g,), ovf, nxt = sr_loss_grad(params, state, *args)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        loss, (g,), ovf, nxt = sr_loss_grad(params, state, *args)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak_mem = torch.cuda.max_memory_allocated()
+    loss0, (g0,), ovf0, _ = sr_loss_grad(params.replace(mu=0.0), state,
+                                         *args)
+    sync()
+    launches = launch_counts()
+    planes, tspec, peak_occ, entries = tile_occupancy(nxt, radius, cam)
+    res = {"n": state.pos.shape[0], "width": SR_WIDTH, "height": SR_HEIGHT,
+           "k": SR_K, "fwd_bwd_ms": float(np.median(times)),
+           "fwd_bwd_ms_runs": times, "max_memory_allocated": peak_mem,
+           "tile_overflow": int(ovf), "peak_tile_occupancy": peak_occ,
+           "tile_entries": entries, "loss": float(loss),
+           "grad_pos_norm_sq": float((g.double() ** 2).sum()),
+           "inviscid": {"tile_overflow": int(ovf0), "loss": float(loss0),
+                        "grad_pos_norm_sq": float((g0.double() ** 2).sum())},
+           "launches": launches}
+    log("sim_render_512k_1080p " + json.dumps(res))
+    for r, gr, o in ((res, g, ovf), (res["inviscid"], g0, ovf0)):
+        check(int(o) == 0, "sim_render: tile overflow at k = 8192")
+        check(np.isfinite(r["loss"]) and np.isfinite(r["grad_pos_norm_sq"])
+              and bool(torch.isfinite(gr).all()),
+              "sim_render: non-finite loss or gradient")
+        check(r["grad_pos_norm_sq"] > 0.0, "sim_render: zero gradient")
+    for name in SR_SWEEPS + ("splat_fwd", "splat_bwd"):
+        check(launches[name] > 0,
+              f"kernel {name} was not launched by the sim -> render path")
+    # The path's sweeps at the shapes it gives them: the step's own planes
+    # (the 512k dam break binned on the 81^3 cells) with config 3's mass
+    # and mu, and seeded cotangents.
+    flat, valid, _ = dense_indices(state.pos, spec)
+    p, v = state.pos, state.vel
+    step_planes = build_planes(
+        {"x": p[:, 0], "y": p[:, 1], "z": p[:, 2], "vx": v[:, 0],
+         "vy": v[:, 1], "vz": v[:, 2]}, flat, valid, spec)
+    errs = compare_kernels(step_planes, spec, params,
+                           seeded_cotangents(spec, device, 8), "512k step",
+                           SR_SWEEPS)
+    return res, errs, planes, tspec, (params, state, spec, cam, radius)
+
+
+def raster_bounds(planes, spec) -> dict:
+    """name -> (bound ms, "bytes" or "operations") of K11 and K12 (6
+    outputs) on these slot planes. Bytes: the four slot planes read over
+    the 128-slot rows that hold an occupied slot, the tile planes (6
+    outputs, or 6 cotangents) in full, and K12's four gradient slot planes
+    written in full. Operations: each live slot times the pixels of its
+    patch box inside its tile, times RASTER_OPS_PER_PAIR."""
+    import torch
+
+    r = planes["r"]
+    occ_rows = int((r.view(-1, 128).amax(-1) >= 0.5).sum())
+    live = r.reshape(-1) >= 0.5
+    half = spec.patch // 2
+
+    def extent(c, size):
+        f = torch.floor(c.reshape(-1)[live])
+        return torch.clamp(torch.clamp(f + half, max=size - 1)
+                           - torch.clamp(f - half, min=0) + 1, min=0)
+
+    pairs = int((extent(planes["u"], spec.tw).double()
+                 * extent(planes["v"], spec.th).double()).sum())
+    slot_in = 4 * occ_rows * 128 * 4
+    tile = spec.n_tiles * spec.th * spec.tw * 4
+    n_bytes = {"splat_fwd": slot_in + 6 * tile,
+               "splat_bwd": slot_in + 6 * tile + 4 * spec.n_tiles * spec.k
+               * 4}
+    out = {}
+    for name, nb in n_bytes.items():
+        t_bytes = nb / HBM_BYTES_PER_S
+        t_ops = pairs * RASTER_OPS_PER_PAIR[name] / FP32_OPS_PER_S
+        out[name] = (max(t_bytes, t_ops) * 1e3,
+                     "bytes" if t_bytes >= t_ops else "operations")
+    log(f"raster bounds: {pairs} live (slot, pixel) pairs, {occ_rows} of "
+        f"{r.numel() // 128} slot rows occupied: " + json.dumps(out))
+    return out
+
+
+def time_raster(planes, spec, cts) -> dict:
+    """name -> (kernel ms, plain ms) of K11 and K12 (6 outputs) on the
+    1080p planes (kernel: median of 20; plain: median of 2)."""
+    kern = raster_calls(planes, spec, cts, False, False)
+    ref = raster_calls(planes, spec, cts, True, False)
+    out = {}
+    for name in kern:
+        ms = cuda_ms(kern[name], reps=20, warmup=2)
+        plain_ms = cuda_ms(ref[name], reps=2, warmup=0)
+        log(f"time {name:14s} 1080p: kernel {ms!r} ms  plain {plain_ms!r} "
+            "ms")
+        out[name] = (ms, plain_ms)
+    return out
+
+
+def check_raster_small(device) -> dict:
+    """compare_raster on a 256x144 frame (k = 2048: its peak tile holds
+    1344 entries) of the n3=16 dam break with the bench camera."""
+    from dieselfluid_tpu_torch.render import splat_tiled as st
+
+    _, state, _, cam, radius = sr_setup(16, device)
+    spec = st.TileSpec(256, 144, k=2048)
+    planes, _, ovf, _ = st.tile_entries(state.pos, radius, cam, spec)
+    check(int(ovf) == 0, "256x144 frame: tile overflow")
+    return compare_raster(planes, spec,
+                          seeded_tile_cotangents(spec, device, 5),
+                          "256x144")
+
+
+def run_env_lit(setup, sync) -> dict:
+    """One 1080p forward+backward of the config-3 loss lit by a seeded
+    (6, 48, 48, 3) cubemap (the 9-output K11 and K12)."""
+    import torch
+
+    params, state, spec, cam, radius = setup
+    cube_np = np.random.default_rng(6).uniform(size=(6, 48, 48, 3))
+    cube = torch.from_numpy(cube_np.astype(np.float32)).to(
+        state.pos.device).requires_grad_()
+    t0 = time.perf_counter()
+    loss, (gp, gc), ovf, _ = sr_loss_grad(params, state, spec, cam, radius,
+                                          SR_WIDTH, SR_HEIGHT, SR_K,
+                                          env_cube=cube)
+    sync()
+    res = {"fwd_bwd_ms": (time.perf_counter() - t0) * 1e3,
+           "tile_overflow": int(ovf), "loss": float(loss),
+           "grad_pos_norm_sq": float((gp.double() ** 2).sum()),
+           "grad_cube_norm_sq": float((gc.double() ** 2).sum())}
+    log("sim_render_env_lit_1080p " + json.dumps(res))
+    check(res["tile_overflow"] == 0, "env-lit: tile overflow")
+    for g, name in ((gp, "positions"), (gc, "texels")):
+        check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0.0,
+              f"env-lit: gradient to the {name} non-finite or zero")
+    return res
+
+
+def check_sim_render_cpu(device, seed: int = 45) -> dict:
+    """The sim -> render position gradient at n3=16, 256x144 (k = 2048),
+    positions jittered by a numpy seed: kernels on the card against the
+    plain versions on the CPU, as the largest difference and as the norm of
+    the difference, each relative to the CPU gradient's.
+
+    The render's inputs differ by an ulp across devices (the card projects
+    v one ulp off the CPU's from the same positions, and the steps sum in
+    other orders), and the splat gradient amplifies that near the disc's
+    rim (splat_tiled.rim_gap): a pair 1e-4
+    off the rim moves its slot's normal term by ~1% for a 2e-6 move of r2,
+    and with the jitter of seed 4 one pair sits 5e-7 from the where-trick's
+    cutoff, where the two gradients differ by 0.63 of the largest entry.
+    Seed 45's frame stays 3.6e-5 off the rim (checked here on the CPU
+    frame).
+
+    Two witnesses hold the kernels of the path at tight bounds from
+    identical inputs, so that the loose whole-path bound covers only what
+    an ulp in the render's inputs does: (1) the render alone, from the CPU
+    frame's slot planes (copied to the card): the gradient to them, K11/K12
+    on the card against the plain versions on the CPU
+    (SR_RENDER_GRAD_REL_TOL); (2) the step alone: the CPU render's gradient
+    pulled back through the card's step and through the CPU's, K1, K2, K6
+    and K7 against their plain versions (SR_STEP_GRAD_REL_TOL). Logged, not
+    bounded: the slot planes the card projects from the CPU's positions, the
+    view matrices, and the render's gradient to those positions."""
+    import dataclasses
+
+    import torch
+    from dieselfluid_tpu_torch.render import splat_tiled as st
+    from dieselfluid_tpu_torch.solvers.dense_step import dense_wcsph_step
+
+    cpu = torch.device("cpu")
+    tspec = st.TileSpec(256, 144, k=2048)
+
+    def setup(dev):
+        params, state, spec, cam, radius = sr_setup(16, dev)
+        dx = (2.0 / 16) * EXTENT
+        jitter = np.random.default_rng(seed).uniform(
+            -0.2 * dx, 0.2 * dx, size=tuple(state.pos.shape))
+        state = state._replace(pos=state.pos + torch.from_numpy(
+            jitter.astype(np.float32)).to(dev))
+        return params, state, spec, cam, radius
+
+    def whole(dev):
+        loss, (g,), ovf, nxt = sr_loss_grad(*setup(dev), 256, 144, 2048)
+        check(int(ovf) == 0, f"n3=16 256x144 on {dev}: tile overflow")
+        return float(loss), g.detach().cpu().double(), nxt
+
+    def render_grad(nxt, cam, radius):
+        p = nxt.detach().clone().requires_grad_()
+        img, ovf = st.splat_particles_tiled(
+            p, radius, cam, width=256, height=144, k=2048,
+            return_overflow=True)
+        check(int(ovf) == 0, "n3=16 256x144 render: tile overflow")
+        (g,) = torch.autograd.grad((img.color ** 2).sum(), p)
+        return g
+
+    def plane_grads(planes, zmin, cam):
+        """d sum(color^2) / d the four slot planes: rasterize (K11/K12 on
+        the card, plain on the CPU) and shade, from the given planes."""
+        leaves = [planes[n].detach().clone().requires_grad_()
+                  for n in st.CHANNELS]
+        img = st.shade_tiles(
+            st.rasterize(dict(zip(st.CHANNELS, leaves)), tspec, 12.0, 2.0),
+            tspec, zmin, cam)
+        return torch.autograd.grad((img.color ** 2).sum(), leaves)
+
+    def step_pullback(dev, ct):
+        params, state, spec, _, _ = setup(dev)
+        pos = state.pos.detach().clone().requires_grad_()
+        nxt, _ = dense_wcsph_step(state._replace(pos=pos), params, spec)
+        (g,) = torch.autograd.grad(nxt.pos, pos, grad_outputs=ct.to(dev))
+        return g.detach().cpu().double()
+
+    def rel(got, want):
+        return float((got.cpu().double() - want.double()).abs().max()
+                     / want.double().abs().max())
+
+    (l_card, g_card, nxt_card), (l_cpu, g_cpu, nxt_cpu) = (
+        whole(device), whole(cpu))
+    _, _, _, cam_cpu, radius = setup(cpu)
+    gap = st.rim_gap(st.tile_entries(nxt_cpu, radius, cam_cpu, tspec)[0],
+                     tspec)
+    check(gap > 2e-5, f"n3=16 frame {gap} from the rim")
+    cam_card = dataclasses.replace(cam_cpu,
+                                   transform=cam_cpu.transform.to(device))
+    g_render_cpu = render_grad(nxt_cpu, cam_cpu, radius)
+    g_render_card = render_grad(nxt_cpu.to(device), cam_card, radius)
+    planes_cpu, _, _, zmin = st.tile_entries(nxt_cpu, radius, cam_cpu, tspec)
+    planes_card = st.tile_entries(nxt_cpu.to(device), radius, cam_card,
+                                  tspec)[0]
+    g_planes_cpu = plane_grads(planes_cpu, zmin, cam_cpu)
+    g_planes_card = plane_grads({n: p.to(device)
+                                 for n, p in planes_cpu.items()},
+                                zmin.to(device), cam_card)
+    g_step_cpu = step_pullback(cpu, g_render_cpu)
+    g_step_card = step_pullback(device, g_render_cpu)
+    d = g_card - g_cpu
+    res = {"rim_gap": gap, "loss_rel": abs(l_card - l_cpu) / abs(l_cpu),
+           "next_pos_max_diff": float((nxt_card.cpu() - nxt_cpu).abs()
+                                      .max()),
+           "grad_max_rel": float(d.abs().max() / g_cpu.abs().max()),
+           "grad_norm_rel": float(d.norm() / g_cpu.norm()),
+           "view_matrix_max_diff": float(
+               (cam_card.view_matrix().cpu() - cam_cpu.view_matrix()).abs()
+               .max()),
+           "slot_planes_max_diff": {
+               n: float((planes_card[n].cpu() - planes_cpu[n]).abs().max())
+               for n in st.CHANNELS},
+           "render_grad_max_rel": rel(g_render_card, g_render_cpu),
+           "render_plane_grad_max_rel": max(
+               rel(a, b) for a, b in zip(g_planes_card, g_planes_cpu)),
+           "step_grad_max_rel": rel(g_step_card, g_step_cpu)}
+    log(f"sim_render_n16_256x144 seed {seed} card vs cpu: "
+        + json.dumps(res) + f" tol max={SR_GRAD_REL_TOL!r} "
+        f"norm={SR_GRAD_NORM_TOL!r} render={SR_RENDER_GRAD_REL_TOL!r} "
+        f"step={SR_STEP_GRAD_REL_TOL!r}")
+    check(res["render_plane_grad_max_rel"] <= SR_RENDER_GRAD_REL_TOL,
+          f"card and CPU render gradients differ: {res}")
+    check(res["step_grad_max_rel"] <= SR_STEP_GRAD_REL_TOL,
+          f"card and CPU step pull-backs differ: {res}")
+    check(res["grad_max_rel"] <= SR_GRAD_REL_TOL
+          and res["grad_norm_rel"] <= SR_GRAD_NORM_TOL,
+          f"card and CPU sim -> render gradients differ: {res}")
+    return res
+
+
 def run_simulation(device) -> dict:
     import torch
     from dieselfluid_tpu_torch.config import SimConfig
@@ -604,6 +1064,7 @@ def main() -> int:
         return 2
     from dieselfluid_tpu_torch.ops import _build
     from dieselfluid_tpu_torch.ops import sph_sweep as sw
+    from dieselfluid_tpu_torch.render import splat_tiled as st
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -624,6 +1085,7 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
 
     check_kernels_small(device)
+    check_raster_small(device)
 
     def sync():
         torch.cuda.synchronize()
@@ -659,19 +1121,35 @@ def main() -> int:
     run_trainer(device)
     check_step_grads_cpu(device)
 
+    # The sim -> render path: K1, K2, K6, K7, K11, K12.
+    sr, sr_errs, planes, tspec, setup = run_sim_render(device, sync)
+    for name, e in sr_errs.items():
+        errs[name] = max(errs[name], e)
+    cts = seeded_tile_cotangents(tspec, device, 7)
+    errs.update(compare_raster(planes, tspec, cts, "1080p k=8192"))
+    times.update(time_raster(planes, tspec, cts))
+    bounds.update(raster_bounds(planes, tspec))
+    del planes, cts
+    run_env_lit(setup, sync)
+    del setup
+    check_sim_render_cpu(device)
+
     sim = run_simulation(device)
     log("simulation_n3_16_pcisph " + json.dumps(sim))
     check(not jax_package_modules(),
           f"the JAX package was imported: {jax_package_modules()}")
 
     kernels = []
-    for s in sw.SWEEPS:
-        ms, plain_ms = times[s.name]
-        bound_ms, bound_by = bounds[s.name]
-        kernels.append({"name": s.name, "route": "cuda", "source": sw.SOURCE,
-                        "replaces": s.replaces,
-                        "launches": serving[s.name] + training[s.name],
-                        "max_abs_err": errs[s.name][0], "ms": ms,
+    main_paths = (serving, training, sr["launches"])
+    for kern, source in ([(k, sw.SOURCE) for k in sw.SWEEPS]
+                         + [(k, st.SOURCE) for k in st.KERNELS]):
+        ms, plain_ms = times[kern.name]
+        bound_ms, bound_by = bounds[kern.name]
+        kernels.append({"name": kern.name, "route": "cuda", "source": source,
+                        "replaces": kern.replaces,
+                        "launches": sum(p.get(kern.name, 0)
+                                        for p in main_paths),
+                        "max_abs_err": errs[kern.name][0], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": None})
     log(card)

@@ -9,12 +9,19 @@ module paths so each counterpart is found by name:
   ops/sph_sweep.py        the stencil sweeps and their backward sweeps as autograd
                           Functions (CUDA kernels + plain torch)
   csrc/sph_sweep.cu       the hand-written sm_90a sweep kernel
+  csrc/splat_raster.cu    the hand-written sm_90a tile rasterizer, forward and backward
   geometry/grid.py        lattice grids
   models/materials.py     Materials: traced material parameters (0-d tensors)
   models/particles.py     FluidState and the dam-break initial state
   models/sph.py           Simulation facade (neighbors="dense")
   neighbors/calibrate.py  analytic lattice rest density
   solvers/                integrator, PCISPH delta, per-step and plane-resident dense solvers
+  mathx/                  quaternions and 4x4 transforms (what the camera needs)
+  render/camera.py        pinhole Camera
+  render/splat.py         eager scatter splat renderer (the tiled path's oracle)
+  render/splat_tiled.py   tile binning and the tile rasterizer as an autograd Function
+                          (CUDA kernels + plain torch); counterpart of splat_pallas.py
+  render/sh.py, cubemap.py  SH9 environment lighting, cubemap texel directions
   interop.py              numpy <-> torch state and config conversion (across packages)
 
 Every tensor is float32 (slot indices int64) and every state constructor takes

@@ -10,9 +10,11 @@
 //   prefolded pressure _press_pq_pair    (pallas_sph.py:806)
 //   pressure           _press_pair       (pallas_sph.py:660, `_press_sum`)
 //   and the backward sweeps `_density_sum_bwd` (:484), `_press_sum_bwd`
-//   (:699) and `_visc_sum_bwd` (:765), whose pair functions the JAX package
-//   derives with jax.vjp (`_bwd_pair`, :415) and which are written out by
-//   hand here (DensityBwdPair, PressBwdPair, ViscBwdPair).
+//   (:699), `_visc_sum_bwd` (:765) and the fused force's `_force_bwd`
+//   (:624, with and without viscosity), whose pair functions the JAX
+//   package derives with jax.vjp (`_bwd_pair`, :415) and which are written
+//   out by hand here (DensityBwdPair, PressBwdPair, ViscBwdPair,
+//   ForceBwdPair).
 //
 // Every sweep computes, for each occupied slot i of the (rows, sub, 128)
 // float32 planes,
@@ -34,8 +36,8 @@
 //
 // What bounds it on the H100: at the 1M-particle bench spec (101^3 cells,
 // cap 16, sub 15, 10,609 rows) a plane is 81.5 MB; a sweep moves its input
-// and output planes once, 0.33 GB (density) to 1.5 GB (viscosity backward,
-// 11 in + 7 out), 0.1-0.45 ms at 3.35 TB/s. The pair work is ~1M x 27 x 16
+// and output planes once, 0.33 GB (density) to 1.6 GB (fused force backward,
+// 12 in + 8 out), 0.1-0.5 ms at 3.35 TB/s. The pair work is ~1M x 27 x 16
 // candidate slots of 20-80 flops each (plus divides and an rsqrt), so the
 // sweeps are bound by arithmetic, occupancy and the shared-memory reads, not
 // by bytes.
@@ -44,8 +46,9 @@
 // row. A CTA with no occupied own slot exits at once (__syncthreads_or): a
 // dam break fills about an eighth of the domain. Otherwise the CTA stages
 // the (128 + 2*cap)-slot window of the 9 stencil rows for every input
-// channel in dynamic shared memory (11 channels x 9 rows x 160 slots x 4 B =
-// 63.4 KB for the viscosity backward at cap 16, hence cudaFuncSetAttribute),
+// channel in dynamic shared memory (12 channels x 9 rows x 160 slots x 4 B =
+// 69.1 KB for the fused force backward at cap 16, hence
+// cudaFuncSetAttribute),
 // then each thread sums the pair function over its 9 x 3*cap candidates.
 // Threads of one cell read the same shared words (broadcast); threads of
 // neighbouring cells read words cap apart (different banks). Outputs of slots
@@ -211,15 +214,20 @@ struct DensityBwdPair {  // x y z mask ct -> dx dy dz
   }
 };
 
+// The two adjoints below are written once, as terms over channel positions
+// (input mask, rho, press and first cotangent; output rho and press), with
+// the positions x y z at 0..2 and the velocities at 3..5, in and out. Each
+// adds `s` times its gradients into `acc`: the sweeps K8 and K9 take s = 1,
+// the fused force's adjoint (K7) takes s = mass^2 and s = mu * mass.
+
 // g = coeff * phi(d2) * d, phi = B q1^2 / r. With e = bb ct_j - a ct_i:
 //   d/dx_i = coeff (2 phi'(d2) (e.d) d + phi e)
 //   d/dp_i = -phi (e.d) / rho_i^2,  d/drho_i = 2 phi (e.d) p_i / rho_i^3.
-struct PressBwdPair {  // x y z mask rho press ct0..2 -> dx dy dz drho dpress
-  static constexpr int kIn = 9, kOut = 5, kMask = 3, kRho = 4, kPress = 5,
-                       kCt = 6;
+template <int kMask, int kRho, int kPress, int kCt, int kOutRho, int kOutPress>
+struct PressBwdTerms {
   float h, h2, b;
   __device__ __forceinline__ void operator()(const float* o, const float* c,
-                                             float* acc) const {
+                                             float s, float* acc) const {
     const float dx = c[0] - o[0], dy = c[1] - o[1], dz = c[2] - o[2];
     const float d2 = dx * dx + dy * dy + dz * dz;
     const bool near = (d2 > kEps) && (d2 < h2);
@@ -243,22 +251,23 @@ struct PressBwdPair {  // x y z mask rho press ct0..2 -> dx dy dz drho dpress
     const float sp = coeff * phi;
     const float t = phi * ed;
     const float inv_r2 = 1.0f / (rho_i * rho_i);
-    acc[0] += g * dx + sp * ex;
-    acc[1] += g * dy + sp * ey;
-    acc[2] += g * dz + sp * ez;
-    acc[3] += max_eps_grad(o[kRho], 2.0f * t * o[kPress] * inv_r2 / rho_i);
-    acc[4] += -t * inv_r2;
+    acc[0] += s * (g * dx + sp * ex);
+    acc[1] += s * (g * dy + sp * ey);
+    acc[2] += s * (g * dz + sp * ez);
+    acc[kOutRho] +=
+        s * max_eps_grad(o[kRho], 2.0f * t * o[kPress] * inv_r2 / rho_i);
+    acc[kOutPress] += s * (-t * inv_r2);
   }
 };
 
 // g = o2d(d2) / rho_j * (v_j - v_i). With e = bb ct_j / rho_i - a ct_i /
 // rho_j:  d/dx_i = 2 o2d'(d2) (e.dv) d,  d/dv_i = o2d e,
 // d/drho_i = bb o2d (ct_j.dv) / rho_i^2 (i's rho as the source's).
-struct ViscBwdPair {  // x y z vx vy vz mask rho ct0..2 -> 7
-  static constexpr int kIn = 11, kOut = 7, kMask = 6, kRho = 7, kCt = 8;
+template <int kMask, int kRho, int kCt, int kOutRho>
+struct ViscBwdTerms {
   float h, h2, cw;
   __device__ __forceinline__ void operator()(const float* o, const float* c,
-                                             float* acc) const {
+                                             float s, float* acc) const {
     const float dx = c[0] - o[0], dy = c[1] - o[1], dz = c[2] - o[2];
     const float d2 = dx * dx + dy * dy + dz * dz;
     const bool near = (d2 > kEps) && (d2 < h2);
@@ -280,13 +289,64 @@ struct ViscBwdPair {  // x y z vx vy vz mask rho ct0..2 -> 7
     const float wdv =
         bb ? (c[kCt] * dvx + c[kCt + 1] * dvy + c[kCt + 2] * dvz) * inv_ri
            : 0.0f;
-    acc[0] += g * dx;
-    acc[1] += g * dy;
-    acc[2] += g * dz;
-    acc[3] += o2d * ex;
-    acc[4] += o2d * ey;
-    acc[5] += o2d * ez;
-    acc[6] += max_eps_grad(o[kRho], o2d * wdv * inv_ri);
+    acc[0] += s * (g * dx);
+    acc[1] += s * (g * dy);
+    acc[2] += s * (g * dz);
+    acc[3] += s * (o2d * ex);
+    acc[4] += s * (o2d * ey);
+    acc[5] += s * (o2d * ez);
+    acc[kOutRho] += s * max_eps_grad(o[kRho], o2d * wdv * inv_ri);
+  }
+};
+
+struct PressBwdPair {  // x y z mask rho press ct0..2 -> dx dy dz drho dpress
+  static constexpr int kIn = 9, kOut = 5, kMask = 3;
+  PressBwdTerms<3, 4, 5, 6, 3, 4> terms;
+  __device__ __forceinline__ void operator()(const float* o, const float* c,
+                                             float* acc) const {
+    terms(o, c, 1.0f, acc);
+  }
+};
+
+struct ViscBwdPair {  // x y z vx vy vz mask rho ct0..2 -> 7
+  static constexpr int kIn = 11, kOut = 7, kMask = 6;
+  ViscBwdTerms<6, 7, 8, 6> terms;
+  __device__ __forceinline__ void operator()(const float* o, const float* c,
+                                             float* acc) const {
+    terms(o, c, 1.0f, acc);
+  }
+};
+
+// The adjoint of the unfolded fused force pair (JAX `_force_pair`, K7). That
+// pair is exactly mass^2 * the pressure pair + mu * mass * the viscosity
+// pair, with the same live test and eps clamps, so its adjoint is the two
+// adjoints scaled and summed: x, y, z and rho take both, v the viscosity
+// part, press the pressure part. kVisc = false is the mu == 0 form, which
+// reads no velocities.
+template <bool kVisc>
+struct ForceBwdPair;
+
+template <>
+struct ForceBwdPair<true> {  // x y z vx vy vz mask rho press ct0..2 -> 8
+  static constexpr int kIn = 12, kOut = 8, kMask = 6;
+  PressBwdTerms<6, 7, 8, 9, 6, 7> press;
+  ViscBwdTerms<6, 7, 9, 6> visc;
+  float mass2, mu_mass;
+  __device__ __forceinline__ void operator()(const float* o, const float* c,
+                                             float* acc) const {
+    press(o, c, mass2, acc);
+    visc(o, c, mu_mass, acc);
+  }
+};
+
+template <>
+struct ForceBwdPair<false> {  // x y z mask rho press ct0..2 -> 5
+  static constexpr int kIn = 9, kOut = 5, kMask = 3;
+  PressBwdTerms<3, 4, 5, 6, 3, 4> press;
+  float mass2;
+  __device__ __forceinline__ void operator()(const float* o, const float* c,
+                                             float* acc) const {
+    press(o, c, mass2, acc);
   }
 };
 
@@ -416,12 +476,23 @@ int dft_density_bwd_sweep(DFT_SWEEP_ARGS, float h2, float a, void* stream) {
 
 int dft_press_bwd_sweep(DFT_SWEEP_ARGS, float h, float h2, float b,
                         void* stream) {
-  return launch(PressBwdPair{h, h2, b}, DFT_SWEEP_PASS);
+  return launch(PressBwdPair{{h, h2, b}}, DFT_SWEEP_PASS);
 }
 
 int dft_visc_bwd_sweep(DFT_SWEEP_ARGS, float h, float h2, float cw,
                        void* stream) {
-  return launch(ViscBwdPair{h, h2, cw}, DFT_SWEEP_PASS);
+  return launch(ViscBwdPair{{h, h2, cw}}, DFT_SWEEP_PASS);
+}
+
+int dft_force_bwd_sweep(DFT_SWEEP_ARGS, float h, float h2, float b, float cw,
+                        float mass2, float mu_mass, void* stream) {
+  return launch(ForceBwdPair<true>{{h, h2, b}, {h, h2, cw}, mass2, mu_mass},
+                DFT_SWEEP_PASS);
+}
+
+int dft_force_p_bwd_sweep(DFT_SWEEP_ARGS, float h, float h2, float b,
+                          float mass2, void* stream) {
+  return launch(ForceBwdPair<false>{{h, h2, b}, mass2}, DFT_SWEEP_PASS);
 }
 
 }  // extern "C"

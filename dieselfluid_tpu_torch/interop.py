@@ -6,7 +6,7 @@ such numpy arrays (float64 is cast to float32, slot indices to int64) and
 give them back, so one numpy state feeds both packages and a JAX
 DensePlaneState resumes in the port. Static configs (FluidParams, SimConfig,
 DenseCellSpec) are rebuilt field for field from any object with the same
-fields. Nothing here imports JAX: a JAX state is converted with `np.asarray`
+fields, and a camera from its transform and scalars. Nothing here imports JAX: a JAX state is converted with `np.asarray`
 on the caller's side.
 """
 
@@ -22,6 +22,7 @@ from dieselfluid_tpu_torch.config import FluidParams, SimConfig
 from dieselfluid_tpu_torch.models.materials import Materials
 from dieselfluid_tpu_torch.models.particles import FluidState
 from dieselfluid_tpu_torch.ops.cellops import DenseCellSpec
+from dieselfluid_tpu_torch.render.camera import Camera
 from dieselfluid_tpu_torch.solvers.dense_resident import DensePlaneState
 
 _FLUID = ("pos", "vel", "force", "density", "pressure")
@@ -118,3 +119,13 @@ def materials_from_numpy(mu, d0, tait_gamma, tait_w, mass, *, device,
 
     return Materials(mu=f(mu), d0=f(d0), tait_gamma=f(tait_gamma),
                      tait_w=f(tait_w), mass=f(mass))
+
+
+def camera_from_numpy(transform, fov_deg, aspect, near, far, exposure, *,
+                      device) -> Camera:
+    """The port's Camera on `device` from a (4, 4) numpy-convertible
+    camera-to-world transform (a JAX Camera's `np.asarray(cam.transform)`)
+    and its static scalars."""
+    return Camera(transform=_f32(transform, device), fov_deg=float(fov_deg),
+                  aspect=float(aspect), near=float(near), far=float(far),
+                  exposure=float(exposure))

@@ -24,7 +24,7 @@ class Materials(NamedTuple):
     mass: torch.Tensor         # particle mass
 
     @staticmethod
-    def from_params(p: FluidParams, device="cpu",
+    def from_params(p: FluidParams, device,
                     requires_grad: bool = False) -> "Materials":
         """The params' material fields as 0-d float32 tensors on `device`,
         each a leaf that requires grad when `requires_grad`."""

@@ -7,11 +7,11 @@ each occupied slot i of the (rows, sub, 128) planes,
     out_c[i] = mask_i * sum_j pair(own_i, cand_j)_c
 
 over the slots j of the 27 cells around i's cell. The public sweeps keep the
-JAX names: `density_planes`, `pressure_force_planes` and
-`viscosity_force_planes` (differentiable), `force_planes` and
-`pressure_force_pq_planes` (forward only, no `active=`).
+JAX names: `density_planes`, `force_planes`, `pressure_force_planes` and
+`viscosity_force_planes` (differentiable), and `pressure_force_pq_planes`
+(forward only, as in the JAX package; no `active=`).
 
-Gradients. Each public sweep is a `torch.autograd.Function`. For the three
+Gradients. Each public sweep is a `torch.autograd.Function`. For the four
 differentiable ones the backward is another stencil sweep, the adjoint the
 JAX package derives with `jax.vjp` inside its kernel (`_bwd_pair`), written
 here by hand: for f_i = sum_j g(u_i, u_j),
@@ -21,10 +21,15 @@ here by hand: for f_i = sum_j g(u_i, u_j),
 over the same symmetric stencil, so it is a gather with no atomics. Its
 channels are the forward's plus the masked output cotangents ct_0..; its
 outputs are the gradients of every forward input but the mask, in order.
-`density_sum_bwd`, `press_sum_bwd` and `visc_sum_bwd` run these adjoint
-sweeps directly. `force_planes` (fused, K7 of PERF.md) and
-`pressure_force_pq_planes` have no adjoint yet and raise in backward: a
-gradient without their force term would be silently wrong.
+`density_sum_bwd`, `press_sum_bwd`, `visc_sum_bwd` and `force_sum_bwd` run
+these adjoint sweeps directly. The fused `force_planes` runs on prefolded
+pq = p / max(rho, eps)^2 and iv = 1 / max(rho, eps) channels, but its
+autograd inputs are rho and press, as the JAX custom_vjp's are: its backward
+(K7 of PERF.md) sweeps the adjoint of the unfolded pair, which is exactly
+mass^2 times the pressure adjoint plus mu*mass times the viscosity adjoint.
+`pressure_force_pq_planes` is forward only (in the JAX package too) and
+raises in backward: a gradient without its force term would be silently
+wrong.
 
 Dispatch is by the device of the input planes, forward and backward alike:
   * CUDA tensors launch the hand-written sm_90a kernel in csrc/sph_sweep.cu
@@ -71,8 +76,8 @@ SOURCE = "dieselfluid_tpu_torch/csrc/sph_sweep.cu"
 KERNEL_REL_TOL = 5e-6
 #: The same for the backward sweeps, per output (the gradients of
 #: positions, densities and pressures differ in scale). Measured on an H100
-#: at most 4.7e-7 (pressure backward, 32^3 dam break, seeded cotangents);
-#: the bound is about 10x that.
+#: at most 4.7e-7 (pressure backward and the fused force backward's mu = 0
+#: form, 32^3 dam break, seeded cotangents); the bound is about 10x that.
 KERNEL_BWD_REL_TOL = 5e-6
 
 Planes = Dict[str, torch.Tensor]
@@ -279,6 +284,25 @@ def _visc_bwd_pair(k: KernelCoeffs):
     return pair
 
 
+def _force_bwd_pair(k: KernelCoeffs, mass: float, mu: float):
+    """Adjoint of the unfolded fused pair (JAX `_force_pair`), which is
+    mass^2 * the pressure pair + mu*mass * the viscosity pair with the same
+    live test and eps clamps: the two adjoints, scaled and summed. x, y, z
+    and rho take both parts, v the viscosity part, press the pressure part;
+    mu == 0 is the pressure part alone (x y z rho press)."""
+    press, visc = _press_bwd_pair(k), _visc_bwd_pair(k)
+    m2, mu_m = mass * mass, mu * mass
+
+    def pair(own, cand):
+        px, py, pz, prho, pp = (m2 * g for g in press(own, cand))
+        if mu == 0.0:
+            return (px, py, pz, prho, pp)
+        vx, vy, vz, wx, wy, wz, vrho = (mu_m * g for g in visc(own, cand))
+        return (px + vx, py + vy, pz + vz, wx, wy, wz, prho + vrho, pp)
+
+    return pair
+
+
 # ---------------------------------------------------------------------------
 # The sweep: plain torch version and CUDA launch
 # ---------------------------------------------------------------------------
@@ -320,14 +344,20 @@ PRESS_BWD = Sweep("pressure_bwd", "dft_press_bwd_sweep",
                   PRESS.in_names + _CT3, 5, f"{_PALLAS}:699")
 VISC_BWD = Sweep("viscosity_bwd", "dft_visc_bwd_sweep",
                  VISC.in_names + _CT3, 7, f"{_PALLAS}:765")
+FORCE_BWD = Sweep("force_bwd", "dft_force_bwd_sweep",
+                  ("x", "y", "z", "vx", "vy", "vz", "mask", "rho", "press")
+                  + _CT3, 8, f"{_PALLAS}:624")
+FORCE_P_BWD = Sweep("force_p_bwd", "dft_force_p_bwd_sweep",
+                    PRESS.in_names + _CT3, 5, f"{_PALLAS}:624")
 
-#: The sweeps of the dense paths (FORCE_P is force_planes at mu == 0).
-SWEEPS = (DENSITY, FORCE, VISC, PRESS_PQ, PRESS, DENSITY_BWD, PRESS_BWD,
-          VISC_BWD)
+#: The sweeps of the dense paths (FORCE_P is force_planes at mu == 0, and
+#: FORCE_P_BWD its backward).
+SWEEPS = (DENSITY, FORCE, FORCE_P, VISC, PRESS_PQ, PRESS, DENSITY_BWD,
+          PRESS_BWD, VISC_BWD, FORCE_BWD, FORCE_P_BWD)
 
 
 def reset_launch_counts():
-    for s in SWEEPS + (FORCE_P,):
+    for s in SWEEPS:
         s.launches = 0
 
 
@@ -460,18 +490,32 @@ def _backward_sweep(run, spec: DenseCellSpec, adjoint: Op, ins: Planes,
     return [_mask_where(m, g) for g in run(sweep, pair, ins, spec, consts)]
 
 
+def _primal_names(fwd: Op, adjoint: Optional[Op]) -> Tuple[str, ...]:
+    """The autograd inputs of a sweep: its adjoint's input channels but the
+    cotangents (they are the forward's own, but for the fused force, whose
+    forward reads folds of rho and press), or the forward's without one."""
+    if adjoint is None:
+        return fwd[0].in_names
+    return tuple(n for n in adjoint[0].in_names if not n.startswith("ct_"))
+
+
 class _SweepFunction(torch.autograd.Function):
     """A masked forward sweep whose backward is its adjoint sweep, run by
     the same `run` (kernel on CUDA, plain on the CPU; plain anywhere for
-    `plain`). A sweep without an adjoint raises in backward."""
+    `plain`). `fold`, when given, builds the forward's channels from the
+    autograd inputs (untracked). A sweep without an adjoint raises in
+    backward."""
 
     @staticmethod
-    def forward(ctx, run, spec, fwd: Op, adjoint: Optional[Op], *arrs):
+    def forward(ctx, run, spec, fwd: Op, adjoint: Optional[Op], fold,
+                *arrs):
         sweep, pair, consts = fwd
-        ins = dict(zip(sweep.in_names, arrs))
+        ins = dict(zip(_primal_names(fwd, adjoint), arrs))
         ctx.set_materialize_grads(False)
         ctx.run, ctx.spec, ctx.fwd, ctx.adjoint = run, spec, fwd, adjoint
         ctx.save_for_backward(*arrs)
+        if fold is not None:
+            ins = fold(ins)
         m = ins["mask"]
         return tuple(_mask_where(m, o)
                      for o in run(sweep, pair, ins, spec, consts))
@@ -482,21 +526,22 @@ class _SweepFunction(torch.autograd.Function):
         if ctx.adjoint is None:
             raise NotImplementedError(
                 f"the {sweep.name} sweep ({sweep.replaces}) has no backward "
-                "sweep yet: the fused force_planes backward is K7 (ROADMAP "
-                "B8), and pressure_force_pq_planes is forward-only in the JAX "
-                "package too; differentiate through materials= / "
-                "unroll_for_grad=True, which use the factored sweeps")
-        ins = dict(zip(sweep.in_names, ctx.saved_tensors))
+                "sweep: pressure_force_pq_planes is forward-only in the JAX "
+                "package too (ROADMAP B4); differentiate through "
+                "materials= / unroll_for_grad=True, which use the factored "
+                "sweeps")
+        names = _primal_names(ctx.fwd, ctx.adjoint)
+        ins = dict(zip(names, ctx.saved_tensors))
         grads = iter(_backward_sweep(ctx.run, ctx.spec, ctx.adjoint, ins,
                                      cts))
-        return (None,) * 4 + tuple(None if n == "mask" else next(grads)
-                                   for n in sweep.in_names)
+        return (None,) * 5 + tuple(None if n == "mask" else next(grads)
+                                   for n in names)
 
 
 def _apply(run, spec: DenseCellSpec, fwd: Op, adjoint: Optional[Op],
-           ins: Planes):
-    return _SweepFunction.apply(run, spec, fwd, adjoint,
-                                *[ins[n] for n in fwd[0].in_names])
+           ins: Planes, fold=None):
+    return _SweepFunction.apply(run, spec, fwd, adjoint, fold,
+                                *[ins[n] for n in _primal_names(fwd, adjoint)])
 
 
 def _density_ops(k: KernelCoeffs) -> Tuple[Op, Op]:
@@ -534,22 +579,38 @@ def _density(run, planes: Planes, spec: DenseCellSpec, k: KernelCoeffs,
     return mass * s
 
 
+def _fold_force(ins: Planes, with_iv: bool) -> Planes:
+    """The fused force's per-slot folds pq = p / max(rho, eps)^2 (and
+    iv = 1 / max(rho, eps)), zero on empty slots."""
+    m = ins["mask"]
+    rho_c = torch.clamp(ins["rho"], min=_EPS)
+    out = _with(ins, pq=torch.where(m > 0, ins["press"] / (rho_c * rho_c),
+                                    0.0))
+    if with_iv:
+        out["iv"] = torch.where(m > 0, 1.0 / rho_c, 0.0)
+    return out
+
+
+def _force_ops(k: KernelCoeffs, mass: float, mu: float) -> Tuple[Op, Op]:
+    """The folded forward sweep and the adjoint of the unfolded pair; mass
+    and mu are baked into both kernels (mu == 0: the pressure-only forms)."""
+    h, b = float(k.h), float(k.b)
+    bwd_consts = (h, h * h, b, float(k.c), mass * mass, mu * mass)
+    if mu == 0.0:
+        return ((FORCE_P, _force_fold_pair(k, mass, mu),
+                 (h, h * h, b, mass * mass)),
+                (FORCE_P_BWD, _force_bwd_pair(k, mass, mu),
+                 (h, h * h, b, mass * mass)))
+    return ((FORCE, _force_fold_pair(k, mass, mu), bwd_consts),
+            (FORCE_BWD, _force_bwd_pair(k, mass, mu), bwd_consts))
+
+
 def _force(run, planes: Planes, rho_plane: torch.Tensor,
            press_plane: torch.Tensor, spec: DenseCellSpec, k: KernelCoeffs,
            mass: float, mu: float):
-    m = planes["mask"]
-    rho_c = torch.clamp(rho_plane, min=_EPS)
-    ins = _with(planes, pq=torch.where(m > 0, press_plane / (rho_c * rho_c),
-                                       0.0))
-    h = float(k.h)
-    if mu == 0.0:
-        fwd = (FORCE_P, _force_fold_pair(k, mass, mu),
-               (h, h * h, float(k.b), mass * mass))
-    else:
-        ins["iv"] = torch.where(m > 0, 1.0 / rho_c, 0.0)
-        fwd = (FORCE, _force_fold_pair(k, mass, mu),
-               (h, h * h, float(k.b), float(k.c), mass * mass, mu * mass))
-    return _apply(run, spec, fwd, None, ins)
+    return _apply(run, spec, *_force_ops(k, mass, mu),
+                  _with(planes, rho=rho_plane, press=press_plane),
+                  fold=functools.partial(_fold_force, with_iv=mu != 0.0))
 
 
 def _pressure(run, planes: Planes, rho_plane: torch.Tensor,
@@ -597,6 +658,14 @@ def _visc_bwd(run, planes: Planes, rho_plane: torch.Tensor, cts,
                            _with(planes, rho=rho_plane), cts)
 
 
+def _force_bwd(run, planes: Planes, rho_plane: torch.Tensor,
+               press_plane: torch.Tensor, cts, spec: DenseCellSpec,
+               k: KernelCoeffs, mass: float, mu: float):
+    return _backward_sweep(run, spec, _force_ops(k, mass, mu)[1],
+                           _with(planes, rho=rho_plane, press=press_plane),
+                           cts)
+
+
 def density_planes(planes: Planes, spec: DenseCellSpec, k: KernelCoeffs,
                    mass) -> torch.Tensor:
     """rho plane from x/y/z/mask planes: mass * sum_j A (1 - d^2/h^2)^2
@@ -611,8 +680,9 @@ def force_planes(planes: Planes, rho_plane: torch.Tensor,
     """(fx, fy, fz): symmetric pressure force + viscosity, with the per-slot
     folds pq = p / max(rho, eps)^2 and iv = 1 / max(rho, eps) built outside
     the sweep and mass, mu baked into the kernel. mu == 0 runs the
-    pressure-only sweep, which reads no velocity planes. Forward only: its
-    backward raises."""
+    pressure-only sweep, which reads no velocity planes. Differentiable in
+    positions, velocities, rho and press (not in the static mass, mu): the
+    backward sweeps the adjoint of the unfolded pair (K7)."""
     return _force(_run, planes, rho_plane, press_plane, spec, k, mass, mu)
 
 
@@ -663,6 +733,17 @@ def visc_sum_bwd(planes: Planes, rho_plane: torch.Tensor, cts,
     return _visc_bwd(_run, planes, rho_plane, cts, spec, k)
 
 
+def force_sum_bwd(planes: Planes, rho_plane: torch.Tensor,
+                  press_plane: torch.Tensor, cts, spec: DenseCellSpec,
+                  k: KernelCoeffs, mass: float, mu: float):
+    """[d/dx, d/dy, d/dz, d/dvx, d/dvy, d/dvz, d/drho, d/dpress] of the
+    fused force (mass and mu included) against the cotangents (ct_x, ct_y,
+    ct_z): the adjoint sweep force_planes' backward runs. mu == 0 gives
+    [d/dx, d/dy, d/dz, d/drho, d/dpress]."""
+    return _force_bwd(_run, planes, rho_plane, press_plane, cts, spec, k,
+                      mass, mu)
+
+
 #: The plain versions of the public sweeps and adjoint sweeps, same names
 #: and arguments, on any device: the reference each kernel is held against
 #: on the card (differentiable through the plain adjoints).
@@ -674,4 +755,5 @@ plain = SimpleNamespace(
     pressure_force_pq_planes=functools.partial(_pressure_pq, _run_plain),
     density_sum_bwd=functools.partial(_density_bwd, _run_plain),
     press_sum_bwd=functools.partial(_press_bwd, _run_plain),
-    visc_sum_bwd=functools.partial(_visc_bwd, _run_plain))
+    visc_sum_bwd=functools.partial(_visc_bwd, _run_plain),
+    force_sum_bwd=functools.partial(_force_bwd, _run_plain))

@@ -9,10 +9,12 @@ The PCISPH correction loop, a `lax.while_loop` in the JAX package, is a
 Python loop here: each iteration reads one scalar (`err.item()`, a host
 sync) against `pci_max_iters` and `pci_max_density_error_ratio`.
 
-Gradients (the training path). `materials=` (models.materials.Materials)
-supplies traced mass, mu, d0, tait_gamma and tait_w: every material scale is
-applied outside the sweeps, and WCSPH then runs the two factored sweeps
-(pressure + viscosity) in place of the fused, forward-only force sweep.
+Gradients. The static-params WCSPH step is differentiable in the state
+through the fused force sweep, whose backward is its own adjoint sweep (K7).
+`materials=` (models.materials.Materials) supplies traced mass, mu, d0,
+tait_gamma and tait_w: every material scale is applied outside the sweeps,
+and WCSPH then runs the two factored sweeps (pressure + viscosity) in place
+of the fused one, whose mass and mu are baked into the kernel.
 `unroll_for_grad=True` replaces the PCISPH correction loop by a fixed
 number of particle-resident iterations (the JAX `body`, differentiated as
 JAX differentiates its `lax.scan`), each rematerialized in the backward pass
@@ -112,9 +114,10 @@ def dense_density_forces(state: FluidState, params: FluidParams,
     force (every gather is masked with `valid`: their clamped slot aliases a
     live one).
 
-    Without `materials` the force is the fused forward-only sweep (mass and
-    mu baked in); with them it is the factored pressure + viscosity sweeps,
-    with every material scale applied outside the kernels."""
+    Without `materials` the force is the fused sweep (mass and mu baked in,
+    differentiable in the state); with them it is the factored pressure +
+    viscosity sweeps, with every material scale applied outside the
+    kernels."""
     mass, mu, d0, gamma, w = _material_scalars(params, materials)
     n = state.pos.shape[0]
     pos, vel = _boundary_extended(state)

@@ -239,9 +239,11 @@ def test_unported_options_raise():
 
 @pytest.mark.parametrize("sweep", ["force", "force_mu0", "pressure_pq"])
 def test_backward_through_forward_only_sweep_raises(sweep):
-    """The fused force sweep (its backward, K7, is not ported) and the
-    prefolded pressure sweep raise in backward, on the CPU as on the card,
-    rather than return a gradient without their force term."""
+    """The prefolded pressure sweep is forward only (in the JAX package
+    too) and raises in backward, on the CPU as on the card, rather than
+    return a gradient without its force term. The fused force sweep was
+    forward only until its backward (K7) was ported: its backward is now
+    exactly the adjoint sweep `force_sum_bwd`, both forms."""
     from dieselfluid_tpu_torch.ops import cellops as tc
     from dieselfluid_tpu_torch.ops import sph_sweep as sw
 
@@ -249,6 +251,7 @@ def test_backward_through_forward_only_sweep_raises(sweep):
     pos = particles.dam_break_state(4, params, "cpu").pos
     spec = tc.DenseCellSpec.for_domain((-1,) * 3, (1,) * 3, params.h)
     flat, valid, _ = tc.dense_indices(pos, spec)
+    assert bool(valid.all())
     x = pos.clone().requires_grad_()
     zero = torch.zeros_like(pos[:, 0])
     p = tc.build_planes({"x": x[:, 0], "y": x[:, 1], "z": x[:, 2],
@@ -258,8 +261,18 @@ def test_backward_through_forward_only_sweep_raises(sweep):
     rho = sw.density_planes(p, spec, k, params.mass)
     if sweep == "pressure_pq":
         out = sw.pressure_force_pq_planes(p, rho, spec, k, params.mass)
-    else:
-        out = sw.force_planes(p, rho, rho, spec, k, params.mass,
-                              params.mu if sweep == "force" else 0.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch.autograd.grad(out[0].sum(), x)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            torch.autograd.grad(out[0].sum(), x)
+        return
+    mu = params.mu if sweep == "force" else 0.0
+    rho = rho.detach()
+    # Seeded weights: the plain sum of fx has a zero gradient (the pressure
+    # force is antisymmetric).
+    wt = torch.from_numpy(np.random.default_rng(4).normal(
+        size=spec.plane_shape).astype(np.float32))
+    out = sw.force_planes(p, rho, rho, spec, k, params.mass, mu)
+    (g,) = torch.autograd.grad((out[0] * wt).sum(), x)
+    want = sw.force_sum_bwd({n: v.detach() for n, v in p.items()}, rho, rho,
+                            (wt, None, None), spec, k, params.mass, mu)
+    assert torch.equal(g, tc.gather_planes(want[:3], flat))
+    assert float(g.abs().max()) > 0.0

@@ -1,5 +1,6 @@
-"""The port's sm_90a sweep kernels, forward and backward, against their
-plain torch versions, and autograd through them on the card.
+"""The port's sm_90a kernels against their plain torch versions, and
+autograd through them on the card: the stencil sweeps, forward and backward
+(K1-K9 of PERF.md), and the tile rasterizer forward and backward (K11, K12).
 
 Needs a CUDA device; every test skips with the reason where
 torch.cuda.is_available() is false. On the card (the machine there has no
@@ -26,7 +27,8 @@ N3 = 16
 DX = (2.0 / N3) * 0.5
 SWEEP_NAMES = ["density", "force", "force_mu0", "viscosity", "pressure_pq",
                "pressure"]
-BWD_NAMES = ["density_bwd", "pressure_bwd", "viscosity_bwd"]
+BWD_NAMES = ["density_bwd", "pressure_bwd", "viscosity_bwd", "force_bwd",
+             "force_p_bwd"]
 
 
 @pytest.fixture(scope="module")
@@ -84,6 +86,9 @@ def _call(name, params, spec, p, plain):
         return fns.press_sum_bwd(p, p["rho"], p["press"], cts, spec, k)
     if name == "viscosity_bwd":
         return fns.visc_sum_bwd(p, p["rho"], cts, spec, k)
+    if name in ("force_bwd", "force_p_bwd"):
+        return fns.force_sum_bwd(p, p["rho"], p["press"], cts, spec, k, m,
+                                 mu if name == "force_bwd" else 0.0)
     return fns.pressure_force_pq_planes(p, p["pq"], spec, k, m)
 
 
@@ -91,7 +96,8 @@ _SWEEP_OF = {"density": sw.DENSITY, "force": sw.FORCE,
              "force_mu0": sw.FORCE_P, "viscosity": sw.VISC,
              "pressure_pq": sw.PRESS_PQ, "pressure": sw.PRESS,
              "density_bwd": sw.DENSITY_BWD, "pressure_bwd": sw.PRESS_BWD,
-             "viscosity_bwd": sw.VISC_BWD}
+             "viscosity_bwd": sw.VISC_BWD, "force_bwd": sw.FORCE_BWD,
+             "force_p_bwd": sw.FORCE_P_BWD}
 
 
 @pytest.mark.parametrize("name", SWEEP_NAMES + BWD_NAMES)
@@ -184,15 +190,131 @@ def test_autograd_on_card_launches_backward_kernels_and_matches_cpu(planes):
 
 
 def test_backward_without_kernel_raises_on_card(planes):
-    """force_planes (K7 not ported) and pressure_force_pq_planes raise in
-    backward instead of dropping their force from the gradient."""
+    """pressure_force_pq_planes (forward only, as in the JAX package) raises
+    in backward instead of dropping its force from the gradient; the fused
+    force_planes now has its backward kernel (K7) and does not."""
     params, spec, p = planes
     k = KernelCoeffs.build(params.h)
     x = p["x"].clone().requires_grad_()
     ins = dict(p, x=x)
-    for out in (sw.force_planes(ins, p["rho"], p["press"], spec, k,
-                                params.mass, 0.3),
-                sw.pressure_force_pq_planes(ins, p["pq"], spec, k,
-                                            params.mass)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            torch.autograd.grad(out[0].sum(), x)
+    out = sw.pressure_force_pq_planes(ins, p["pq"], spec, k, params.mass)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        torch.autograd.grad(out[0].sum(), x)
+    out = sw.force_planes(ins, p["rho"], p["press"], spec, k, params.mass,
+                          0.3)
+    before = sw.FORCE_BWD.launches
+    (g,) = torch.autograd.grad((out[0] * p["ct_0"]).sum(), x)
+    assert sw.FORCE_BWD.launches == before + 1
+    assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+
+
+@pytest.mark.parametrize("mu", [0.3, 0.0])
+def test_force_autograd_on_card_matches_cpu(planes, mu):
+    """d/d(x, vx, rho, press) of a seeded loss through force_planes: K7 on
+    the card (counted; the mu == 0 form at mu == 0), the plain adjoint on
+    the CPU."""
+    params, spec, p = planes
+    k = KernelCoeffs.build(params.h)
+    counter = sw.FORCE_BWD if mu else sw.FORCE_P_BWD
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        q = {n: v.to(dev) for n, v in p.items()}
+        leaves = {n: q[n].clone().requires_grad_()
+                  for n in ("x", "vx", "rho", "press")}
+        ins = dict(q, **leaves)
+        out = sw.force_planes(ins, leaves["rho"], leaves["press"], spec, k,
+                              params.mass, mu)
+        loss = sum((o * q[f"ct_{c}"]).sum() for c, o in enumerate(out))
+        before = counter.launches
+        want = [leaves[n] for n in ("x", "rho", "press")]
+        grads[dev] = torch.autograd.grad(loss, want)
+        assert counter.launches == before + (dev == "cuda")
+    for g, c in zip(grads["cuda"], grads["cpu"]):
+        err = float((g.cpu() - c).abs().max()) / float(c.abs().max())
+        assert err <= sw.KERNEL_BWD_REL_TOL
+
+
+# --------------------------------------------------------------------------
+# The tile rasterizer, K11 and K12
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def frame(cuda):
+    """A 256x144 frame (k = 512) of 3000 seeded splats binned on the card,
+    with seeded cotangent planes."""
+    from dieselfluid_tpu_torch.render import splat_tiled as st
+    from dieselfluid_tpu_torch.render.camera import Camera
+
+    rng = np.random.default_rng(12)
+    pos = torch.from_numpy(rng.uniform(-0.6, 0.6, (3000, 3)).astype(
+        np.float32)).to(cuda)
+    cam = Camera.at((0.0, 0.0, -2.0), front=(0.0, 0.0, 1.0), fov_deg=60.0,
+                    aspect=256 / 144, device=cuda)
+    spec = st.TileSpec(256, 144, k=512)
+    planes, _, ovf, _ = st.tile_entries(pos, 0.02, cam, spec)
+    assert int(ovf) == 0
+    cts = [torch.from_numpy(rng.normal(size=spec.tile_shape).astype(
+        np.float32)).to(cuda) for _ in range(9)]
+    return st, spec, planes, cts, pos, cam
+
+
+@pytest.mark.parametrize("n_out", [6, 9])
+def test_rasterizer_kernels_match_plain_and_count_launches(frame, n_out):
+    st, spec, planes, cts, _, _ = frame
+    emit = n_out == 9
+    before = (st.SPLAT_FWD.launches, st.SPLAT_BWD.launches)
+    outs = st.rasterize_fwd(planes, spec, 12.0, 2.0, emit)
+    grads = st.rasterize_bwd(planes, cts[:n_out], spec, 12.0, 2.0,
+                                    emit)
+    torch.cuda.synchronize()
+    assert (st.SPLAT_FWD.launches, st.SPLAT_BWD.launches) == (
+        before[0] + 1, before[1] + 1)
+    want_o = st.plain.rasterize_fwd(planes, spec, 12.0, 2.0, emit)
+    want_g = st.plain.rasterize_bwd(planes, cts[:n_out], spec, 12.0, 2.0,
+                                    emit)
+    assert (st.SPLAT_FWD.launches, st.SPLAT_BWD.launches) == (
+        before[0] + 1, before[1] + 1)       # the plain versions count 0
+    assert len(outs) == n_out and len(grads) == 4
+    for g, w in zip(outs, want_o):
+        assert bool(torch.isfinite(g).all())
+        err = float((g - w).abs().max()) / float(w.abs().max())
+        assert err <= st.RASTER_REL_TOL
+    dead = planes["r"] < 0.5
+    for g, w in zip(grads, want_g):
+        assert bool(torch.isfinite(g).all()) and bool((g[dead] == 0).all())
+        err = float((g - w).abs().max()) / float(w.abs().max())
+        assert err <= st.RASTER_BWD_REL_TOL
+
+
+def test_rasterizer_wrapper_rejects_bad_planes(frame):
+    st, spec, planes, _, _, _ = frame
+    with pytest.raises(TypeError):
+        st.rasterize({n: v.double() for n, v in planes.items()}, spec,
+                      12.0, 2.0)
+    with pytest.raises(ValueError):
+        st.rasterize(dict(planes, u=planes["u"].cpu()), spec, 12.0, 2.0)
+
+
+def test_splat_gradient_on_card_matches_cpu(frame):
+    """d sum(color^2) / d positions through splat_particles_tiled: K11 and
+    K12 on the card (each launched once), the plain versions on the CPU."""
+    st, _, _, _, pos, cam = frame
+    from dieselfluid_tpu_torch.render.camera import Camera
+
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        c = Camera(transform=cam.transform.to(dev), fov_deg=cam.fov_deg,
+                   aspect=cam.aspect)
+        p = pos.to(dev).clone().requires_grad_()
+        before = (st.SPLAT_FWD.launches, st.SPLAT_BWD.launches)
+        img = st.splat_particles_tiled(p, 0.02, c, 256, 144, k=512)
+        (grads[dev],) = torch.autograd.grad((img.color ** 2).sum(), p)
+        n = int(dev == "cuda")
+        assert (st.SPLAT_FWD.launches, st.SPLAT_BWD.launches) == (
+            before[0] + n, before[1] + n)
+    g, c = grads["cuda"].cpu(), grads["cpu"]
+    assert bool(torch.isfinite(g).all())
+    # The kernels round r2 as the plain version does; what is left is
+    # summation order, amplified where a slot's per-pixel terms cancel.
+    assert float((g - c).abs().max()) <= 1e-4 * float(c.abs().max())

@@ -97,7 +97,8 @@ def _port_grads(setup, solver):
     spec = interop.cell_spec_from_jax(setup["jspec"])
     s = interop.fluid_state_from_numpy(**setup["arrays"], device="cpu")
     pos = s.pos.clone().requires_grad_()
-    m = Materials.from_params(params, requires_grad=True)
+    m = Materials.from_params(params, torch.device("cpu"),
+                               requires_grad=True)
     st = s._replace(pos=pos)
     if solver == "wcsph":
         nxt, _ = tds.dense_wcsph_step(st, params, spec, materials=m)
@@ -186,7 +187,7 @@ def test_materials_forward_matches_static_params(setup, solver):
     params = interop.fluid_params_from(setup["params"])
     spec = interop.cell_spec_from_jax(setup["jspec"])
     s = interop.fluid_state_from_numpy(**setup["arrays"], device="cpu")
-    m = Materials.from_params(params)
+    m = Materials.from_params(params, torch.device("cpu"))
     if solver == "wcsph":
         a, _ = tds.dense_wcsph_step(s, params, spec)
         b, _ = tds.dense_wcsph_step(s, params, spec, materials=m)
@@ -210,7 +211,7 @@ def test_gradient_through_the_correction_loop_raises(setup, field):
     params = interop.fluid_params_from(setup["params"])
     spec = interop.cell_spec_from_jax(setup["jspec"])
     s = interop.fluid_state_from_numpy(**setup["arrays"], device="cpu")
-    m = Materials.from_params(params)
+    m = Materials.from_params(params, torch.device("cpu"))
     m = m._replace(**{field: getattr(m, field).clone().requires_grad_()})
     nxt, _ = tds.dense_pcisph_step(s, params, spec, setup["delta"],
                                    materials=m)
