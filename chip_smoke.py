@@ -11,7 +11,11 @@ Phases, each of which raises (and so exits nonzero) on failure:
      K7, with and without viscosity included), against its plain torch
      version on the card, on a 32^3 dam break after a few WCSPH steps (max
      abs/rel error vs KERNEL_REL_TOL, per output vs KERNEL_BWD_REL_TOL for
-     the backward sweeps, which take seeded cotangent planes);
+     the backward sweeps, which take seeded cotangent planes); and the
+     three gated sweeps of K10 under three seeded activity grids (all ones,
+     about a quarter of the patches, all zeros, whose outputs must be all
+     0), each also bitwise equal to its ungated kernel on the active
+     occupied rows;
   4. the tile rasterizer kernels K11 and K12, 6 and 9 outputs, against
      their plain versions on a 256x144 frame (RASTER_REL_TOL,
      RASTER_BWD_REL_TOL per output);
@@ -25,8 +29,11 @@ Phases, each of which raises (and so exits nonzero) on failure:
      launch counter > 0);
   7. each sweep kernel against its plain version again at the main paths'
      shapes: on the 1M plane state the PCISPH run ends in (off the lattice,
-     pairs asymmetric), with kernel and plain times (CUDA events, median of
-     reps) and each kernel's bound (bytes and operations of this data);
+     pairs asymmetric), with kernel times (CUDA events, median of 20) and
+     plain times (the comparison's one run) and each kernel's bound (bytes
+     and operations of this data);
+     then K10 there as in phase 3, timed under the all-ones and the
+     quarter grid, with its bounds over the active columns;
   8. the training path at full size: the loss sum(next.pos * w) through
      dense_pcisph_step(materials=m, unroll_for_grad=True, unroll_iters=3)
      and through dense_wcsph_step(materials=m) on the 1M dam break with
@@ -56,7 +63,23 @@ Phases, each of which raises (and so exits nonzero) on failure:
      card against the plain versions on the CPU, from the same numpy state,
      and its two halves from identical inputs: the render from the same
      slot planes, the step's pull-back of the same cotangent;
- 15. a short Simulation.create(...) PCISPH run, the normal entry point.
+ 15. a short Simulation.create(...) PCISPH run, the normal entry point;
+ 16. the column_skip path at full size: the 1M dam break with the serving
+     parameters, 30 warm-started per-step PCISPH steps of burn-in, then
+     from that state 20 steps of dense_pcisph_step(column_skip=True) and 20
+     of the ungated loop, in turns (gated, ungated, ungated, gated): ms per
+     step, mean iterations, the K10 launch counts of the first gated run
+     (reset just before, read just after), the active patches per
+     iteration over one more gated run; then 3 steps of each loop from
+     that state, the gated tracking the ungated within the JAX test's
+     bounds;
+ 17. the batch CLI at 1M as a user runs it (`--column-skip --warm-start
+     --guard --checkpoint-every 10 --stream dfc --render --viewer`, 20
+     steps): its summary line (1,000,000 particles, overflow 0, recoveries
+     0), the .dfc read back (2 frames), the checkpoints, the viewer, peak
+     memory, the launch counts; then `--resume` from the last checkpoint
+     for 5 steps. These two run last, so that the phases above run as
+     they did before the slice that added them.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -99,6 +122,15 @@ OPS_PER_PAIR = {"density": 16, "force": 44, "force_p": 31,
                 "density_bwd": 23,
                 "pressure_bwd": 74, "viscosity_bwd": 73,
                 "force_bwd": 74 + 5 + 73 + 7, "force_p_bwd": 74 + 5}
+# K10, the gated sweeps, and the ungated sweep each gates (same functor).
+GATED_OF = {"density_active": "density", "pressure_active": "pressure",
+            "pressure_pq_active": "pressure_pq"}
+# The column_skip phase: per-step PCISPH at 1M, warm-started, burn-in and
+# timed steps; the gated loop's tracking of the ungated one over 3 steps
+# from one state (the JAX test's bounds, tests/test_pallas_dense.py:306-307).
+SKIP_BURN_IN, SKIP_STEPS = 30, 20
+SKIP_DPOS_TOL, SKIP_DVEL_TOL = 1e-4, 1e-3
+CLI_N3 = 100            # the CLI phase's dam break, 1,000,000 particles
 # Operations per live (slot, pixel) pair of csrc/splat_raster.cu, counted
 # the same way (exp, sqrt, rsqrt and divide as one each), for the 6-output
 # form the main path runs: the forward's pair and its 6 sums; the
@@ -169,6 +201,20 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return float(np.median(times))
 
 
+def timed_call(fn):
+    """(fn()'s result, its milliseconds on the current stream by CUDA
+    events): one run, for the slow plain versions."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def bench_setup(n3: int, device):
     """bench.py's dam break: params, state, spec and PCISPH delta."""
     from dieselfluid_tpu_torch.config import FluidParams
@@ -198,10 +244,9 @@ def seeded_cotangents(spec, device, seed: int):
                  for _ in range(3))
 
 
-def sweep_calls(planes, spec, params, plain: bool, cts):
-    """name -> zero-argument call of each public sweep and backward sweep on
-    `planes` (or of its plain version), with the density, Tait pressure and
-    pq planes the solvers would feed it and the cotangent planes `cts`."""
+def sweep_inputs(planes, spec, params):
+    """(k, rho, press, pq): the density, Tait pressure and prefolded pq
+    planes the solvers would feed the sweeps on `planes`."""
     from dieselfluid_tpu_torch.ops import sph_sweep as sw
     from dieselfluid_tpu_torch.ops.smoothing import KernelCoeffs, tait_eos
     import torch
@@ -214,6 +259,16 @@ def sweep_calls(planes, spec, params, plain: bool, cts):
                         0.0)
     rff = torch.clamp(rho, min=0.5 * params.d0)
     pq = torch.where(m > 0, press / (rff * rff), 0.0)
+    return k, rho, press, pq
+
+
+def sweep_calls(planes, spec, params, plain: bool, cts):
+    """name -> zero-argument call of each public ungated sweep and backward
+    sweep on `planes` (or of its plain version), with the planes of
+    sweep_inputs and the cotangent planes `cts`."""
+    from dieselfluid_tpu_torch.ops import sph_sweep as sw
+
+    k, rho, press, pq = sweep_inputs(planes, spec, params)
     mu, mass = float(params.mu), params.mass
     fns = sw.plain if plain else sw
     return {
@@ -240,6 +295,25 @@ def sweep_calls(planes, spec, params, plain: bool, cts):
     }
 
 
+def gated_calls(planes, spec, params, plain: bool, active, inputs=None):
+    """name -> zero-argument call of each K10 sweep (or of its plain
+    version) under the int32 activity grid `active`, with the planes of
+    sweep_inputs; the ungated counterpart of each name is GATED_OF[name]."""
+    from dieselfluid_tpu_torch.ops import sph_sweep as sw
+
+    k, rho, press, pq = inputs or sweep_inputs(planes, spec, params)
+    mass = params.mass
+    fns = sw.plain if plain else sw
+    return {
+        "density_active": lambda: (fns.density_planes_active(
+            planes, spec, k, mass, active),),
+        "pressure_active": lambda: fns.pressure_force_planes_active(
+            planes, rho, press, spec, k, mass, active),
+        "pressure_pq_active": lambda: fns.pressure_force_pq_planes(
+            planes, pq, spec, k, mass, active=active),
+    }
+
+
 def _rel_err(diff: float, scale: float) -> float:
     """diff / scale; where the plain output is all zero (the step's planes
     at rest: zero velocities, zero Tait pressure) the kernel's must be
@@ -250,11 +324,12 @@ def _rel_err(diff: float, scale: float) -> float:
 
 
 def compare_kernels(planes, spec, params, cts, label: str,
-                    names=None) -> dict:
+                    names=None, plain_ms=None) -> dict:
     """Each sweep (or each of `names`) against its plain version on the
     same planes; fails over KERNEL_REL_TOL (forward, relative to the
     largest output) or KERNEL_BWD_REL_TOL (backward, per output). Returns
-    name -> (max abs error, max relative error)."""
+    name -> (max abs error, max relative error); fills `plain_ms`, when
+    given, with each plain version's time in this comparison."""
     import torch
     from dieselfluid_tpu_torch.ops.sph_sweep import (KERNEL_BWD_REL_TOL,
                                                      KERNEL_REL_TOL)
@@ -263,8 +338,10 @@ def compare_kernels(planes, spec, params, cts, label: str,
     ref = sweep_calls(planes, spec, params, True, cts)
     errs = {}
     for name in names or kern:
-        got, want = kern[name](), ref[name]()
-        torch.cuda.synchronize()
+        got = kern[name]()
+        want, ms = timed_call(ref[name])
+        if plain_ms is not None:
+            plain_ms[name] = ms
         diffs = [float((g - w).abs().max()) for g, w in zip(got, want)]
         scales = [float(w.abs().max()) for w in want]
         if name.endswith("_bwd"):
@@ -298,13 +375,16 @@ def check_kernels_small(device) -> dict:
     ps = plane_state_from_fluid(state, spec)
     for _ in range(5):
         ps = dense_wcsph_resident_step(ps, params, spec, skin=0.0)
-    return compare_kernels(ps.planes, spec, params,
+    errs = compare_kernels(ps.planes, spec, params,
                            seeded_cotangents(spec, device, 1), "n3=32")
+    errs.update(compare_gated(ps.planes, spec, params, "n3=32", 11)[0])
+    return errs
 
 
-def candidate_pairs(mask, spec) -> int:
+def candidate_pairs(mask, spec, rows=None) -> int:
     """Occupied (own, candidate) slot pairs of the 27-cell stencil: the
-    pairs each sweep evaluates on this data."""
+    pairs each sweep evaluates on this data (with `rows`, a (rows, 1, 1)
+    bool, only those whose own slot lies in a selected row)."""
     import torch
 
     occ = mask.view(spec.px, spec.py, spec.row_len // spec.capacity,
@@ -312,7 +392,16 @@ def candidate_pairs(mask, spec) -> int:
     nbr = torch.nn.functional.avg_pool3d(
         occ[None, None], 3, stride=1, padding=1,
         count_include_pad=True)[0, 0] * 27.0
-    return int(round(float((occ.double() * nbr.double()).sum())))
+    own = occ if rows is None else occ * rows.view(spec.px, spec.py, 1)
+    return int(round(float((own.double() * nbr.double()).sum())))
+
+
+def _bound(n_bytes: float, pairs: int, ops_per_pair: int):
+    """(bound ms, "bytes" or "operations") at the H100's peaks."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = pairs * ops_per_pair / FP32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def kernel_bounds(planes, spec) -> dict:
@@ -332,31 +421,291 @@ def kernel_bounds(planes, spec) -> dict:
     block_bytes = blocks * 128 * 4
     out = {}
     for s in sw.SWEEPS:
-        n_bytes = ((1 + s.n_out) * plane_bytes
-                   + (len(s.in_names) - 1) * block_bytes)
-        t_bytes = n_bytes / HBM_BYTES_PER_S
-        t_ops = pairs * OPS_PER_PAIR[s.name] / FP32_OPS_PER_S
-        out[s.name] = ((max(t_bytes, t_ops) * 1e3,
-                        "bytes" if t_bytes >= t_ops else "operations"))
+        if s.gated:
+            continue
+        out[s.name] = _bound((1 + s.n_out) * plane_bytes
+                             + (len(s.in_names) - 1) * block_bytes, pairs,
+                             OPS_PER_PAIR[s.name])
     log(f"bounds: {pairs} candidate pairs, {blocks} of "
         f"{spec.size // 128} blocks occupied, plane {plane_bytes} B: "
         + json.dumps(out))
     return out
 
 
-def time_kernels(planes, spec, params, cts) -> dict:
+def time_kernels(planes, spec, params, cts, plain_ms) -> dict:
     """name -> (kernel ms, plain ms) of the public sweep calls on `planes`
-    (kernel: median of 20; plain: median of 2, chunked; compare_kernels
-    already ran both once)."""
+    (kernel: median of 20 after 2 warm-ups; plain: the one run of
+    compare_kernels on the same planes, `plain_ms`)."""
     kern = sweep_calls(planes, spec, params, False, cts)
-    ref = sweep_calls(planes, spec, params, True, cts)
     out = {}
     for name in kern:
         ms = cuda_ms(kern[name], reps=20, warmup=2)
-        plain_ms = cuda_ms(ref[name], reps=2, warmup=0)
-        log(f"time {name:14s} 1M: kernel {ms!r} ms  plain {plain_ms!r} ms")
-        out[name] = (ms, plain_ms)
+        log(f"time {name:14s} 1M: kernel {ms!r} ms  plain "
+            f"{plain_ms[name]!r} ms")
+        out[name] = (ms, plain_ms[name])
     return out
+
+
+def gated_bounds(planes, spec, active) -> dict:
+    """kernel_bounds for the K10 sweeps under `active`: the mask read over
+    the rows of active columns, the activity grid, every output plane
+    written in full, every other input channel over the occupied 128-slot
+    blocks of active columns, and the pair operations of the own slots in
+    active columns (the ungated functor's count)."""
+    from dieselfluid_tpu_torch.ops import sph_sweep as sw
+
+    mask = planes["mask"]
+    rows = sw.act_rows_of(active, spec)
+    pairs = candidate_pairs(mask, spec, rows)
+    blocks = int(((mask * rows).view(-1, 128).amax(-1) > 0).sum())
+    mask_bytes = int(rows.sum()) * spec.sub * 128 * 4
+    out = {}
+    for s in sw.SWEEPS:
+        if s.gated:
+            out[s.name] = _bound(
+                mask_bytes + active.numel() * 4 + s.n_out * spec.size * 4
+                + (len(s.in_names) - 1) * blocks * 128 * 4, pairs,
+                OPS_PER_PAIR[GATED_OF[s.name]])
+    log(f"gated bounds ({int(active.sum())} of {active.numel()} patches "
+        f"active): {pairs} candidate pairs, {blocks} blocks: "
+        + json.dumps(out))
+    return out
+
+
+def activity_grids(spec, device, seed: int) -> dict:
+    """Seeded int32 activity grids for K10: all ones, about a quarter of
+    the patches, all zeros."""
+    import torch
+    from dieselfluid_tpu_torch.ops.sph_sweep import active_patch_shape
+
+    shape = active_patch_shape(spec)
+    quarter = np.random.default_rng(seed).uniform(size=shape) < 0.25
+    quarter.flat[0] = True
+    return {name: torch.from_numpy(a.astype(np.int32)).to(device)
+            for name, a in (("ones", np.ones(shape)),
+                            ("quarter", quarter),
+                            ("zeros", np.zeros(shape)))}
+
+
+def compare_gated(planes, spec, params, label: str, seed: int,
+                  plain_ms=None) -> dict:
+    """Each K10 sweep against its plain version under each activity grid of
+    activity_grids (KERNEL_REL_TOL; under all zeros both must be all 0),
+    and against the ungated kernel on the rows it swept: on the active
+    occupied rows the two are the same inlined body and functor, and must
+    agree bit for bit. Returns (name -> (max abs error, max relative
+    error) over the grids, the grids); fills `plain_ms`, when given, with
+    each plain version's time under the all-ones grid."""
+    import torch
+    from dieselfluid_tpu_torch.ops.sph_sweep import KERNEL_REL_TOL, act_rows_of
+
+    inputs = sweep_inputs(planes, spec, params)
+    grids = activity_grids(spec, planes["mask"].device, seed)
+    ungated = sweep_calls(planes, spec, params, False, None)
+    full = {name: ungated[GATED_OF[name]]() for name in GATED_OF}
+    errs = {}
+    for gname, active in grids.items():
+        kern = gated_calls(planes, spec, params, False, active, inputs)
+        ref = gated_calls(planes, spec, params, True, active, inputs)
+        sel = (act_rows_of(active, spec) & (planes["mask"] > 0))
+        for name in kern:
+            got = kern[name]()
+            want, ms = timed_call(ref[name])
+            if plain_ms is not None and gname == "ones":
+                plain_ms[name] = ms
+            diffs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+            scale = max(float(w.abs().max()) for w in want)
+            rel = _rel_err(max(diffs), scale)
+            bitwise = all(torch.equal(g[sel], u[sel])
+                          for g, u in zip(got, full[name]))
+            log(f"kernel {name:18s} {label} {gname:7s}: "
+                f"max_abs_err={max(diffs)!r} max|plain|={scale!r} "
+                f"rel={rel!r} tol={KERNEL_REL_TOL!r} "
+                f"bitwise_vs_ungated={bitwise}")
+            check(all(bool(torch.isfinite(g).all()) for g in got),
+                  f"{name} {label} {gname}: non-finite kernel output")
+            check(rel <= KERNEL_REL_TOL, f"{name} kernel disagrees with "
+                  f"plain version at {label} {gname}: rel {rel}")
+            check(bitwise, f"{name} at {label} {gname}: not bitwise equal "
+                  "to the ungated kernel on the active occupied rows")
+            if gname == "zeros":
+                check(not any(bool(g.any()) for g in got),
+                      f"{name} {label}: nonzero output, no patch active")
+            e = errs.get(name, (0.0, 0.0))
+            errs[name] = (max(e[0], max(diffs)), max(e[1], rel))
+    return errs, grids
+
+
+def time_gated(planes, spec, params, grids, plain_ms) -> dict:
+    """name -> {grid: (kernel ms, plain ms or None)} of the K10 sweeps on
+    `planes` under the all-ones and the quarter grid (kernel: median of 20
+    after 2 warm-ups; plain, all ones only: compare_gated's run,
+    `plain_ms`)."""
+    inputs = sweep_inputs(planes, spec, params)
+    out = {}
+    for gname in ("ones", "quarter"):
+        kern = gated_calls(planes, spec, params, False, grids[gname], inputs)
+        for name in kern:
+            ms = cuda_ms(kern[name], reps=20, warmup=2)
+            pms = plain_ms[name] if gname == "ones" else None
+            log(f"time {name:18s} 1M {gname:7s}: kernel {ms!r} ms  plain "
+                f"{pms!r} ms")
+            out.setdefault(name, {})[gname] = (ms, pms)
+    return out
+
+
+def run_column_skip(params, state, spec, delta, sync) -> dict:
+    """dense_pcisph_step at 1M with warm start: SKIP_BURN_IN ungated steps,
+    then from that state SKIP_STEPS gated and SKIP_STEPS ungated steps,
+    timed in turns (gated, ungated, ungated, gated); the launch counters
+    reset just before the first gated run and read just after it. Then 3
+    steps of each loop from that state: the gated loop must track the
+    ungated one (SKIP_DPOS_TOL, SKIP_DVEL_TOL)."""
+    import torch
+    from dieselfluid_tpu_torch.solvers.dense_step import dense_pcisph_step
+
+    def step(s, skip):
+        return dense_pcisph_step(s, params, spec, delta, warm_start=True,
+                                 column_skip=skip)
+
+    s0 = state
+    for _ in range(SKIP_BURN_IN):
+        s0, _ = step(s0, False)
+    sync()
+    runs = {True: [], False: []}
+    launches = None
+    for skip in (True, False, False, True):
+        if launches is None:
+            reset_all_launch_counts()
+        x, iters = s0, []
+        t0 = time.perf_counter()
+        for _ in range(SKIP_STEPS):
+            x, d = step(x, skip)
+            iters.append(d.iters)
+        sync()
+        dt = time.perf_counter() - t0
+        if launches is None:
+            launches = launch_counts()
+        check(bool(torch.isfinite(x.pos).all()) and int(d.overflow) == 0,
+              f"column_skip={skip}: non-finite state or overflow")
+        runs[skip].append((dt / SKIP_STEPS * 1e3, float(np.mean(iters))))
+    # The active patches of each iteration (the first of a step sweeps
+    # everything) over one more gated run, counted by a spy on the loop's
+    # row selection: a host read per iteration, so not in a timed run.
+    from dieselfluid_tpu_torch.ops.sph_sweep import active_patch_shape
+    from dieselfluid_tpu_torch.solvers import dense_step as ds
+
+    patches, real = [], ds.act_rows_of
+    ds.act_rows_of = lambda active, sp: (patches.append(int(active.sum())),
+                                         real(active, sp))[1]
+    try:
+        x = s0
+        for _ in range(SKIP_STEPS):
+            x, _ = step(x, True)
+    finally:
+        ds.act_rows_of = real
+    total = int(np.prod(active_patch_shape(spec)))
+    partial = [p for p in patches if p < total]
+    a = b = s0
+    for _ in range(3):
+        a, _ = step(a, False)
+        b, _ = step(b, True)
+    dpos = float((a.pos - b.pos).abs().max())
+    dvel = float((a.vel - b.vel).abs().max())
+    n = state.pos.shape[0]
+    out = {"n": n, "burn_in": SKIP_BURN_IN, "steps": SKIP_STEPS,
+           "launches": launches, "track_dpos": dpos, "track_dvel": dvel,
+           "patches": total, "iterations_spied": len(patches),
+           "iterations_all_active": len(patches) - len(partial),
+           "mean_active_patches": float(np.mean(patches)),
+           "mean_active_patches_of_partial": (float(np.mean(partial))
+                                              if partial else None)}
+    for skip, name in ((True, "gated"), (False, "ungated")):
+        ms = [r[0] for r in runs[skip]]
+        out[name] = {"ms_per_step": float(np.mean(ms)), "ms_runs": ms,
+                     "mean_iters": [r[1] for r in runs[skip]],
+                     "psteps_per_sec": n / (float(np.mean(ms)) / 1e3)}
+    log("column_skip_1m " + json.dumps(out))
+    for name in ("density_active", "pressure_pq_active"):
+        check(launches[name] > 0,
+              f"kernel {name} was not launched by the column_skip path")
+    check(dpos < SKIP_DPOS_TOL and dvel < SKIP_DVEL_TOL,
+          f"the gated loop does not track the ungated one: dpos {dpos}, "
+          f"dvel {dvel}")
+    return out
+
+
+def run_cli(device) -> dict:
+    """The batch CLI at 1M as a user runs it (`--column-skip --warm-start
+    --guard --checkpoint-every 10 --stream dfc --render --viewer`, 20
+    steps), then `--resume` from its last checkpoint for 5 more. Launch
+    counters reset just before the first run and read just after it."""
+    import contextlib
+    import io
+    import shutil
+    from pathlib import Path
+
+    import torch
+    from dieselfluid_tpu_torch.app import cli
+    from dieselfluid_tpu_torch.io.native import read_dfc
+
+    out = Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
+    shutil.rmtree(out, ignore_errors=True)
+    base = ["--n3", str(CLI_N3), "--neighbors", "dense", "--solver",
+            "pcisph", "--column-skip", "--warm-start"]
+
+    def run(argv, label):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        wall = time.perf_counter() - t0
+        lines = buf.getvalue().strip().splitlines()
+        for line in lines:
+            log(f"  cli {label}: {line}")
+        check(rc == 0, f"cli {label}: exit code {rc}")
+        return json.loads(lines[-1]), lines, wall
+
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launch_counts()
+        summary, _, wall = run(base + [
+            "--steps", "20", "--render", "--render-every", "10", "--size",
+            "384", "--guard", "--checkpoint-every", "10", "--stream", "dfc",
+            "--viewer", "--out", str(out / "run")], "run")
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        traj = read_dfc(str(out / "run" / f"pcisph_{CLI_N3}.dfc"))
+        ckpts = sorted((out / "run" / "ckpt").iterdir())
+        resumed, lines, wall2 = run(base + [
+            "--steps", "5", "--resume", str(ckpts[-1]), "--out",
+            str(out / "resume")], "resume")
+        res = {"summary": summary, "process_wall_s": wall,
+               "max_memory_allocated": peak, "launches": launches,
+               "dfc_frames": int(traj.shape[0]),
+               "checkpoints": [c.name for c in ckpts],
+               "viewer": (out / "run" / "viewer.html").exists(),
+               "resume_summary": resumed, "resume_process_wall_s": wall2}
+        log("cli_1m " + json.dumps(res))
+        check(summary["particles"] == CLI_N3 ** 3 and summary["overflow"] == 0
+              and summary["recoveries"] == 0,
+              f"cli: unhealthy summary {summary}")
+        check(tuple(traj.shape) == (2, CLI_N3 ** 3, 3)
+              and bool(np.isfinite(traj).all())
+              and float(np.abs(traj).max()) <= 1.0,
+              f"cli: .dfc holds {traj.shape}")
+        check(ckpts[-1].name == "step_000000020" and res["viewer"],
+              f"cli: checkpoints {res['checkpoints']}")
+        check(any(line.startswith("resumed from") and line.endswith(
+            "at step 20") for line in lines)
+              and resumed["steps"] == 5 and resumed["overflow"] == 0,
+              f"cli resume: {resumed}")
+        for name in ("density_active", "pressure_pq_active"):
+            check(launches[name] > 0,
+                  f"kernel {name} was not launched by the CLI")
+        return res
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
 
 
 def launch_counts() -> dict:
@@ -1066,6 +1415,7 @@ def main() -> int:
     from dieselfluid_tpu_torch.ops import sph_sweep as sw
     from dieselfluid_tpu_torch.render import splat_tiled as st
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
@@ -1084,7 +1434,7 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
 
-    check_kernels_small(device)
+    small = check_kernels_small(device)
     check_raster_small(device)
 
     def sync():
@@ -1105,10 +1455,32 @@ def main() -> int:
               f"kernel {name} was not launched by the serving path")
 
     cts = seeded_cotangents(spec, device, 3)
-    errs = compare_kernels(ps.planes, spec, params, cts, "1M after PCISPH")
-    times = time_kernels(ps.planes, spec, params, cts)
+    plain_ms = {}
+    errs = compare_kernels(ps.planes, spec, params, cts, "1M after PCISPH",
+                           plain_ms=plain_ms)
+    times = time_kernels(ps.planes, spec, params, cts, plain_ms)
     bounds = kernel_bounds(ps.planes, spec)
-    del ps, cts
+    del cts
+
+    # K10 on the same 1M planes; the kernels line carries the all-ones
+    # grid's time and bound, errors over both shapes and all grids.
+    gated_errs, grids = compare_gated(ps.planes, spec, params, "1M", 12,
+                                      plain_ms=plain_ms)
+    gated_times = time_gated(ps.planes, spec, params, grids, plain_ms)
+    gated_b = {g: gated_bounds(ps.planes, spec, grids[g])
+               for g in ("ones", "quarter")}
+    for name in GATED_OF:
+        errs[name] = max(gated_errs[name], small[name])
+        times[name] = gated_times[name]["ones"]
+        bounds[name] = gated_b["ones"][name]
+    log("k10_1m " + json.dumps({
+        name: {g: {"ms": gated_times[name][g][0],
+                   "plain_ms": gated_times[name][g][1],
+                   "bound_ms": gated_b[g][name][0],
+                   "bound_by": gated_b[g][name][1],
+                   "active_patches": int(grids[g].sum())}
+               for g in ("ones", "quarter")} for name in GATED_OF}))
+    del ps, grids
 
     # The training path: K1, K3, K5, K6, K8, K9.
     grad = run_gradients(device, sync)
@@ -1136,11 +1508,17 @@ def main() -> int:
 
     sim = run_simulation(device)
     log("simulation_n3_16_pcisph " + json.dumps(sim))
+
+    # The column_skip path: the gated loop per step at 1M, then the CLI.
+    # Last, so that the phases above run as they did before it was added.
+    skip = run_column_skip(params, state, spec, delta, sync)
+    cli_run = run_cli(device)
     check(not jax_package_modules(),
           f"the JAX package was imported: {jax_package_modules()}")
 
     kernels = []
-    main_paths = (serving, training, sr["launches"])
+    main_paths = (serving, training, sr["launches"], skip["launches"],
+                  cli_run["launches"])
     for kern, source in ([(k, sw.SOURCE) for k in sw.SWEEPS]
                          + [(k, st.SOURCE) for k in st.KERNELS]):
         ms, plain_ms = times[kern.name]
@@ -1152,6 +1530,7 @@ def main() -> int:
                         "max_abs_err": errs[kern.name][0], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": None})
+    log(f"chip_smoke: {time.perf_counter() - t_start!r} s in all")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -6,14 +6,14 @@ module paths so each counterpart is found by name:
   config.py               FluidParams / SimConfig (the port's own copy)
   ops/smoothing.py        kernel coefficients, smoothing kernels, Tait EOS
   ops/cellops.py          dense (rows, sub, 128) cell planes: binning, scatter, gather
-  ops/sph_sweep.py        the stencil sweeps and their backward sweeps as autograd
-                          Functions (CUDA kernels + plain torch)
+  ops/sph_sweep.py        the stencil sweeps, their backward sweeps and the active-gated
+                          sweeps as autograd Functions (CUDA kernels + plain torch)
   csrc/sph_sweep.cu       the hand-written sm_90a sweep kernel
   csrc/splat_raster.cu    the hand-written sm_90a tile rasterizer, forward and backward
   geometry/grid.py        lattice grids
   models/materials.py     Materials: traced material parameters (0-d tensors)
   models/particles.py     FluidState and the dam-break initial state
-  models/sph.py           Simulation facade (neighbors="dense")
+  models/sph.py           Simulation facade (neighbors="dense", column_skip included)
   neighbors/calibrate.py  analytic lattice rest density
   solvers/                integrator, PCISPH delta, per-step and plane-resident dense solvers
   mathx/                  quaternions and 4x4 transforms (what the camera needs)
@@ -23,6 +23,9 @@ module paths so each counterpart is found by name:
                           (CUDA kernels + plain torch); counterpart of splat_pallas.py
   render/sh.py, cubemap.py  SH9 environment lighting, cubemap texel directions
   interop.py              numpy <-> torch state and config conversion (across packages)
+  io/                     checkpoints (torch.save), npz/PLY/DFC export, the native framepack writer
+  utils/guard.py          health checks, rollback and dt backoff (GuardedRunner)
+  app/cli.py, serve.py    the batch CLI (python -m dieselfluid_tpu_torch.app.cli) and the viewer server
 
 Every tensor is float32 (slot indices int64) and every state constructor takes
 an explicit `device=`. The package imports `torch` and never `jax`.

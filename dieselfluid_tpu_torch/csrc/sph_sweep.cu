@@ -14,7 +14,11 @@
 //   (:624, with and without viscosity), whose pair functions the JAX
 //   package derives with jax.vjp (`_bwd_pair`, :415) and which are written
 //   out by hand here (DensityBwdPair, PressBwdPair, ViscBwdPair,
-//   ForceBwdPair).
+//   ForceBwdPair);
+//   and, gated per (x, y-patch) by an int32 activity grid (`_sweep`'s
+//   `active=`, gate at :216-251), density, pressure and prefolded pressure:
+//   `density_planes_active` (:855), `pressure_force_planes_active` (:862),
+//   `pressure_force_pq_planes(active=)` (:825) — K10, sweep_active_kernel.
 //
 // Every sweep computes, for each occupied slot i of the (rows, sub, 128)
 // float32 planes,
@@ -52,7 +56,8 @@
 // then each thread sums the pair function over its 9 x 3*cap candidates.
 // Threads of one cell read the same shared words (broadcast); threads of
 // neighbouring cells read words cap apart (different banks). Outputs of slots
-// the kernel does not write stay at the zeros the caller allocated. No
+// the kernel does not write stay at the zeros the caller allocated (for the
+// gated sweeps, every slot of an inactive column too). No
 // fast-math: rsqrtf where the JAX pair uses lax.rsqrt, IEEE divides
 // elsewhere. Every masked branch is a select, never a multiply by a mask, so
 // no 0 * inf reaches an output.
@@ -350,10 +355,12 @@ struct ForceBwdPair<false> {  // x y z mask rho press ct0..2 -> 5
   }
 };
 
-// grid = (nx * ny interior columns, sub - 2 interior blocks), block = 128.
+// The body of one CTA: the 128-slot own block blockIdx.y + 1 of the cell
+// column blockIdx.x. Inlined into the ungated and the gated kernel alike, so
+// a column both sweep computes the same values in the same order.
 template <class Pair>
-__global__ void __launch_bounds__(kBlock)
-sweep_kernel(const Pair pair, const SweepArgs<Pair::kIn, Pair::kOut> args) {
+__device__ __forceinline__ void sweep_block(
+    const Pair pair, const SweepArgs<Pair::kIn, Pair::kOut> args) {
   constexpr int C = Pair::kIn;
   extern __shared__ float smem[];  // [C][9][W]
 
@@ -404,9 +411,48 @@ sweep_kernel(const Pair pair, const SweepArgs<Pair::kIn, Pair::kOut> args) {
   for (int o = 0; o < Pair::kOut; ++o) args.out[o][own_idx] = acc[o] * own_m;
 }
 
+// grid = (nx * ny interior columns, sub - 2 interior blocks), block = 128.
 template <class Pair>
-int launch(const Pair& pair, const float* const* in, float* const* out,
-           int nx, int ny, int sub, int cap, void* stream) {
+__global__ void __launch_bounds__(kBlock)
+sweep_kernel(const Pair pair, const SweepArgs<Pair::kIn, Pair::kOut> args) {
+  sweep_block(pair, args);
+}
+
+// K10, the active-gated sweep (JAX `_sweep(..., active=)`, pallas_sph.py:107,
+// gate at :216-251): the PCISPH convergence-gated loop re-sweeps only the
+// (x, y-patch) cells of an int32 grid, one entry per patch of `patch` =
+// min(8, ny) consecutive y-columns at one x, `nyp` = ceil(ny / patch)
+// patches per x (JAX active_patch_shape). A column is gated by its canonical
+// patch y / patch. (JAX's last grid program is clamped to cover columns
+// [ny - P, ny) and so sweeps some columns twice, with the same values; its
+// callers select each column by the canonical patch, as this gate does.)
+struct ActiveGate {
+  const int* active;
+  int nyp;
+  int patch;
+};
+
+// Same grid and body as sweep_kernel. Every thread of a CTA reads the same
+// entry, first of all, and an inactive CTA exits at once: it stages nothing
+// and its outputs keep the caller's zeros. What it saves is the CTA's whole
+// staging and pair work; a compacted grid over active columns (no CTA
+// launched for an inactive one) is later work.
+template <class Pair>
+__global__ void __launch_bounds__(kBlock)
+sweep_active_kernel(const Pair pair,
+                    const SweepArgs<Pair::kIn, Pair::kOut> args,
+                    const ActiveGate gate) {
+  const int col = blockIdx.x;
+  if (gate.active[(col / args.ny) * gate.nyp + (col % args.ny) / gate.patch]
+      == 0)
+    return;
+  sweep_block(pair, args);
+}
+
+template <class Pair, class Kernel, class... Extra>
+int launch_kernel(Kernel kernel, const Pair& pair, const float* const* in,
+                  float* const* out, int nx, int ny, int sub, int cap,
+                  void* stream, Extra... extra) {
   SweepArgs<Pair::kIn, Pair::kOut> args{};
   for (int i = 0; i < Pair::kIn; ++i) args.in[i] = in[i];
   for (int o = 0; o < Pair::kOut; ++o) args.out[o] = out[o];
@@ -417,13 +463,30 @@ int launch(const Pair& pair, const float* const* in, float* const* out,
   const int smem = Pair::kIn * 9 * (kBlock + 2 * cap) *
                    static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      sweep_kernel<Pair>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(nx * ny),
                   static_cast<unsigned>(sub - 2));
-  sweep_kernel<Pair><<<grid, kBlock, smem,
-                       static_cast<cudaStream_t>(stream)>>>(pair, args);
+  kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
+      pair, args, extra...);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <class Pair>
+int launch(const Pair& pair, const float* const* in, float* const* out,
+           int nx, int ny, int sub, int cap, void* stream) {
+  return launch_kernel(sweep_kernel<Pair>, pair, in, out, nx, ny, sub, cap,
+                       stream);
+}
+
+template <class Pair>
+int launch_active(const Pair& pair, const float* const* in,
+                  float* const* out, int nx, int ny, int sub, int cap,
+                  const int* active, void* stream) {
+  const int patch = ny < 8 ? ny : 8;
+  const ActiveGate gate{active, (ny + patch - 1) / patch, patch};
+  return launch_kernel(sweep_active_kernel<Pair>, pair, in, out, nx, ny, sub,
+                       cap, stream, gate);
 }
 
 }  // namespace
@@ -468,6 +531,26 @@ int dft_press_pq_sweep(DFT_SWEEP_ARGS, float h2, float inv_h, float b,
 int dft_press_sweep(DFT_SWEEP_ARGS, float h, float h2, float b,
                     void* stream) {
   return launch(PressPair{h, h2, b}, DFT_SWEEP_PASS);
+}
+
+// K10: the gated forms of density, pressure and the prefolded pressure.
+// `active` is a device pointer to the contiguous int32 (nx, ceil(ny / P))
+// activity grid, P = min(8, ny).
+#define DFT_ACTIVE_PASS in, out, nx, ny, sub, cap, active, stream
+
+int dft_density_active_sweep(DFT_SWEEP_ARGS, float h2, float a,
+                             const int* active, void* stream) {
+  return launch_active(DensityPair{h2, a}, DFT_ACTIVE_PASS);
+}
+
+int dft_press_active_sweep(DFT_SWEEP_ARGS, float h, float h2, float b,
+                           const int* active, void* stream) {
+  return launch_active(PressPair{h, h2, b}, DFT_ACTIVE_PASS);
+}
+
+int dft_press_pq_active_sweep(DFT_SWEEP_ARGS, float h2, float inv_h, float b,
+                              const int* active, void* stream) {
+  return launch_active(PressPqPair{h2, inv_h, b}, DFT_ACTIVE_PASS);
 }
 
 int dft_density_bwd_sweep(DFT_SWEEP_ARGS, float h2, float a, void* stream) {

@@ -14,7 +14,7 @@ from typing import Callable, Tuple
 
 import torch
 
-from dieselfluid_tpu_torch.config import FluidParams, SimConfig
+from dieselfluid_tpu_torch.config import CACHE_L, FluidParams, SimConfig
 from dieselfluid_tpu_torch.models.particles import (
     FluidState,
     dam_break_state,
@@ -59,6 +59,7 @@ class Simulation:
     step_fn: Callable[[FluidState], Tuple[FluidState, StepDiagnostics]]
     delta: float = 0.0
     step_count: int = 0
+    cache_life: float = CACHE_L
     dx: float = 0.0
 
     @staticmethod
@@ -100,4 +101,30 @@ class Simulation:
         return torch.stack(traj), torch.stack(vmax)
 
     def n(self) -> int:
+        """Live particle count (ref: fluid.go N())."""
         return self.state.n
+
+    def cfl(self) -> float:
+        """The fixed timestep (ref: fluid.go CFL():111-114)."""
+        return self.params.dt
+
+    def max_v(self) -> float:
+        return float(torch.linalg.vector_norm(self.state.vel, dim=-1).max())
+
+    def viscosity(self) -> float:
+        return self.params.mu
+
+    def set_viscosity(self, mu: float):
+        """Rebind the step to params with viscosity mu (ref: fluid.go
+        SetViscosity)."""
+        self.params = self.params.replace(mu=mu)
+        self.step_fn = build_step_fn(self.config, self.params, self.delta)
+
+    def cache_incr(self) -> float:
+        """The reference's neighbour-cache extinction schedule (ref:
+        fluid.go CacheIncr:208-215): bookkeeping only, since the cells are
+        rebuilt every step."""
+        self.cache_life *= self.cache_life
+        if self.cache_life < 0.1:
+            self.cache_life = CACHE_L
+        return self.cache_life

@@ -9,7 +9,15 @@ each occupied slot i of the (rows, sub, 128) planes,
 over the slots j of the 27 cells around i's cell. The public sweeps keep the
 JAX names: `density_planes`, `force_planes`, `pressure_force_planes` and
 `viscosity_force_planes` (differentiable), and `pressure_force_pq_planes`
-(forward only, as in the JAX package; no `active=`).
+(forward only, as in the JAX package).
+
+Gated sweeps (K10, the PCISPH `column_skip` loop): `density_planes_active`,
+`pressure_force_planes_active` and `pressure_force_pq_planes(active=)` take
+an int32 activity grid of `active_patch_shape(spec)`, one entry per (x,
+y-patch) of min(8, ny) y-columns. The kernel gates each column by its
+canonical patch (`act_rows_of`) and leaves an inactive column's outputs at
+0; the plain version runs the ungated sweep and zeroes those rows. Forward
+only, as in the JAX package.
 
 Gradients. Each public sweep is a `torch.autograd.Function`. For the four
 differentiable ones the backward is another stencil sweep, the adjoint the
@@ -311,13 +319,15 @@ def _force_bwd_pair(k: KernelCoeffs, mass: float, mu: float):
 @dataclasses.dataclass
 class Sweep:
     """One instantiation of the stencil sweep: its channels, its C launcher
-    and its launch count (CUDA launches only)."""
+    and its launch count (CUDA launches only). A `gated` sweep takes the
+    int32 activity grid as well (K10)."""
 
     name: str
     symbol: str
     in_names: Tuple[str, ...]
     n_out: int
     replaces: str
+    gated: bool = False
     launches: int = 0
 
 
@@ -349,11 +359,19 @@ FORCE_BWD = Sweep("force_bwd", "dft_force_bwd_sweep",
                   + _CT3, 8, f"{_PALLAS}:624")
 FORCE_P_BWD = Sweep("force_p_bwd", "dft_force_p_bwd_sweep",
                     PRESS.in_names + _CT3, 5, f"{_PALLAS}:624")
+# K10: the gated forms (the gate is `_sweep`'s `active=`, :216-251).
+DENSITY_ACTIVE = Sweep("density_active", "dft_density_active_sweep",
+                       DENSITY.in_names, 1, f"{_PALLAS}:855", gated=True)
+PRESS_ACTIVE = Sweep("pressure_active", "dft_press_active_sweep",
+                     PRESS.in_names, 3, f"{_PALLAS}:862", gated=True)
+PRESS_PQ_ACTIVE = Sweep("pressure_pq_active", "dft_press_pq_active_sweep",
+                        PRESS_PQ.in_names, 3, f"{_PALLAS}:825", gated=True)
 
 #: The sweeps of the dense paths (FORCE_P is force_planes at mu == 0, and
-#: FORCE_P_BWD its backward).
+#: FORCE_P_BWD its backward; the *_ACTIVE ones are K10).
 SWEEPS = (DENSITY, FORCE, FORCE_P, VISC, PRESS_PQ, PRESS, DENSITY_BWD,
-          PRESS_BWD, VISC_BWD, FORCE_BWD, FORCE_P_BWD)
+          PRESS_BWD, VISC_BWD, FORCE_BWD, FORCE_P_BWD, DENSITY_ACTIVE,
+          PRESS_ACTIVE, PRESS_PQ_ACTIVE)
 
 
 def reset_launch_counts():
@@ -399,6 +417,39 @@ def _sweep_plain(pair: Callable, ins: Planes, n_out: int,
     return [o.view(spec.plane_shape) for o in outs]
 
 
+def active_patch_shape(spec: DenseCellSpec) -> Tuple[int, int]:
+    """Shape of the gated sweeps' int32 activity grid: one entry per
+    (x, y-patch) of P = min(8, ny) consecutive y-columns (JAX
+    `active_patch_shape`)."""
+    p = min(8, spec.ny)
+    return (spec.nx, -(-spec.ny // p))
+
+
+def act_rows_of(active: torch.Tensor, spec: DenseCellSpec) -> torch.Tensor:
+    """(rows, 1, 1) bool: does each (x, y) column's CANONICAL patch y // P
+    sweep under `active`? Ghost rows read False. (JAX's clamped last patch
+    re-covers earlier columns; the canonical patch decides selection.)"""
+    p = min(8, spec.ny)
+    cols = torch.repeat_interleave(active > 0, p, dim=1)[:, :spec.ny]
+    grid = torch.zeros((spec.px, spec.py), dtype=torch.bool,
+                       device=active.device)
+    grid[1:spec.nx + 1, 1:spec.ny + 1] = cols
+    return grid.reshape(spec.rows, 1, 1)
+
+
+def _check_active(active: torch.Tensor, spec: DenseCellSpec, device):
+    if active.dtype != torch.int32:
+        raise TypeError(f"activity grid must be int32, got {active.dtype}")
+    if tuple(active.shape) != active_patch_shape(spec):
+        raise ValueError(f"activity grid shape {tuple(active.shape)} != "
+                         f"{active_patch_shape(spec)}")
+    if active.device != device:
+        raise ValueError(f"activity grid on {active.device}, planes on "
+                         f"{device}")
+    if not active.is_contiguous():
+        raise ValueError("activity grid must be contiguous")
+
+
 def _check_planes(ins: Sequence[torch.Tensor], spec: DenseCellSpec):
     dev = ins[0].device
     for p in ins:
@@ -414,15 +465,17 @@ def _check_planes(ins: Sequence[torch.Tensor], spec: DenseCellSpec):
 
 
 def _sweep_cuda(sweep: Sweep, ins: Sequence[torch.Tensor],
-                spec: DenseCellSpec, consts: Sequence[float]
-                ) -> List[torch.Tensor]:
+                spec: DenseCellSpec, consts: Sequence[float],
+                active: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
     from dieselfluid_tpu_torch.ops._build import load_library
 
     if spec.nx * spec.ny >= 2 ** 31 or spec.sub - 2 > 65535:
         raise ValueError(f"domain too large for the sweep grid: {spec}")
+    gate = [active.data_ptr()] if sweep.gated else []
     fn = getattr(load_library(), sweep.symbol)
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-                   + [ctypes.c_float] * len(consts) + [ctypes.c_void_p])
+                   + [ctypes.c_float] * len(consts)
+                   + [ctypes.c_void_p] * (len(gate) + 1))
     fn.restype = ctypes.c_int
     with torch.cuda.device(ins[0].device):
         outs = [torch.zeros(spec.plane_shape, dtype=torch.float32,
@@ -432,7 +485,7 @@ def _sweep_cuda(sweep: Sweep, ins: Sequence[torch.Tensor],
             *[o.data_ptr() for o in outs])
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(in_ptrs, out_ptrs, spec.nx, spec.ny, spec.sub,
-                 spec.capacity, *consts, stream)
+                 spec.capacity, *consts, *gate, stream)
     if err != 0:
         raise RuntimeError(f"{sweep.symbol} launch failed: cudaError {err}")
     sweep.launches += 1
@@ -440,25 +493,36 @@ def _sweep_cuda(sweep: Sweep, ins: Sequence[torch.Tensor],
 
 
 def _run_plain(sweep: Sweep, pair: Callable, ins: Planes,
-               spec: DenseCellSpec, consts: Sequence[float]
-               ) -> List[torch.Tensor]:
-    """The plain version on any device."""
-    _check_planes([ins[n] for n in sweep.in_names], spec)
-    return _sweep_plain(pair, {n: ins[n] for n in sweep.in_names},
-                        sweep.n_out, spec)
+               spec: DenseCellSpec, consts: Sequence[float],
+               active: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+    """The plain version on any device. A gated sweep runs the ungated one
+    and zeroes the rows whose canonical patch is inactive, as the kernel
+    leaves them."""
+    arrs = [ins[n] for n in sweep.in_names]
+    _check_planes(arrs, spec)
+    outs = _sweep_plain(pair, dict(zip(sweep.in_names, arrs)), sweep.n_out,
+                        spec)
+    if not sweep.gated:
+        return outs
+    _check_active(active, spec, arrs[0].device)
+    rows = act_rows_of(active, spec)
+    return [torch.where(rows, o, 0.0) for o in outs]
 
 
 def _run(sweep: Sweep, pair: Callable, ins: Planes, spec: DenseCellSpec,
-         consts: Sequence[float]) -> List[torch.Tensor]:
+         consts: Sequence[float], active: Optional[torch.Tensor] = None
+         ) -> List[torch.Tensor]:
     """Dispatch by device: the plain version on the CPU, the kernel on CUDA."""
     dev = ins[sweep.in_names[0]].device
     if dev.type == "cpu":
-        return _run_plain(sweep, pair, ins, spec, consts)
+        return _run_plain(sweep, pair, ins, spec, consts, active)
     arrs = [ins[n] for n in sweep.in_names]
     _check_planes(arrs, spec)
     if dev.type != "cuda":
         raise ValueError(f"no sweep kernel for device {dev}")
-    return _sweep_cuda(sweep, arrs, spec, consts)
+    if sweep.gated:
+        _check_active(active, spec, dev)
+    return _sweep_cuda(sweep, arrs, spec, consts, active)
 
 
 def _mask_where(mask_plane: torch.Tensor, value_plane: torch.Tensor):
@@ -526,10 +590,10 @@ class _SweepFunction(torch.autograd.Function):
         if ctx.adjoint is None:
             raise NotImplementedError(
                 f"the {sweep.name} sweep ({sweep.replaces}) has no backward "
-                "sweep: pressure_force_pq_planes is forward-only in the JAX "
-                "package too (ROADMAP B4); differentiate through "
-                "materials= / unroll_for_grad=True, which use the factored "
-                "sweeps")
+                "sweep: pressure_force_pq_planes and the active-gated sweeps "
+                "are forward-only in the JAX package too (ROADMAP B4, B11); "
+                "differentiate through materials= / unroll_for_grad=True, "
+                "which use the factored ungated sweeps")
         names = _primal_names(ctx.fwd, ctx.adjoint)
         ins = dict(zip(names, ctx.saved_tensors))
         grads = iter(_backward_sweep(ctx.run, ctx.spec, ctx.adjoint, ins,
@@ -631,10 +695,32 @@ def _viscosity(run, planes: Planes, rho_plane: torch.Tensor,
 
 
 def _pressure_pq(run, planes: Planes, pq_plane: torch.Tensor,
-                 spec: DenseCellSpec, k: KernelCoeffs, mass):
+                 spec: DenseCellSpec, k: KernelCoeffs, mass, active=None):
     h = float(k.h)
-    fwd = (PRESS_PQ, _press_pq_pair(k), (h * h, 1.0 / h, float(k.b)))
+    sweep = PRESS_PQ
+    if active is not None:
+        sweep, run = PRESS_PQ_ACTIVE, functools.partial(run, active=active)
+    fwd = (sweep, _press_pq_pair(k), (h * h, 1.0 / h, float(k.b)))
     fx, fy, fz = _apply(run, spec, fwd, None, _with(planes, pq=pq_plane))
+    m2 = mass * mass
+    return m2 * fx, m2 * fy, m2 * fz
+
+
+def _density_active(run, planes: Planes, spec: DenseCellSpec,
+                    k: KernelCoeffs, mass, active) -> torch.Tensor:
+    (_, pair, c), _ = _density_ops(k)
+    (s,) = _apply(functools.partial(run, active=active), spec,
+                  (DENSITY_ACTIVE, pair, c), None, planes)
+    return mass * s
+
+
+def _pressure_active(run, planes: Planes, rho_plane: torch.Tensor,
+                     press_plane: torch.Tensor, spec: DenseCellSpec,
+                     k: KernelCoeffs, mass, active):
+    (_, pair, c), _ = _press_ops(k)
+    fx, fy, fz = _apply(functools.partial(run, active=active), spec,
+                        (PRESS_ACTIVE, pair, c), None,
+                        _with(planes, rho=rho_plane, press=press_plane))
     m2 = mass * mass
     return m2 * fx, m2 * fy, m2 * fz
 
@@ -704,11 +790,32 @@ def viscosity_force_planes(planes: Planes, rho_plane: torch.Tensor,
 
 
 def pressure_force_pq_planes(planes: Planes, pq_plane: torch.Tensor,
-                             spec: DenseCellSpec, k: KernelCoeffs, mass):
+                             spec: DenseCellSpec, k: KernelCoeffs, mass,
+                             active: Optional[torch.Tensor] = None):
     """Pressure force from a prefolded pq = press / rho_ff^2 plane; the
     mass^2 scale applies outside the sweep. Forward only: its backward
-    raises."""
-    return _pressure_pq(_run, planes, pq_plane, spec, k, mass)
+    raises. `active` (int32, `active_patch_shape(spec)`) gates the sweep
+    per (x, y-patch), K10: the columns of an inactive patch read 0."""
+    return _pressure_pq(_run, planes, pq_plane, spec, k, mass, active)
+
+
+def density_planes_active(planes: Planes, spec: DenseCellSpec,
+                          k: KernelCoeffs, mass, active: torch.Tensor
+                          ) -> torch.Tensor:
+    """density_planes gated per (x, y-patch) by the int32 `active` grid
+    (K10): the columns of an inactive patch read 0 (in the JAX package
+    they hold garbage; callers select by `act_rows_of`). Forward only."""
+    return _density_active(_run, planes, spec, k, mass, active)
+
+
+def pressure_force_planes_active(planes: Planes, rho_plane: torch.Tensor,
+                                 press_plane: torch.Tensor,
+                                 spec: DenseCellSpec, k: KernelCoeffs, mass,
+                                 active: torch.Tensor):
+    """pressure_force_planes gated per (x, y-patch) by the int32 `active`
+    grid (K10), as density_planes_active. Forward only."""
+    return _pressure_active(_run, planes, rho_plane, press_plane, spec, k,
+                            mass, active)
 
 
 def density_sum_bwd(planes: Planes, ct: torch.Tensor, spec: DenseCellSpec,
@@ -753,6 +860,9 @@ plain = SimpleNamespace(
     pressure_force_planes=functools.partial(_pressure, _run_plain),
     viscosity_force_planes=functools.partial(_viscosity, _run_plain),
     pressure_force_pq_planes=functools.partial(_pressure_pq, _run_plain),
+    density_planes_active=functools.partial(_density_active, _run_plain),
+    pressure_force_planes_active=functools.partial(_pressure_active,
+                                                   _run_plain),
     density_sum_bwd=functools.partial(_density_bwd, _run_plain),
     press_sum_bwd=functools.partial(_press_bwd, _run_plain),
     visc_sum_bwd=functools.partial(_visc_bwd, _run_plain),

@@ -21,9 +21,10 @@ JAX differentiates its `lax.scan`), each rematerialized in the backward pass
 on CUDA (`torch.utils.checkpoint`). Backward sweeps run as hand-written
 kernels on CUDA and as their plain adjoints on the CPU.
 
-Not ported (each raises NotImplementedError): `column_skip=True`
-(active-gated sweeps, ROADMAP B11) and `collider=` (geometry/mesh.py,
-ROADMAP A10).
+`column_skip=True` runs the convergence-gated correction loop
+(`pcisph_skip_loop`, the JAX `skip_loop`) on the active-gated sweeps (K10):
+forward only, as in the JAX package. Not ported (raises
+NotImplementedError): `collider=` (geometry/mesh.py, ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -45,7 +46,10 @@ from dieselfluid_tpu_torch.ops.cellops import (
 )
 from dieselfluid_tpu_torch.ops.smoothing import KernelCoeffs, tait_eos
 from dieselfluid_tpu_torch.ops.sph_sweep import (
+    act_rows_of,
+    active_patch_shape,
     density_planes,
+    density_planes_active,
     force_planes,
     pressure_force_planes,
     pressure_force_pq_planes,
@@ -60,11 +64,7 @@ from dieselfluid_tpu_torch.solvers.integrate import (
 _BOX = ((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0))
 
 
-def _not_ported(collider=None, column_skip=False):
-    if column_skip:
-        raise NotImplementedError(
-            "column_skip=True (active-gated sweeps) is not ported yet: "
-            "ROADMAP B11")
+def _not_ported(collider=None):
     if collider is not None:
         raise NotImplementedError(
             "collider= needs geometry/mesh.py, not ported yet: ROADMAP A10")
@@ -221,6 +221,82 @@ def pcisph_correction_loop(planes, fluid_occ, extf, press0, spec, k,
     return it, press, fps
 
 
+def _dilate3x3(a: torch.Tensor) -> torch.Tensor:
+    """8-neighbourhood dilation of a 2D bool grid (no wraparound)."""
+    p = torch.zeros((a.shape[0] + 2, a.shape[1] + 2), dtype=torch.bool,
+                    device=a.device)
+    p[1:-1, 1:-1] = a
+    return (p[:-2, 1:-1] | p[2:, 1:-1] | p[1:-1, :-2] | p[1:-1, 2:]
+            | p[1:-1, 1:-1] | p[:-2, :-2] | p[:-2, 2:] | p[2:, :-2]
+            | p[2:, 2:])
+
+
+def pcisph_skip_loop(planes, fluid_occ, extf, press0, rho_plane, spec, k,
+                     params: FluidParams, delta: float, mass=None, d0=None):
+    """The convergence-gated PCISPH correction loop (`column_skip`, the JAX
+    `skip_loop`, dense_step.py:352-468): pcisph_correction_loop's body on the
+    active-gated sweeps (K10). Each iteration sweeps only the (x, y-patch)
+    cells of the int32 activity grid; the columns of an inactive patch keep
+    their carried predicted density, pressure and force planes. Sweep inputs
+    are rebuilt in full, so a swept column computes what the ungated loop
+    would. The next activity is the out-of-tolerance columns among those
+    swept, by patch, dilated by one patch (the stencil's reach).
+
+    Freeze threshold 0.1 * pci_max_density_error_ratio * d0 (a tenth of the
+    exit tolerance, as in JAX); the error ratio is the largest over the
+    swept fluid slots. The first iteration sweeps everything, from the
+    frame's density plane. The activity grid stays on the device; the exit
+    test reads one scalar per iteration, as pcisph_correction_loop's does.
+
+    Returns (iterations, pressure plane, (fpx, fpy, fpz) planes)."""
+    mass = params.mass if mass is None else mass
+    d0 = params.d0 if d0 is None else d0
+    dt = params.dt
+    mask_p = planes["mask"]
+    occ = mask_p > 0
+    vels = (planes["vx"], planes["vy"], planes["vz"])
+    poss = (planes["x"], planes["y"], planes["z"])
+    p_sz = min(8, spec.ny)
+    nx, nyp = active_patch_shape(spec)
+    tol_abs = 0.1 * params.pci_max_density_error_ratio * d0
+    zero = torch.zeros(spec.plane_shape, dtype=torch.float32,
+                       device=mask_p.device)
+    press, fps, rho_star = press0, (zero, zero, zero), rho_plane
+    active = torch.ones((nx, nyp), dtype=torch.int32, device=mask_p.device)
+    it, err = 0, None
+    while it < params.pci_max_iters and (
+            err is None or err.item() > params.pci_max_density_error_ratio):
+        ar = act_rows_of(active, spec)
+        star = {}
+        for ax, name in enumerate(("x", "y", "z")):
+            accel = (extf[ax] + fps[ax]) / mass
+            xs = poss[ax] + (vels[ax] + accel * dt) * dt
+            star[name] = torch.where(fluid_occ, xs, poss[ax])
+        star["mask"] = mask_p
+        rho_new = density_planes_active(star, spec, k, mass, active)
+        # An active but empty column reads 0 here (garbage in JAX); the
+        # occupancy keeps the carried plane clean either way.
+        rho_star = torch.where(ar & occ, rho_new, rho_star)
+        err_p = torch.where(fluid_occ, rho_star - d0, 0.0)
+        upd = ar & fluid_occ
+        press = torch.where(upd, torch.clamp(press + delta * err_p, min=0.0),
+                            press)
+        rff = torch.clamp(rho_star, min=0.5 * d0)
+        pq = torch.where(fluid_occ, press / (rff * rff), 0.0)
+        new = pressure_force_pq_planes(planes, pq, spec, k, mass,
+                                       active=active)
+        fps = tuple(torch.where(ar, f, c) for f, c in zip(new, fps))
+        err_upd = torch.where(upd, err_p, 0.0)
+        err = torch.max(err_upd) / d0
+        e_col = torch.amax(err_upd.abs(), dim=(1, 2))
+        e_col = e_col.view(spec.px, spec.py)[1:nx + 1, 1:spec.ny + 1]
+        core = torch.nn.functional.pad(e_col, (0, nyp * p_sz - spec.ny))
+        core = core.view(nx, nyp, p_sz).amax(dim=2) > tol_abs
+        active = _dilate3x3(core).to(torch.int32)
+        it += 1
+    return it, press, fps
+
+
 def dense_pcisph_step(state: FluidState, params: FluidParams,
                       spec: DenseCellSpec, delta: float,
                       bounds: Optional[Tuple] = _BOX, collider=None,
@@ -237,10 +313,13 @@ def dense_pcisph_step(state: FluidState, params: FluidParams,
 
     The default correction loop is the JAX `plane_loop` (forward only: its
     prefolded pressure sweep has no backward, so a gradient through it, to
-    the state or to the Materials, raises). `unroll_for_grad=True` runs
-    the JAX `body` instead, particle-resident, for exactly `unroll_iters`
-    (default `pci_max_iters`) iterations, so the step is differentiable."""
-    _not_ported(collider, column_skip)
+    the state or to the Materials, raises). `column_skip=True` runs the
+    convergence-gated `pcisph_skip_loop` instead (forward only too).
+    `unroll_for_grad=True` runs the JAX `body` instead of either,
+    particle-resident, for exactly `unroll_iters` (default `pci_max_iters`)
+    iterations, so the step is differentiable; it ignores `column_skip`, as
+    in JAX."""
+    _not_ported(collider)
     mass, mu, d0, _, _ = _material_scalars(params, materials)
     k = KernelCoeffs.build(params.h)
     dev = state.pos.device
@@ -327,9 +406,14 @@ def dense_pcisph_step(state: FluidState, params: FluidParams,
         fluid_occ = occ & (bnd_p == 0)
         extf = tuple(v + gravity[ax]
                      for ax, v in enumerate((vx_p, vy_p, vz_p)))
-        it, press_plane, fps = pcisph_correction_loop(
-            planes, fluid_occ, extf, to_plane(state.pressure), spec, k,
-            params, delta, mass=mass, d0=d0)
+        if column_skip:
+            it, press_plane, fps = pcisph_skip_loop(
+                planes, fluid_occ, extf, to_plane(state.pressure), rho_plane,
+                spec, k, params, delta, mass=mass, d0=d0)
+        else:
+            it, press_plane, fps = pcisph_correction_loop(
+                planes, fluid_occ, extf, to_plane(state.pressure), spec, k,
+                params, delta, mass=mass, d0=d0)
         # Back to particle-resident state, once. Overflowed particles: zero
         # interaction force, pressure = clamp(initial).
         pressure = torch.where(valid_f, gather_plane(press_plane, flat_f),

@@ -211,7 +211,12 @@ def test_import_pulls_in_no_jax():
             "dieselfluid_tpu_torch.interop, "
             "dieselfluid_tpu_torch.models.sph, "
             "dieselfluid_tpu_torch.models.materials, "
-            "dieselfluid_tpu_torch.solvers.dense_resident; "
+            "dieselfluid_tpu_torch.solvers.dense_resident, "
+            "dieselfluid_tpu_torch.app.cli, dieselfluid_tpu_torch.app.serve, "
+            "dieselfluid_tpu_torch.io.animation, "
+            "dieselfluid_tpu_torch.io.checkpoint, "
+            "dieselfluid_tpu_torch.io.native, "
+            "dieselfluid_tpu_torch.utils.guard; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
             "if m.startswith('jax')); "
             "ref = [m for m in sys.modules if m == 'dieselfluid_tpu' "
@@ -232,9 +237,23 @@ def test_unported_options_raise():
     params = tconfig.FluidParams.for_spacing(0.25)
     s = particles.dam_break_state(4, params, "cpu")
     spec = DenseCellSpec.for_domain((-1,) * 3, (1,) * 3, params.h)
-    for kw in ({"column_skip": True}, {"collider": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            dense_step.dense_pcisph_step(s, params, spec, 1.0, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        dense_step.dense_pcisph_step(s, params, spec, 1.0,
+                                     collider=object())
+
+
+def test_column_skip_runs():
+    """column_skip=True (the gated loop, K10) is ported: it no longer
+    raises."""
+    from dieselfluid_tpu_torch.ops.cellops import DenseCellSpec
+    from dieselfluid_tpu_torch.solvers import dense_step
+
+    params = tconfig.FluidParams.for_spacing(0.25)
+    s = particles.dam_break_state(4, params, "cpu")
+    spec = DenseCellSpec.for_domain((-1,) * 3, (1,) * 3, params.h)
+    nxt, diag = dense_step.dense_pcisph_step(s, params, spec, 1.0,
+                                             column_skip=True)
+    assert diag.iters >= 1 and torch.isfinite(nxt.pos).all()
 
 
 @pytest.mark.parametrize("sweep", ["force", "force_mu0", "pressure_pq"])

@@ -1,0 +1,142 @@
+"""The port's batch CLI (app/cli.py) on the CPU, the way a user runs it:
+`--neighbors dense --solver pcisph --column-skip` with checkpoints,
+`--resume`, `--stream dfc`, `--ply`, `--viewer`, `--guard` and a
+`--control` file. Its npz/DFC/PLY trajectories equal, bit for bit, the
+port's `Simulation` stepped by hand; its npz agrees with the JAX CLI's
+(interpret-mode Pallas) within the stated tolerance; the options it does not
+port raise naming their ROADMAP item.
+"""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from dieselfluid_tpu_torch.app.cli import main
+from dieselfluid_tpu_torch.config import SimConfig
+from dieselfluid_tpu_torch.io.animation import read_ply
+from dieselfluid_tpu_torch.io.native import read_dfc
+from dieselfluid_tpu_torch.models.sph import Simulation
+
+torch.set_num_threads(1)
+
+N3 = 6
+BASE = ["--cpu", "--neighbors", "dense", "--solver", "pcisph",
+        "--column-skip", "--n3", str(N3)]
+CONFIG = SimConfig(n3=N3, solver="pcisph", neighbors="dense",
+                   column_skip=True)
+# Port CLI vs JAX CLI positions after each of two steps, max |diff| (the
+# positions lie in [-1, 0]; measured 6.0e-8).
+JAX_POS_TOL = 1e-6
+
+
+def _run(argv, capsys):
+    assert main(argv) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    return json.loads(lines[-1]), lines
+
+
+@pytest.fixture(scope="module")
+def by_hand():
+    """Positions after each of 6 steps of the port's Simulation."""
+    sim = Simulation.create(CONFIG, device="cpu")
+    out = []
+    for _ in range(6):
+        sim.step()
+        out.append(sim.state.pos.numpy().copy())
+    return np.stack(out)
+
+
+def test_trajectory_checkpoints_and_resume(tmp_path, capsys, by_hand):
+    out = str(tmp_path / "run")
+    summary, _ = _run(BASE + ["--steps", "4", "--render-every", "1",
+                              "--checkpoint-every", "2", "--out", out],
+                      capsys)
+    assert summary["steps"] == 4 and summary["particles"] == N3 ** 3
+    assert summary["overflow"] == 0 and summary["recoveries"] == 0
+    assert np.isfinite(summary["max_vel"])
+    data = np.load(summary["outputs"]["npz"])
+    np.testing.assert_array_equal(data["positions"], by_hand[:4])
+    assert json.loads(str(data["metadata"])) == {"config": CONFIG.to_json()}
+    assert sorted(os.listdir(os.path.join(out, "ckpt"))) == [
+        "step_000000002", "step_000000004"]
+
+    resumed, lines = _run(BASE + [
+        "--steps", "2", "--render-every", "1", "--resume",
+        os.path.join(out, "ckpt", "step_000000004"), "--out",
+        str(tmp_path / "resume")], capsys)
+    assert any(ln.endswith("at step 4") for ln in lines)
+    np.testing.assert_array_equal(
+        np.load(resumed["outputs"]["npz"])["positions"], by_hand[4:6])
+
+
+def test_guarded_streamed_run(tmp_path, capsys, by_hand):
+    out = tmp_path / "g"
+    summary, _ = _run(BASE + ["--steps", "4", "--render-every", "2",
+                              "--guard", "--checkpoint-every", "2",
+                              "--stream", "dfc", "--ply", "--viewer",
+                              "--out", str(out)], capsys)
+    assert summary["recoveries"] == 0 and summary["overflow"] == 0
+    assert summary["outputs"]["stream"] == "2 frames (dfc)"
+    assert summary["outputs"]["ply"] == "2 files"
+    assert os.path.exists(summary["outputs"]["viewer"])
+    want = by_hand[[1, 3]]          # the guard's chunks end at steps 2, 4
+    np.testing.assert_array_equal(read_dfc(str(out / f"pcisph_{N3}.dfc")),
+                                  want)
+    for i in range(2):
+        np.testing.assert_array_equal(
+            read_ply(str(out / f"pcisph_{N3}_{i:05d}.ply")), want[i])
+    assert sorted(os.listdir(out / "ckpt")) == ["step_000000002",
+                                                "step_000000004"]
+
+
+def test_control_file_quits(tmp_path, capsys):
+    ctl = tmp_path / "control.json"
+    ctl.write_text('{"quit": true}')
+    summary, lines = _run(BASE + ["--steps", "4", "--control", str(ctl),
+                                  "--out", str(tmp_path / "c")], capsys)
+    assert "control: quit at frame 0" in lines
+    assert summary["outputs"] == {}
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--neighbors", "cellgrid"], "A10"),
+    (["--neighbors", "bruteforce"], "A10"),
+    (["--neighbors", "dense", "--gltf", "scene.gltf"], "A9"),
+    (["--neighbors", "dense", "--sky", "--render"], "A9"),
+])
+def test_unported_options_raise(tmp_path, argv, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        main(["--cpu", "--n3", "4", "--out", str(tmp_path)] + argv)
+    assert not os.listdir(tmp_path)     # raised before writing anything
+
+
+def test_without_a_card_it_raises_instead_of_falling_back(tmp_path,
+                                                          monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--neighbors", "dense", "--n3", "4", "--out", str(tmp_path)])
+
+
+def test_npz_matches_the_jax_cli(tmp_path, capsys):
+    """The same command through both CLIs (2 steps): the same npz keys and
+    metadata, and positions within JAX_POS_TOL."""
+    from dieselfluid_tpu.app.cli import main as jmain
+
+    argv = BASE + ["--steps", "2", "--render-every", "1"]
+    summary, _ = _run(argv + ["--out", str(tmp_path / "t")], capsys)
+    with pltpu.force_tpu_interpret_mode():
+        assert jmain(argv + ["--out", str(tmp_path / "j")]) == 0
+    jsummary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    for key in ("steps", "particles", "overflow", "recoveries"):
+        assert summary[key] == jsummary[key]
+    got = np.load(summary["outputs"]["npz"])
+    want = np.load(jsummary["outputs"]["npz"])
+    assert sorted(got.files) == sorted(want.files)
+    assert str(got["metadata"]) == str(want["metadata"])
+    assert got["positions"].shape == want["positions"].shape == (2, N3 ** 3,
+                                                                 3)
+    assert np.abs(got["positions"] - want["positions"]).max() < JAX_POS_TOL

@@ -1,6 +1,7 @@
 """The port's sm_90a kernels against their plain torch versions, and
 autograd through them on the card: the stencil sweeps, forward and backward
-(K1-K9 of PERF.md), and the tile rasterizer forward and backward (K11, K12).
+(K1-K9 of PERF.md), the active-gated sweeps (K10), and the tile rasterizer
+forward and backward (K11, K12).
 
 Needs a CUDA device; every test skips with the reason where
 torch.cuda.is_available() is false. On the card (the machine there has no
@@ -232,6 +233,81 @@ def test_force_autograd_on_card_matches_cpu(planes, mu):
     for g, c in zip(grads["cuda"], grads["cpu"]):
         err = float((g.cpu() - c).abs().max()) / float(c.abs().max())
         assert err <= sw.KERNEL_BWD_REL_TOL
+
+
+# --------------------------------------------------------------------------
+# The active-gated sweeps, K10
+# --------------------------------------------------------------------------
+
+GATED = {"density_active": ("density", sw.DENSITY_ACTIVE),
+         "pressure_active": ("pressure", sw.PRESS_ACTIVE),
+         "pressure_pq_active": ("pressure_pq", sw.PRESS_PQ_ACTIVE)}
+
+
+def _gated_call(name, params, spec, p, plain, active):
+    k = KernelCoeffs.build(params.h)
+    fns = sw.plain if plain else sw
+    if name == "density_active":
+        return (fns.density_planes_active(p, spec, k, params.mass, active),)
+    if name == "pressure_active":
+        return fns.pressure_force_planes_active(p, p["rho"], p["press"],
+                                                spec, k, params.mass, active)
+    return fns.pressure_force_pq_planes(p, p["pq"], spec, k, params.mass,
+                                        active=active)
+
+
+def _grid(spec, kind, device):
+    shape = sw.active_patch_shape(spec)
+    a = {"ones": np.ones(shape), "zeros": np.zeros(shape),
+         "quarter": np.random.default_rng(13).uniform(size=shape) < 0.25
+         }[kind].astype(np.int32)
+    return torch.from_numpy(a).to(device)
+
+
+@pytest.mark.parametrize("kind", ["ones", "quarter", "zeros"])
+@pytest.mark.parametrize("name", list(GATED))
+def test_gated_kernel_matches_plain_and_ungated(planes, name, kind):
+    """Each K10 kernel against its plain version (KERNEL_REL_TOL), and bit
+    for bit equal to its ungated kernel on the rows of active patches: the
+    same inlined body and functor. Off them, and everywhere under an
+    all-zero grid, its outputs are 0."""
+    params, spec, p = planes
+    ungated, counter = GATED[name]
+    active = _grid(spec, kind, p["x"].device)
+    before = counter.launches
+    got = _gated_call(name, params, spec, p, False, active)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    want = _gated_call(name, params, spec, p, True, active)
+    assert counter.launches == before + 1      # the plain version counts 0
+    full = _call(ungated, params, spec, p, plain=False)
+    rows = sw.act_rows_of(active, spec).expand_as(p["mask"])
+    scale = max(float(w.abs().max()) for w in want)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    assert err <= sw.KERNEL_REL_TOL * scale
+    for g, f in zip(got, full):
+        assert bool(torch.isfinite(g).all())
+        assert torch.equal(g[rows], f[rows])
+        assert not bool(g[~rows].any())
+        if kind == "zeros":
+            assert not bool(g.any())
+
+
+def test_gated_wrapper_checks_and_backward_raises(planes):
+    params, spec, p = planes
+    k = KernelCoeffs.build(params.h)
+    shape = sw.active_patch_shape(spec)
+    with pytest.raises(TypeError):
+        sw.density_planes_active(p, spec, k, 1.0,
+                                 torch.ones(shape, device=p["x"].device))
+    with pytest.raises(ValueError):
+        sw.density_planes_active(p, spec, k, 1.0,
+                                 torch.ones(shape, dtype=torch.int32))
+    x = p["x"].clone().requires_grad_()
+    out = sw.density_planes_active(dict(p, x=x), spec, k, 1.0,
+                                   _grid(spec, "ones", x.device))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        torch.autograd.grad(out.sum(), x)
 
 
 # --------------------------------------------------------------------------
