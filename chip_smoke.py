@@ -29,9 +29,10 @@ Phases, each of which raises (and so exits nonzero) on failure:
      launch counter > 0);
   7. each sweep kernel against its plain version again at the main paths'
      shapes: on the 1M plane state the PCISPH run ends in (off the lattice,
-     pairs asymmetric), with kernel times (CUDA events, median of 20) and
-     plain times (the comparison's one run) and each kernel's bound (bytes
-     and operations of this data);
+     pairs asymmetric), with the public call's time (CUDA events, median
+     of 20), the kernel launch's time alone (the call's launches replayed,
+     kernel_ms), plain times (the comparison's one run) and each kernel's
+     bound (bytes and operations of this data);
      then K10 there as in phase 3, timed under the all-ones and the
      quarter grid, with its bounds over the active columns;
   8. the training path at full size: the loss sum(next.pos * w) through
@@ -81,8 +82,8 @@ Phases, each of which raises (and so exits nonzero) on failure:
      for 5 steps. These two run last, so that the phases above run as
      they did before the slice that added them.
 
-The line before the last is a JSON object with one entry per kernel; the last
-line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+The line before the last is a JSON object with one entry per kernel (`ms` the
+public call, `kernel_ms` its launch alone); the last line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device, or without the package beside it, the script exits
 nonzero and prints no result.
 """
@@ -199,6 +200,53 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def captured_launches(call) -> list:
+    """The kernel launches one public call makes, as (launch function,
+    args): the call runs once with the sweeps' and the rasterizer's launch
+    functions wrapped."""
+    from dieselfluid_tpu_torch.ops import sph_sweep as sw
+    from dieselfluid_tpu_torch.render import splat_tiled as st
+
+    rec = []
+    real_sw, real_st = sw.launch_kernel, st._launch
+
+    def wrap(real):
+        def launch(*args):
+            rec.append((real, args))
+            real(*args)
+        return launch
+
+    sw.launch_kernel, st._launch = wrap(real_sw), wrap(real_st)
+    try:
+        call()
+    finally:
+        sw.launch_kernel, st._launch = real_sw, real_st
+    return rec
+
+
+def kernel_ms(call, reps: int = 20) -> float:
+    """Milliseconds of one public call's kernel launches alone, without the
+    allocation, memset and torch passes around them: the launches captured
+    from one call, replayed on the same tensors `reps` times between two
+    CUDA events (after one warm-up), per call."""
+    import torch
+
+    rec = captured_launches(call)
+    check(len(rec) > 0, "kernel_ms: the call launched no kernel")
+    for fn, args in rec:
+        fn(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        for fn, args in rec:
+            fn(*args)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def timed_call(fn):
@@ -433,16 +481,18 @@ def kernel_bounds(planes, spec) -> dict:
 
 
 def time_kernels(planes, spec, params, cts, plain_ms) -> dict:
-    """name -> (kernel ms, plain ms) of the public sweep calls on `planes`
-    (kernel: median of 20 after 2 warm-ups; plain: the one run of
-    compare_kernels on the same planes, `plain_ms`)."""
+    """name -> (call ms, plain ms, kernel ms) of the public sweep calls on
+    `planes` (call: median of 20 after 2 warm-ups; plain: the one run of
+    compare_kernels on the same planes, `plain_ms`; kernel: its launch
+    alone, kernel_ms)."""
     kern = sweep_calls(planes, spec, params, False, cts)
     out = {}
     for name in kern:
         ms = cuda_ms(kern[name], reps=20, warmup=2)
-        log(f"time {name:14s} 1M: kernel {ms!r} ms  plain "
+        kms = kernel_ms(kern[name])
+        log(f"time {name:14s} 1M: call {ms!r} ms  kernel {kms!r} ms  plain "
             f"{plain_ms[name]!r} ms")
-        out[name] = (ms, plain_ms[name])
+        out[name] = (ms, plain_ms[name], kms)
     return out
 
 
@@ -537,20 +587,21 @@ def compare_gated(planes, spec, params, label: str, seed: int,
 
 
 def time_gated(planes, spec, params, grids, plain_ms) -> dict:
-    """name -> {grid: (kernel ms, plain ms or None)} of the K10 sweeps on
-    `planes` under the all-ones and the quarter grid (kernel: median of 20
-    after 2 warm-ups; plain, all ones only: compare_gated's run,
-    `plain_ms`)."""
+    """name -> {grid: (call ms, plain ms or None, kernel ms)} of the K10
+    sweeps on `planes` under the all-ones and the quarter grid (call:
+    median of 20 after 2 warm-ups; plain, all ones only: compare_gated's
+    run, `plain_ms`; kernel: its launch alone, kernel_ms)."""
     inputs = sweep_inputs(planes, spec, params)
     out = {}
     for gname in ("ones", "quarter"):
         kern = gated_calls(planes, spec, params, False, grids[gname], inputs)
         for name in kern:
             ms = cuda_ms(kern[name], reps=20, warmup=2)
+            kms = kernel_ms(kern[name])
             pms = plain_ms[name] if gname == "ones" else None
-            log(f"time {name:18s} 1M {gname:7s}: kernel {ms!r} ms  plain "
-                f"{pms!r} ms")
-            out.setdefault(name, {})[gname] = (ms, pms)
+            log(f"time {name:18s} 1M {gname:7s}: call {ms!r} ms  kernel "
+                f"{kms!r} ms  plain {pms!r} ms")
+            out.setdefault(name, {})[gname] = (ms, pms, kms)
     return out
 
 
@@ -1188,17 +1239,19 @@ def raster_bounds(planes, spec) -> dict:
 
 
 def time_raster(planes, spec, cts) -> dict:
-    """name -> (kernel ms, plain ms) of K11 and K12 (6 outputs) on the
-    1080p planes (kernel: median of 20; plain: median of 2)."""
+    """name -> (call ms, plain ms, kernel ms) of K11 and K12 (6 outputs) on
+    the 1080p planes (call: median of 20; plain: median of 2; kernel: its
+    launch alone, kernel_ms)."""
     kern = raster_calls(planes, spec, cts, False, False)
     ref = raster_calls(planes, spec, cts, True, False)
     out = {}
     for name in kern:
         ms = cuda_ms(kern[name], reps=20, warmup=2)
+        kms = kernel_ms(kern[name])
         plain_ms = cuda_ms(ref[name], reps=2, warmup=0)
-        log(f"time {name:14s} 1080p: kernel {ms!r} ms  plain {plain_ms!r} "
-            "ms")
-        out[name] = (ms, plain_ms)
+        log(f"time {name:14s} 1080p: call {ms!r} ms  kernel {kms!r} ms  "
+            f"plain {plain_ms!r} ms")
+        out[name] = (ms, plain_ms, kms)
     return out
 
 
@@ -1475,6 +1528,7 @@ def main() -> int:
         bounds[name] = gated_b["ones"][name]
     log("k10_1m " + json.dumps({
         name: {g: {"ms": gated_times[name][g][0],
+                   "kernel_ms": gated_times[name][g][2],
                    "plain_ms": gated_times[name][g][1],
                    "bound_ms": gated_b[g][name][0],
                    "bound_by": gated_b[g][name][1],
@@ -1521,13 +1575,14 @@ def main() -> int:
                   cli_run["launches"])
     for kern, source in ([(k, sw.SOURCE) for k in sw.SWEEPS]
                          + [(k, st.SOURCE) for k in st.KERNELS]):
-        ms, plain_ms = times[kern.name]
+        ms, plain_ms, kms = times[kern.name]
         bound_ms, bound_by = bounds[kern.name]
         kernels.append({"name": kern.name, "route": "cuda", "source": source,
                         "replaces": kern.replaces,
                         "launches": sum(p.get(kern.name, 0)
                                         for p in main_paths),
                         "max_abs_err": errs[kern.name][0], "ms": ms,
+                        "kernel_ms": kms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": None})
     log(f"chip_smoke: {time.perf_counter() - t_start!r} s in all")

@@ -18,7 +18,8 @@
 //   and, gated per (x, y-patch) by an int32 activity grid (`_sweep`'s
 //   `active=`, gate at :216-251), density, pressure and prefolded pressure:
 //   `density_planes_active` (:855), `pressure_force_planes_active` (:862),
-//   `pressure_force_pq_planes(active=)` (:825) — K10, sweep_active_kernel.
+//   `pressure_force_pq_planes(active=)` (:825) — K10: sweep_active_kernel
+//   for pressure, compact_sweep_kernel<Pair, true> for the other two.
 //
 // Every sweep computes, for each occupied slot i of the (rows, sub, 128)
 // float32 planes,
@@ -38,29 +39,59 @@
 // 64/128-slot window widened by cap on each side and relies on d2 < h^2 to
 // drop farther cells; under a fresh binning both sets give the same pairs.)
 //
-// What bounds it on the H100: at the 1M-particle bench spec (101^3 cells,
-// cap 16, sub 15, 10,609 rows) a plane is 81.5 MB; a sweep moves its input
-// and output planes once, 0.33 GB (density) to 1.6 GB (fused force backward,
-// 12 in + 8 out), 0.1-0.5 ms at 3.35 TB/s. The pair work is ~1M x 27 x 16
-// candidate slots of 20-80 flops each (plus divides and an rsqrt), so the
-// sweeps are bound by arithmetic, occupancy and the shared-memory reads, not
-// by bytes.
+// The work: at the 1M-particle bench spec (101^3 cells, cap 16, sub 15,
+// 10,609 rows) a plane is 81.5 MB, and 18,068 of its 132,613 interior
+// 128-slot blocks hold a particle. The dam break has ~200M occupied
+// candidate pairs (~200 per particle, of 432 candidate slots). A sweep's
+// bound on the H100 is its bytes (the outputs written in full, the inputs
+// read over occupied blocks: 0.057 ms for density, 0.11 ms for the
+// prefolded pressure) for the forward sweeps, and its pair arithmetic
+// (0.13-0.48 ms) for the fused force and the larger adjoints. Both bodies
+// below sit far above that (PERF.md has the measured times).
 //
-// Design (simple first): one 128-thread CTA per 128-slot own block of one
-// row. A CTA with no occupied own slot exits at once (__syncthreads_or): a
-// dam break fills about an eighth of the domain. Otherwise the CTA stages
-// the (128 + 2*cap)-slot window of the 9 stencil rows for every input
-// channel in dynamic shared memory (12 channels x 9 rows x 160 slots x 4 B =
+// Two bodies. Outputs of slots a body does not write stay at the zeros the
+// caller allocated. No fast-math: rsqrtf where the JAX pair uses
+// lax.rsqrt, IEEE divides elsewhere. Every masked branch is a select, never
+// a multiply by a mask, so no 0 * inf reaches an output.
+//
+// sweep_block (every sweep but K1, K4 and their gated forms): one 128-thread
+// CTA per 128-slot own block of one row, launched for every interior block
+// of every column; a CTA with no occupied own slot exits after reading its
+// mask. Otherwise it stages the (128 + 2*cap)-slot window of the 9 stencil
+// rows for every input channel in dynamic shared memory ([C][9][W] words,
 // 69.1 KB for the fused force backward at cap 16, hence
-// cudaFuncSetAttribute),
-// then each thread sums the pair function over its 9 x 3*cap candidates.
-// Threads of one cell read the same shared words (broadcast); threads of
-// neighbouring cells read words cap apart (different banks). Outputs of slots
-// the kernel does not write stay at the zeros the caller allocated (for the
-// gated sweeps, every slot of an inactive column too). No
-// fast-math: rsqrtf where the JAX pair uses lax.rsqrt, IEEE divides
-// elsewhere. Every masked branch is a select, never a multiply by a mask, so
-// no 0 * inf reaches an output.
+// cudaFuncSetAttribute), and each thread sums the pair function over all
+// its 9 x 3*cap candidate slots, occupied or not, masked by the candidate's
+// mask channel. What holds it back (measured on K1/K4/K10, PERF.md): the
+// grid of mostly empty CTAs, which reserve their shared memory; the 432
+// (cap 16) or 864 (cap 32) candidate iterations per thread whatever the
+// occupancy; half of each warp idle on empty own slots; scalar staging.
+//
+// compact_sweep_kernel (K1 density and K4 prefolded pressure, ungated and
+// gated): a persistent grid of as many 128-thread CTAs as fit on the SMs.
+// Each fetches kBatch own blocks at a time from a work counter (blocks
+// fetch, fetch + n_fetch, ..., so one fetch spans the domain and the tail
+// balances) and keeps those whose 128 own mask words hold an occupied slot
+// (and, gated, whose column's canonical patch is active): no CTA is
+// launched for an empty block. For a kept block it
+//   * ranks the occupied own slots by ballots and maps them onto threads
+//     0..n-1 in slot order, so warps are full;
+//   * stages the 9-row window with float4 loads of every channel, and
+//     stores each occupied candidate as one float4 (x y z [pq]: no mask
+//     channel) at [row][cell][rank], counting the cell's occupied slots;
+//   * sums each own slot's pair over only the occupied candidates: a
+//     cell's occupied slots are its first ranks (dense_indices ranks by a
+//     stable sort, build_planes writes exactly those slots, the solvers
+//     keep the mask frozen), so the cell's count bounds the loop.
+// Candidates are visited in sweep_block's order (stencil rows 0..8, then
+// slots ascending) with the empty ones skipped. A skipped term adds +-0 to
+// an accumulator that starts at +0, so each sum is bit for bit
+// sweep_block's. The epilogue writes (acc * own_m) * scale: the mass (K1)
+// or mass^2 (K4) the caller would apply, with the same two float32
+// roundings. It writes only occupied own slots, so every slot whose mask
+// is not > 0 keeps the caller's 0. The work counter resets itself when the
+// last CTA leaves, so launches of one compacted sweep must be stream
+// ordered (PyTorch's current stream), never concurrent.
 
 #include <cuda_runtime.h>
 
@@ -434,9 +465,9 @@ struct ActiveGate {
 
 // Same grid and body as sweep_kernel. Every thread of a CTA reads the same
 // entry, first of all, and an inactive CTA exits at once: it stages nothing
-// and its outputs keep the caller's zeros. What it saves is the CTA's whole
-// staging and pair work; a compacted grid over active columns (no CTA
-// launched for an inactive one) is later work.
+// and its outputs keep the caller's zeros. (The gated density and
+// prefolded pressure run compact_sweep_kernel instead, which skips an
+// inactive column's blocks in its walk.)
 template <class Pair>
 __global__ void __launch_bounds__(kBlock)
 sweep_active_kernel(const Pair pair,
@@ -489,21 +520,312 @@ int launch_active(const Pair& pair, const float* const* in,
                        cap, stream, gate);
 }
 
+// ---------------------------------------------------------------------------
+// The compacted body: K1, K4 and their gated forms (see the header).
+// ---------------------------------------------------------------------------
+
+// Tuning, each the faster of the variants tools/torch_sweep_variants.py
+// timed on an H100 (PERF.md): 8 own blocks per work fetch (16 and 32 were
+// slower); no padding after a staged cell (a float4 of pad puts
+// neighbouring cells' candidates on other banks but costs a CTA per SM:
+// 5% slower); the candidate loop unrolled by 4 (overlaps independent
+// pairs; 2 was slower for density).
+constexpr int kBatch = 8;       // own blocks per work fetch
+constexpr int kCellPad = 0;     // float4s of padding after each staged cell
+constexpr int kWarps = kBlock / 32;
+
+// Work counters of the four compacted sweeps: [sweep][fetch, CTAs done].
+__device__ unsigned int g_compact_work[4][2];
+
+struct CompactGeom {
+  long long n_items;   // nx * ny * (sub - 2) own blocks
+  unsigned n_fetch;    // ceil(n_items / kBatch)
+  int lcap;            // log2(cap)
+  int ncw;             // window cells per stencil row: 128 / cap + 2
+  int margin;          // slots staged before the own block: max(cap, 4)
+  int w4;              // float4 chunks per stencil row
+  int slot;            // this sweep's row of g_compact_work
+};
+
+// A pair's channels but the mask, packed into one float4 in channel order;
+// the mask channel reads 1 (every staged candidate is occupied).
+template <class Pair>
+__device__ __forceinline__ void unpack(const float4 v, float* c) {
+  const float f[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < Pair::kIn - 1; ++i)
+    c[i < Pair::kMask ? i : i + 1] = f[i];
+  c[Pair::kMask] = 1.0f;
+}
+
+// One own block at `off` (row * row_len + lo): rank, stage, sum, write.
+// Starts and ends with every thread past a barrier.
+template <class Pair>
+__device__ __forceinline__ void compact_block(
+    const Pair& pair, const SweepArgs<Pair::kIn, Pair::kOut>& args,
+    const CompactGeom& geo, float scale, long long off, float4* cand,
+    int* cnt, long long* row_off, int* own_slot, float* own_mask,
+    int* warp_count) {
+  constexpr int C = Pair::kIn;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int cap = args.cap, cs = cap + kCellPad, ncw = geo.ncw;
+  const long long row_len = static_cast<long long>(args.sub) * kBlock;
+  const float* mask = args.in[Pair::kMask];
+
+  const float own_m = mask[off + t];
+  const bool occ = own_m > 0.0f;
+  const unsigned bal = __ballot_sync(0xffffffffu, occ);
+  if (lane == 0) warp_count[warp] = __popc(bal);
+  for (int i = t; i < 9 * ncw; i += kBlock) cnt[i] = 0;
+  if (t < 9)
+    row_off[t] = off - geo.margin +
+                 static_cast<long long>((t / 3 - 1) * args.py + (t % 3 - 1)) *
+                     row_len;
+  __syncthreads();
+
+  int n_own = 0, first = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int c = warp_count[w];
+    first += (w < warp) ? c : 0;
+    n_own += c;
+  }
+  if (occ) {
+    const int pos = first + __popc(bal & ((1u << lane) - 1u));
+    own_slot[pos] = t;
+    own_mask[pos] = own_m;
+  }
+
+  // Stage: chunk e = t + i * 128 of the 9 * w4 float4 chunks is row s = e /
+  // w4, chunk w = e % w4, walked without a divide.
+  const int w4 = geo.w4, skew = geo.margin - cap, win = kBlock + 2 * cap;
+  const int dq = kBlock / w4, dr = kBlock - dq * w4;
+  int s = t / w4, w = t - (t / w4) * w4;
+  while (s < 9) {
+    const long long g = row_off[s] + 4 * w;
+    const float4 m4 = *reinterpret_cast<const float4*>(mask + g);
+    const float m[4] = {m4.x, m4.y, m4.z, m4.w};
+    float4 v[4];
+    {
+      float4 ch[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ch[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int i = 0; i < C - 1; ++i)
+        ch[i] = *reinterpret_cast<const float4*>(
+            args.in[i < Pair::kMask ? i : i + 1] + g);
+      v[0] = make_float4(ch[0].x, ch[1].x, ch[2].x, ch[3].x);
+      v[1] = make_float4(ch[0].y, ch[1].y, ch[2].y, ch[3].y);
+      v[2] = make_float4(ch[0].z, ch[1].z, ch[2].z, ch[3].z);
+      v[3] = make_float4(ch[0].w, ch[1].w, ch[2].w, ch[3].w);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int p = 4 * w + j - skew;           // slot in the stencil window
+      if (m[j] > 0.0f && p >= 0 && p < win) {
+        const int cell = s * ncw + (p >> geo.lcap);
+        cand[cell * cs + (p & (cap - 1))] = v[j];
+        atomicAdd(&cnt[cell], 1);
+      }
+    }
+    w += dr;
+    s += dq;
+    if (w >= w4) {
+      w -= w4;
+      ++s;
+    }
+  }
+  __syncthreads();
+
+  if (t < n_own) {
+    const int slot = own_slot[t];
+    const int kw = (slot >> geo.lcap) + 1;     // own cell in the window
+    float o[C];
+    unpack<Pair>(cand[(4 * ncw + kw) * cs + (slot & (cap - 1))], o);
+    float acc[Pair::kOut];
+#pragma unroll
+    for (int q = 0; q < Pair::kOut; ++q) acc[q] = 0.0f;
+    for (int r = 0; r < 9; ++r) {
+      for (int dz = 0; dz < 3; ++dz) {
+        const int cell = r * ncw + kw - 1 + dz;
+        const float4* p = cand + cell * cs;
+        const int n = cnt[cell];
+#pragma unroll 4
+        for (int j = 0; j < n; ++j) {
+          float c[C];
+          unpack<Pair>(p[j], c);
+          pair(o, c, acc);
+        }
+      }
+    }
+    const float m = own_mask[t];
+#pragma unroll
+    for (int q = 0; q < Pair::kOut; ++q)
+      args.out[q][off + slot] = (acc[q] * m) * scale;
+  }
+  __syncthreads();
+}
+
+template <class Pair, bool kGated>
+__global__ void __launch_bounds__(kBlock)
+compact_sweep_kernel(const Pair pair,
+                     const SweepArgs<Pair::kIn, Pair::kOut> args,
+                     const CompactGeom geo, const ActiveGate gate,
+                     float scale) {
+  static_assert(Pair::kIn - 1 <= 4, "candidate channels must fit a float4");
+  extern __shared__ float4 smem4[];
+  __shared__ long long item_off[kBatch];
+  __shared__ long long row_off[9];
+  __shared__ int own_slot[kBlock];
+  __shared__ float own_mask[kBlock];
+  __shared__ int warp_count[kWarps];
+  __shared__ unsigned fetch_s, keep_s;
+
+  float4* cand = smem4;
+  int* cnt = reinterpret_cast<int*>(smem4 + 9 * geo.ncw *
+                                             (args.cap + kCellPad));
+  const int t = threadIdx.x;
+  const float* mask = args.in[Pair::kMask];
+  const long long row_len = static_cast<long long>(args.sub) * kBlock;
+  unsigned* work = g_compact_work[geo.slot];
+
+  for (;;) {
+    if (t == 0) {
+      fetch_s = atomicAdd(&work[0], 1u);
+      keep_s = 0u;
+    }
+    __syncthreads();
+    const unsigned fetch = fetch_s;
+    if (fetch >= geo.n_fetch) break;
+    if (t < kBatch) {
+      const long long id = fetch + static_cast<long long>(t) * geo.n_fetch;
+      long long off = -1;
+      if (id < geo.n_items) {
+        const int nblk = args.sub - 2;
+        const long long col = id / nblk;
+        const int blk = static_cast<int>(id - col * nblk);
+        const int cx = static_cast<int>(col / args.ny);
+        const int cy = static_cast<int>(col - static_cast<long long>(cx) *
+                                                  args.ny);
+        bool on = true;
+        if constexpr (kGated)
+          on = gate.active[cx * gate.nyp + cy / gate.patch] != 0;
+        if (on)
+          off = (static_cast<long long>(cx + 1) * args.py + cy + 1) *
+                    row_len + static_cast<long long>(kBlock) * (blk + 1);
+      }
+      item_off[t] = off;
+    }
+    __syncthreads();
+    unsigned keep = 0u;
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const long long off = item_off[j];
+      if (off >= 0 && mask[off + t] > 0.0f) keep |= 1u << j;
+    }
+    keep = __reduce_or_sync(0xffffffffu, keep);
+    if ((t & 31) == 0) atomicOr(&keep_s, keep);
+    __syncthreads();
+    keep = keep_s;
+    while (keep) {
+      const int j = __ffs(keep) - 1;
+      keep &= keep - 1u;
+      compact_block(pair, args, geo, scale, item_off[j], cand, cnt, row_off,
+                    own_slot, own_mask, warp_count);
+    }
+    __syncthreads();
+  }
+  if (t == 0) {
+    __threadfence();
+    if (atomicAdd(&work[1], 1u) == gridDim.x - 1) {
+      work[0] = 0u;
+      work[1] = 0u;
+      __threadfence();
+    }
+  }
+}
+
+constexpr ActiveGate kNoGate{nullptr, 1, 1};
+
+template <class Pair, bool kGated>
+int launch_compact(const Pair& pair, const float* const* in,
+                   float* const* out, int nx, int ny, int sub, int cap,
+                   float scale, int slot, const ActiveGate gate,
+                   void* stream) {
+  SweepArgs<Pair::kIn, Pair::kOut> args{};
+  for (int i = 0; i < Pair::kIn; ++i) args.in[i] = in[i];
+  for (int o = 0; o < Pair::kOut; ++o) args.out[o] = out[o];
+  args.ny = ny;
+  args.py = ny + 2;
+  args.sub = sub;
+  args.cap = cap;
+  CompactGeom geo{};
+  while ((1 << geo.lcap) < cap) ++geo.lcap;
+  geo.ncw = kBlock / cap + 2;
+  geo.margin = cap < 4 ? 4 : cap;
+  geo.w4 = (kBlock + 2 * geo.margin) / 4;
+  geo.n_items = static_cast<long long>(nx) * ny * (sub - 2);
+  geo.n_fetch = static_cast<unsigned>((geo.n_items + kBatch - 1) / kBatch);
+  geo.slot = slot;
+  if (geo.n_items <= 0) return static_cast<int>(cudaSuccess);
+  const int smem = 9 * geo.ncw * ((cap + kCellPad) *
+                                  static_cast<int>(sizeof(float4)) +
+                                  static_cast<int>(sizeof(int)));
+  auto kernel = compact_sweep_kernel<Pair, kGated>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, n_sm = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kBlock, smem)) != cudaSuccess)
+    return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  long long grid = static_cast<long long>(per_sm) * n_sm;
+  if (grid > geo.n_fetch) grid = geo.n_fetch;
+  kernel<<<static_cast<unsigned>(grid), kBlock, smem,
+           static_cast<cudaStream_t>(stream)>>>(pair, args, geo, gate,
+                                                scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class Pair>
+int launch_compact_active(const Pair& pair, const float* const* in,
+                          float* const* out, int nx, int ny, int sub,
+                          int cap, float scale, int slot, const int* active,
+                          void* stream) {
+  const int patch = ny < 8 ? ny : 8;
+  const ActiveGate gate{active, (ny + patch - 1) / patch, patch};
+  return launch_compact<Pair, true>(pair, in, out, nx, ny, sub, cap, scale,
+                                    slot, gate, stream);
+}
+
 }  // namespace
 
 // C interface, one launcher per sweep. `in` and `out` are host arrays of
 // device pointers to contiguous float32 planes of shape (rows, sub, 128), in
 // the channel order of each functor above; outputs must be zero-filled by
 // the caller. Returns the cudaError_t of the launch.
+//
+// The four compacted sweeps (density, prefolded pressure, and their gated
+// forms) also take `scale`, applied to every output as (acc * own_m) *
+// scale, and need a mask plane of 0 and 1 in which each cell's occupied
+// slots are its first ranks (as build_planes writes it); launches of one of
+// them must not run concurrently (they share a work counter).
 #define DFT_SWEEP_ARGS                                                    \
   const float* const* in, float* const* out, int nx, int ny, int sub, \
       int cap
 #define DFT_SWEEP_PASS in, out, nx, ny, sub, cap, stream
+#define DFT_COMPACT_PASS in, out, nx, ny, sub, cap, scale
 
 extern "C" {
 
-int dft_density_sweep(DFT_SWEEP_ARGS, float h2, float a, void* stream) {
-  return launch(DensityPair{h2, a}, DFT_SWEEP_PASS);
+int dft_density_sweep(DFT_SWEEP_ARGS, float h2, float a, float scale,
+                      void* stream) {
+  return launch_compact<DensityPair, false>(
+      DensityPair{h2, a}, DFT_COMPACT_PASS, 0, kNoGate, stream);
 }
 
 int dft_force_sweep(DFT_SWEEP_ARGS, float h, float h2, float b, float cw,
@@ -524,8 +846,9 @@ int dft_visc_sweep(DFT_SWEEP_ARGS, float h, float h2, float cw,
 }
 
 int dft_press_pq_sweep(DFT_SWEEP_ARGS, float h2, float inv_h, float b,
-                       void* stream) {
-  return launch(PressPqPair{h2, inv_h, b}, DFT_SWEEP_PASS);
+                       float scale, void* stream) {
+  return launch_compact<PressPqPair, false>(
+      PressPqPair{h2, inv_h, b}, DFT_COMPACT_PASS, 1, kNoGate, stream);
 }
 
 int dft_press_sweep(DFT_SWEEP_ARGS, float h, float h2, float b,
@@ -538,9 +861,10 @@ int dft_press_sweep(DFT_SWEEP_ARGS, float h, float h2, float b,
 // activity grid, P = min(8, ny).
 #define DFT_ACTIVE_PASS in, out, nx, ny, sub, cap, active, stream
 
-int dft_density_active_sweep(DFT_SWEEP_ARGS, float h2, float a,
+int dft_density_active_sweep(DFT_SWEEP_ARGS, float h2, float a, float scale,
                              const int* active, void* stream) {
-  return launch_active(DensityPair{h2, a}, DFT_ACTIVE_PASS);
+  return launch_compact_active(DensityPair{h2, a}, DFT_COMPACT_PASS, 2,
+                               active, stream);
 }
 
 int dft_press_active_sweep(DFT_SWEEP_ARGS, float h, float h2, float b,
@@ -549,8 +873,9 @@ int dft_press_active_sweep(DFT_SWEEP_ARGS, float h, float h2, float b,
 }
 
 int dft_press_pq_active_sweep(DFT_SWEEP_ARGS, float h2, float inv_h, float b,
-                              const int* active, void* stream) {
-  return launch_active(PressPqPair{h2, inv_h, b}, DFT_ACTIVE_PASS);
+                              float scale, const int* active, void* stream) {
+  return launch_compact_active(PressPqPair{h2, inv_h, b}, DFT_COMPACT_PASS,
+                               3, active, stream);
 }
 
 int dft_density_bwd_sweep(DFT_SWEEP_ARGS, float h2, float a, void* stream) {

@@ -59,6 +59,21 @@ Materials gradients flow through plain torch. Cotangents are masked before a
 backward sweep and every output after a sweep with `torch.where(mask > 0,
 out, 0)` as the JAX `_mask_where` does; slots the kernel does not compute,
 ghost rows included, read 0.
+
+The compact sweeps (K1 density, K4 prefolded pressure and their gated
+forms) run the compacted kernel body, and on the CUDA route leave two
+passes per output out of torch:
+  * the `_mask_where`: the kernel writes only slots whose mask is > 0 and
+    the rest keep the zeros the wrapper allocates, ghost rows and blocks
+    included, so the where would return its input bit for bit;
+  * the scale, when `mass` is a Python number: the kernel writes (acc *
+    own_m) * mass (K1) or * mass^2 (K4), the same two float32 roundings as
+    the multiply after the sweep. K1's backward scales the cotangent by
+    mass as that multiply's backward did, so gradients are unchanged. A
+    0-d tensor `mass` (traced Materials) is still applied in torch.
+The plain version applies both as torch passes, as before. The compacted
+kernel needs a mask of 0 and 1 whose occupied slots are each cell's first
+ranks, which is what `build_planes` writes.
 """
 
 from __future__ import annotations
@@ -320,7 +335,10 @@ def _force_bwd_pair(k: KernelCoeffs, mass: float, mu: float):
 class Sweep:
     """One instantiation of the stencil sweep: its channels, its C launcher
     and its launch count (CUDA launches only). A `gated` sweep takes the
-    int32 activity grid as well (K10)."""
+    int32 activity grid as well (K10). A `compact` sweep runs the compacted
+    kernel body: its last constant is the scale the kernel's epilogue
+    applies, and its outputs are final (0 wherever the mask is not > 0, the
+    scale applied), so nothing is applied around the kernel."""
 
     name: str
     symbol: str
@@ -328,6 +346,7 @@ class Sweep:
     n_out: int
     replaces: str
     gated: bool = False
+    compact: bool = False
     launches: int = 0
 
 
@@ -335,7 +354,7 @@ _PALLAS = "dieselfluid_tpu/ops/pallas_sph.py"
 _CT3 = ("ct_0", "ct_1", "ct_2")
 
 DENSITY = Sweep("density", "dft_density_sweep", ("x", "y", "z", "mask"), 1,
-                f"{_PALLAS}:473")
+                f"{_PALLAS}:473", compact=True)
 FORCE = Sweep("force", "dft_force_sweep",
               ("x", "y", "z", "vx", "vy", "vz", "mask", "pq", "iv"), 3,
               f"{_PALLAS}:593")
@@ -345,7 +364,8 @@ VISC = Sweep("viscosity", "dft_visc_sweep",
              ("x", "y", "z", "vx", "vy", "vz", "mask", "rho"), 3,
              f"{_PALLAS}:752")
 PRESS_PQ = Sweep("pressure_pq", "dft_press_pq_sweep",
-                 ("x", "y", "z", "mask", "pq"), 3, f"{_PALLAS}:825")
+                 ("x", "y", "z", "mask", "pq"), 3, f"{_PALLAS}:825",
+                 compact=True)
 PRESS = Sweep("pressure", "dft_press_sweep",
               ("x", "y", "z", "mask", "rho", "press"), 3, f"{_PALLAS}:684")
 DENSITY_BWD = Sweep("density_bwd", "dft_density_bwd_sweep",
@@ -361,11 +381,13 @@ FORCE_P_BWD = Sweep("force_p_bwd", "dft_force_p_bwd_sweep",
                     PRESS.in_names + _CT3, 5, f"{_PALLAS}:624")
 # K10: the gated forms (the gate is `_sweep`'s `active=`, :216-251).
 DENSITY_ACTIVE = Sweep("density_active", "dft_density_active_sweep",
-                       DENSITY.in_names, 1, f"{_PALLAS}:855", gated=True)
+                       DENSITY.in_names, 1, f"{_PALLAS}:855", gated=True,
+                       compact=True)
 PRESS_ACTIVE = Sweep("pressure_active", "dft_press_active_sweep",
                      PRESS.in_names, 3, f"{_PALLAS}:862", gated=True)
 PRESS_PQ_ACTIVE = Sweep("pressure_pq_active", "dft_press_pq_active_sweep",
-                        PRESS_PQ.in_names, 3, f"{_PALLAS}:825", gated=True)
+                        PRESS_PQ.in_names, 3, f"{_PALLAS}:825", gated=True,
+                        compact=True)
 
 #: The sweeps of the dense paths (FORCE_P is force_planes at mu == 0, and
 #: FORCE_P_BWD its backward; the *_ACTIVE ones are K10).
@@ -464,9 +486,14 @@ def _check_planes(ins: Sequence[torch.Tensor], spec: DenseCellSpec):
             raise ValueError("sweep planes must be contiguous")
 
 
-def _sweep_cuda(sweep: Sweep, ins: Sequence[torch.Tensor],
-                spec: DenseCellSpec, consts: Sequence[float],
-                active: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+def launch_kernel(sweep: Sweep, ins: Sequence[torch.Tensor],
+                  outs: Sequence[torch.Tensor], spec: DenseCellSpec,
+                  consts: Sequence[float],
+                  active: Optional[torch.Tensor] = None):
+    """Launch `sweep`'s kernel on checked CUDA input planes (in its channel
+    order) into the zero-filled output planes `outs`, on the current
+    stream, and count the launch. _sweep_cuda's launch; chip_smoke.py times
+    it alone."""
     from dieselfluid_tpu_torch.ops._build import load_library
 
     if spec.nx * spec.ny >= 2 ** 31 or spec.sub - 2 > 65535:
@@ -478,8 +505,6 @@ def _sweep_cuda(sweep: Sweep, ins: Sequence[torch.Tensor],
                    + [ctypes.c_void_p] * (len(gate) + 1))
     fn.restype = ctypes.c_int
     with torch.cuda.device(ins[0].device):
-        outs = [torch.zeros(spec.plane_shape, dtype=torch.float32,
-                            device=ins[0].device) for _ in range(sweep.n_out)]
         in_ptrs = (ctypes.c_void_p * len(ins))(*[p.data_ptr() for p in ins])
         out_ptrs = (ctypes.c_void_p * len(outs))(
             *[o.data_ptr() for o in outs])
@@ -489,6 +514,15 @@ def _sweep_cuda(sweep: Sweep, ins: Sequence[torch.Tensor],
     if err != 0:
         raise RuntimeError(f"{sweep.symbol} launch failed: cudaError {err}")
     sweep.launches += 1
+
+
+def _sweep_cuda(sweep: Sweep, ins: Sequence[torch.Tensor],
+                spec: DenseCellSpec, consts: Sequence[float],
+                active: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+    with torch.cuda.device(ins[0].device):
+        outs = [torch.zeros(spec.plane_shape, dtype=torch.float32,
+                            device=ins[0].device) for _ in range(sweep.n_out)]
+    launch_kernel(sweep, ins, outs, spec, consts, active)
     return outs
 
 
@@ -497,16 +531,23 @@ def _run_plain(sweep: Sweep, pair: Callable, ins: Planes,
                active: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
     """The plain version on any device. A gated sweep runs the ungated one
     and zeroes the rows whose canonical patch is inactive, as the kernel
-    leaves them."""
+    leaves them. A compact sweep's outputs then get what its kernel's
+    epilogue gives: 0 wherever the mask is not > 0, then the scale (its last
+    constant), each as the torch pass the caller applied before."""
     arrs = [ins[n] for n in sweep.in_names]
     _check_planes(arrs, spec)
     outs = _sweep_plain(pair, dict(zip(sweep.in_names, arrs)), sweep.n_out,
                         spec)
-    if not sweep.gated:
-        return outs
-    _check_active(active, spec, arrs[0].device)
-    rows = act_rows_of(active, spec)
-    return [torch.where(rows, o, 0.0) for o in outs]
+    if sweep.gated:
+        _check_active(active, spec, arrs[0].device)
+        rows = act_rows_of(active, spec)
+        outs = [torch.where(rows, o, 0.0) for o in outs]
+    if sweep.compact:
+        scale = consts[-1]
+        outs = [_mask_where(ins["mask"], o) for o in outs]
+        if scale != 1.0:
+            outs = [scale * o for o in outs]
+    return outs
 
 
 def _run(sweep: Sweep, pair: Callable, ins: Planes, spec: DenseCellSpec,
@@ -567,8 +608,9 @@ class _SweepFunction(torch.autograd.Function):
     """A masked forward sweep whose backward is its adjoint sweep, run by
     the same `run` (kernel on CUDA, plain on the CPU; plain anywhere for
     `plain`). `fold`, when given, builds the forward's channels from the
-    autograd inputs (untracked). A sweep without an adjoint raises in
-    backward."""
+    autograd inputs (untracked). A compact sweep's outputs come masked and
+    scaled from `run`; its backward scales the cotangents by that scale
+    first. A sweep without an adjoint raises in backward."""
 
     @staticmethod
     def forward(ctx, run, spec, fwd: Op, adjoint: Optional[Op], fold,
@@ -580,9 +622,10 @@ class _SweepFunction(torch.autograd.Function):
         ctx.save_for_backward(*arrs)
         if fold is not None:
             ins = fold(ins)
-        m = ins["mask"]
-        return tuple(_mask_where(m, o)
-                     for o in run(sweep, pair, ins, spec, consts))
+        outs = run(sweep, pair, ins, spec, consts)
+        if sweep.compact:
+            return tuple(outs)
+        return tuple(_mask_where(ins["mask"], o) for o in outs)
 
     @staticmethod
     def backward(ctx, *cts):
@@ -596,6 +639,11 @@ class _SweepFunction(torch.autograd.Function):
                 "which use the factored ungated sweeps")
         names = _primal_names(ctx.fwd, ctx.adjoint)
         ins = dict(zip(names, ctx.saved_tensors))
+        scale = ctx.fwd[2][-1] if sweep.compact else 1.0
+        if scale != 1.0:
+            # The forward's folded scale, as the multiply it replaced would
+            # have scaled the cotangent (MulBackward).
+            cts = tuple(None if c is None else c * scale for c in cts)
         grads = iter(_backward_sweep(ctx.run, ctx.spec, ctx.adjoint, ins,
                                      cts))
         return (None,) * 5 + tuple(None if n == "mask" else next(grads)
@@ -608,10 +656,20 @@ def _apply(run, spec: DenseCellSpec, fwd: Op, adjoint: Optional[Op],
                                 *[ins[n] for n in _primal_names(fwd, adjoint)])
 
 
-def _density_ops(k: KernelCoeffs) -> Tuple[Op, Op]:
+def _density_ops(k: KernelCoeffs, scale: float = 1.0) -> Tuple[Op, Op]:
     c = (float(k.h) ** 2, float(k.a))
-    return ((DENSITY, _density_pair(k), c),
+    return ((DENSITY, _density_pair(k), c + (scale,)),
             (DENSITY_BWD, _density_bwd_pair(k), c))
+
+
+def _kernel_scale(mass, power: int) -> float:
+    """The scale a compact sweep's epilogue applies: mass ** power when
+    `mass` is a Python number (the float32 multiply the caller did after
+    the sweep), 1.0 for a 0-d tensor, which the caller still applies in
+    torch so that a gradient reaches it."""
+    if isinstance(mass, torch.Tensor):
+        return 1.0
+    return float(mass) if power == 1 else float(mass) * float(mass)
 
 
 def _press_ops(k: KernelCoeffs) -> Tuple[Op, Op]:
@@ -639,8 +697,9 @@ def _with(planes: Planes, **extra) -> Planes:
 
 def _density(run, planes: Planes, spec: DenseCellSpec, k: KernelCoeffs,
              mass) -> torch.Tensor:
-    (s,) = _apply(run, spec, *_density_ops(k), planes)
-    return mass * s
+    (s,) = _apply(run, spec, *_density_ops(k, _kernel_scale(mass, 1)),
+                  planes)
+    return mass * s if isinstance(mass, torch.Tensor) else s
 
 
 def _fold_force(ins: Planes, with_iv: bool) -> Planes:
@@ -700,18 +759,21 @@ def _pressure_pq(run, planes: Planes, pq_plane: torch.Tensor,
     sweep = PRESS_PQ
     if active is not None:
         sweep, run = PRESS_PQ_ACTIVE, functools.partial(run, active=active)
-    fwd = (sweep, _press_pq_pair(k), (h * h, 1.0 / h, float(k.b)))
+    fwd = (sweep, _press_pq_pair(k),
+           (h * h, 1.0 / h, float(k.b), _kernel_scale(mass, 2)))
     fx, fy, fz = _apply(run, spec, fwd, None, _with(planes, pq=pq_plane))
+    if not isinstance(mass, torch.Tensor):
+        return fx, fy, fz
     m2 = mass * mass
     return m2 * fx, m2 * fy, m2 * fz
 
 
 def _density_active(run, planes: Planes, spec: DenseCellSpec,
                     k: KernelCoeffs, mass, active) -> torch.Tensor:
-    (_, pair, c), _ = _density_ops(k)
+    (_, pair, c), _ = _density_ops(k, _kernel_scale(mass, 1))
     (s,) = _apply(functools.partial(run, active=active), spec,
                   (DENSITY_ACTIVE, pair, c), None, planes)
-    return mass * s
+    return mass * s if isinstance(mass, torch.Tensor) else s
 
 
 def _pressure_active(run, planes: Planes, rho_plane: torch.Tensor,

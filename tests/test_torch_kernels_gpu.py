@@ -293,6 +293,132 @@ def test_gated_kernel_matches_plain_and_ungated(planes, name, kind):
             assert not bool(g.any())
 
 
+# --------------------------------------------------------------------------
+# The compacted body (K1, K4 and their gated forms) on edge cases
+# --------------------------------------------------------------------------
+
+COMPACT = ("density", "pressure_pq", "density_active", "pressure_pq_active")
+
+
+def _edge_planes(kind, cap, device, ny_cells=None):
+    """Planes of `kind` on the card, binned with capacity `cap` at h = 0.25:
+    'full' packs 4000 seeded points into the middle (cells full to
+    capacity, the rest overflowing), 'lone' holds one particle, 'empty'
+    none, 'column' a seeded cloud in a box with `ny_cells` cells in y."""
+    params = lattice_rest_density(0.125, FluidParams.for_spacing(0.125))
+    rng = np.random.default_rng(21)
+    hi_y = 1.0
+    if kind == "full":
+        pts = rng.uniform(-0.3, 0.3, (4000, 3))
+    elif kind == "lone":
+        pts = np.array([[0.1, -0.2, 0.3]])
+    elif kind == "empty":
+        pts = np.zeros((0, 3))
+    else:
+        hi_y = -1.0 + ny_cells * params.h
+        pts = rng.uniform(-0.95, 0.95, (3000, 3))
+        pts[:, 1] = rng.uniform(-0.95, hi_y - 0.05, 3000)
+    spec = tc.DenseCellSpec.for_domain((-1.0, -1.0, -1.0), (1.0, hi_y, 1.0),
+                                       params.h, capacity=cap)
+    t = torch.from_numpy(pts.astype(np.float32)).to(device)
+    vals = {"x": t[:, 0], "y": t[:, 1], "z": t[:, 2],
+            "pq": torch.from_numpy(rng.uniform(0.0, 50.0, len(pts)).astype(
+                np.float32)).to(device)}
+    flat, valid, _ = tc.dense_indices(t, spec)
+    return params, spec, tc.build_planes(vals, flat, valid, spec)
+
+
+def _compact_call(name, params, spec, p, plain, active=None):
+    k = KernelCoeffs.build(params.h)
+    fns = sw.plain if plain else sw
+    if name == "density":
+        return (fns.density_planes(p, spec, k, params.mass),)
+    if name == "pressure_pq":
+        return fns.pressure_force_pq_planes(p, p["pq"], spec, k, params.mass)
+    if name == "density_active":
+        return (fns.density_planes_active(p, spec, k, params.mass, active),)
+    return fns.pressure_force_pq_planes(p, p["pq"], spec, k, params.mass,
+                                        active=active)
+
+
+def _check_compact(name, params, spec, p, active=None):
+    got = _compact_call(name, params, spec, p, False, active)
+    torch.cuda.synchronize()
+    want = _compact_call(name, params, spec, p, True, active)
+    scale = max(float(w.abs().max()) for w in want)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    assert err <= sw.KERNEL_REL_TOL * scale, (name, err, scale)
+    off = p["mask"] <= 0
+    for g in got:
+        assert bool(torch.isfinite(g).all()) and not bool(g[off].any())
+    return got
+
+
+@pytest.mark.parametrize("cap", [16, 32])
+@pytest.mark.parametrize("kind", ["full", "lone", "empty"])
+def test_compact_kernels_on_edge_planes(cuda, kind, cap):
+    """The four compacted launchers against their plain versions on cells
+    full to capacity, a lone particle and an all-empty plane (all 0), at
+    the bench's and the CLI's capacities; the gated forms under an all-ones
+    grid."""
+    params, spec, p = _edge_planes(kind, cap, cuda)
+    occ = p["mask"].view(-1, cap).sum(-1)
+    if kind == "full":
+        assert int((occ == cap).sum()) > 0
+    ones = torch.ones(sw.active_patch_shape(spec), dtype=torch.int32,
+                      device=cuda)
+    for name in COMPACT:
+        got = _check_compact(name, params, spec, p,
+                             ones if name.endswith("_active") else None)
+        if kind == "empty":
+            assert not any(bool(g.any()) for g in got)
+
+
+@pytest.mark.parametrize("ny_cells", [5, 11])
+@pytest.mark.parametrize("kind", ["ones", "quarter", "zeros"])
+def test_compact_gated_kernels_on_odd_patches(cuda, ny_cells, kind):
+    """The gated compacted launchers with ny < 8 (one short patch) and
+    ny % 8 != 0 (a short last patch): against their plain versions, 0 off
+    the active rows, and bit for bit the ungated kernels on them."""
+    params, spec, p = _edge_planes("column", 16, cuda, ny_cells)
+    assert spec.ny == ny_cells
+    active = _grid(spec, kind, cuda)
+    rows = sw.act_rows_of(active, spec).expand_as(p["mask"])
+    for name in ("density_active", "pressure_pq_active"):
+        got = _check_compact(name, params, spec, p, active)
+        full = _compact_call(name[:-len("_active")], params, spec, p, False)
+        for g, f in zip(got, full):
+            assert torch.equal(g[rows], f[rows])
+            assert not bool(g[~rows].any())
+
+
+def test_density_gradient_through_compact_kernel_matches_cpu(planes):
+    """d/d(x, mass) of a seeded loss through density_planes with a traced
+    0-d mass (scaled in torch) and d/dx with a Python mass (folded into the
+    kernel, the cotangent scaled in backward): K6 on the card, the plain
+    adjoint on the CPU, one density and one density_bwd launch on the
+    card."""
+    params, spec, p = planes
+    k = KernelCoeffs.build(params.h)
+    for traced in (True, False):
+        grads = {}
+        for dev in ("cuda", "cpu"):
+            q = {n: v.to(dev) for n, v in p.items()}
+            x = q["x"].clone().requires_grad_()
+            mass = (torch.tensor(params.mass, device=dev, requires_grad=True)
+                    if traced else params.mass)
+            before = (sw.DENSITY.launches, sw.DENSITY_BWD.launches)
+            rho = sw.density_planes(dict(q, x=x), spec, k, mass)
+            wrt = (x, mass) if traced else (x,)
+            grads[dev] = torch.autograd.grad((rho * q["ct_0"]).sum(), wrt)
+            n = int(dev == "cuda")
+            assert (sw.DENSITY.launches, sw.DENSITY_BWD.launches) == (
+                before[0] + n, before[1] + n)
+        for g, c in zip(grads["cuda"], grads["cpu"]):
+            err = float((g.cpu() - c).abs().max()) / float(c.abs().max())
+            assert err <= sw.KERNEL_BWD_REL_TOL, (traced, err)
+
+
 def test_gated_wrapper_checks_and_backward_raises(planes):
     params, spec, p = planes
     k = KernelCoeffs.build(params.h)

@@ -1,0 +1,163 @@
+"""The mask invariant the compacted sweep kernel (K1, K4 and their gated
+forms) relies on: every mask plane a main path hands a sweep holds only 0
+and 1, and in every cell its occupied slots are ranks 0..n-1. The kernel
+counts a cell's occupied slots and visits only that many of them.
+
+Checked on the plane producers directly (build_planes after dense_indices,
+on a dam break and with cells forced to overflow; the boundary-extended
+binning) and, through a spy on the sweeps' dispatch, on every mask the
+solvers pass to a compact sweep: the per-step WCSPH and PCISPH steps (the
+correction loop's predicted planes, the column_skip loop's, the unrolled
+loop's scatter of predicted positions), and the resident WCSPH and PCISPH
+states over several skin > 0 steps between rebuilds.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dieselfluid_tpu_torch.config import FluidParams
+from dieselfluid_tpu_torch.models.materials import Materials
+from dieselfluid_tpu_torch.models.particles import dam_break_state
+from dieselfluid_tpu_torch.neighbors.calibrate import lattice_rest_density
+from dieselfluid_tpu_torch.ops import cellops as tc
+from dieselfluid_tpu_torch.ops import sph_sweep as sw
+from dieselfluid_tpu_torch.solvers import dense_resident as tdr
+from dieselfluid_tpu_torch.solvers import dense_step as tds
+from dieselfluid_tpu_torch.solvers.pcisph import compute_pci_delta
+
+torch.set_num_threads(1)
+
+N3 = 8
+DX = (2.0 / N3) * 0.5
+CPU = torch.device("cpu")
+
+
+def prefix_violations(mask: torch.Tensor, cap: int) -> int:
+    """Slots that break the invariant: a value other than 0 or 1, or an
+    occupancy that is not the first ranks of its cell."""
+    m = mask.reshape(-1, cap)
+    bad_values = int(((m != 0) & (m != 1)).sum())
+    occ = m > 0
+    n = occ.sum(-1, keepdim=True)
+    ranks = torch.arange(cap).expand_as(occ)
+    return bad_values + int((occ != (ranks < n)).sum())
+
+
+def _setup(seed=1, jitter=0.3, speed=1.0):
+    params = lattice_rest_density(DX, FluidParams.for_spacing(DX))
+    s = dam_break_state(N3, params, CPU)
+    rng = np.random.default_rng(seed)
+    pos = s.pos + torch.from_numpy(rng.uniform(
+        -jitter, jitter, tuple(s.pos.shape)).astype(np.float32)) * DX
+    vel = torch.from_numpy((speed * rng.normal(
+        size=tuple(s.vel.shape))).astype(np.float32))
+    spec = tc.DenseCellSpec.for_domain((-1,) * 3, (1,) * 3, params.h,
+                                       capacity=16)
+    return params, s._replace(pos=pos, vel=vel), spec
+
+
+def test_violations_are_counted():
+    m = torch.zeros(2, 4)
+    m[0, :2] = 1.0
+    m[1, 1] = 1.0            # a hole at rank 0
+    assert prefix_violations(m, 4) == 2
+    m[1] = torch.tensor([0.5, 0.0, 0.0, 0.0])
+    assert prefix_violations(m, 4) == 1
+
+
+@pytest.mark.parametrize("cap", [16, 32, 4])
+def test_build_planes_after_dense_indices(cap):
+    """The dam break at capacities 16 and 32, and at 4, where most cells
+    overflow (the overflowed particles park off the plane)."""
+    params, s, _ = _setup()
+    spec = tc.DenseCellSpec.for_domain((-1,) * 3, (1,) * 3, params.h,
+                                       capacity=cap)
+    flat, valid, overflow = tc.dense_indices(s.pos, spec)
+    planes = tc.build_planes({"x": s.pos[:, 0]}, flat, valid, spec)
+    if cap == 4:
+        assert int(overflow) > 0
+    assert int(planes["mask"].sum()) == int(valid.sum())
+    assert prefix_violations(planes["mask"], cap) == 0
+
+
+def test_forced_overflow_in_one_cell():
+    """Many particles in one cell, in shuffled order: the first `cap` by
+    particle order keep ranks 0..cap-1."""
+    params, _, spec = _setup()
+    rng = np.random.default_rng(3)
+    pos = torch.from_numpy(rng.uniform(0.01, 0.2, (70, 3)).astype(
+        np.float32))
+    flat, valid, overflow = tc.dense_indices(pos, spec)
+    planes = tc.build_planes({"x": pos[:, 0]}, flat, valid, spec)
+    assert int(overflow) > 0
+    assert prefix_violations(planes["mask"], spec.capacity) == 0
+
+
+def test_boundary_extended_binning():
+    params, s, spec = _setup()
+    rng = np.random.default_rng(4)
+    wall = torch.from_numpy(np.stack(
+        [rng.uniform(-0.95, 0.95, 400), np.full(400, -0.97),
+         rng.uniform(-0.95, 0.95, 400)], -1).astype(np.float32))
+    pos, vel = tds._boundary_extended(s._replace(boundary_pos=wall))
+    assert pos.shape[0] == s.pos.shape[0] + 400
+    flat, valid, _ = tc.dense_indices(pos, spec)
+    planes = tds._pos_vel_planes(pos, vel, flat, valid, spec)
+    assert prefix_violations(planes["mask"], spec.capacity) == 0
+
+
+@pytest.fixture
+def spy(monkeypatch):
+    """Every mask a compact sweep gets through the sweeps' dispatch."""
+    masks = []
+    real = sw._run
+
+    def run(sweep, pair, ins, spec, consts, active=None):
+        if sweep.compact:
+            masks.append((sweep.name, ins["mask"]))
+        return real(sweep, pair, ins, spec, consts, active)
+
+    monkeypatch.setattr(sw, "_run", run)
+    return masks
+
+
+def _check(masks, spec, names):
+    assert {n for n, _ in masks} == set(names)
+    for name, m in masks:
+        assert prefix_violations(m, spec.capacity) == 0, name
+
+
+def test_per_step_solvers_hand_prefix_masks(spy):
+    params, s, spec = _setup()
+    delta = compute_pci_delta(params, DX)
+    tds.dense_wcsph_step(s, params, spec)
+    tds.dense_pcisph_step(s, params, spec, delta, warm_start=True)
+    tds.dense_pcisph_step(s, params, spec, delta, column_skip=True)
+    mats = Materials.from_params(params, CPU, requires_grad=True)
+    tds.dense_pcisph_step(s, params, spec, delta, materials=mats,
+                          unroll_for_grad=True, unroll_iters=2)
+    _check(spy, spec, ("density", "pressure_pq", "density_active",
+                       "pressure_pq_active"))
+
+
+def test_resident_states_between_rebuilds_hand_prefix_masks(spy):
+    """Resident WCSPH and PCISPH with a skin wide enough that several
+    steps pass between rebuilds (the planes move, the mask stays frozen),
+    and at least one rebuild."""
+    params, s, spec = _setup(seed=2, jitter=0.1, speed=0.05)
+    delta = compute_pci_delta(params, DX)
+    for pcisph in (False, True):
+        ps = tdr.plane_state_from_fluid(s, spec)
+        ages = []
+        for _ in range(6):
+            if pcisph:
+                ps, _ = tdr.dense_pcisph_resident_step(ps, params, spec,
+                                                       delta, skin=0.02)
+            else:
+                ps = tdr.dense_wcsph_resident_step(ps, params, spec,
+                                                   skin=0.02)
+            ages.append(int(ps.rebuilds))
+            assert prefix_violations(ps.planes["mask"], spec.capacity) == 0
+        assert 0 < ages[-1] < 6, ages
+    _check(spy, spec, ("density", "pressure_pq"))

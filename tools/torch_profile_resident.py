@@ -1,27 +1,33 @@
 """Device-time breakdown of the port's 1M plane-resident steps on one CUDA
 card (torch.profiler; sum of CUDA kernel self time per step).
 
-    python tools/torch_profile_resident.py
+    python tools/torch_profile_resident.py [--root CHECKOUT]
 
-Uses chip_smoke.py's bench setup. WCSPH: steps 62-91 after a 61-step
+Uses chip_smoke.py's bench setup and the package of CHECKOUT (default: the
+checkout this file is in), so one copy of this script profiles any
+checkout. WCSPH: steps 62-91 after a 61-step
 burn-in; PCISPH (warm start): steps 32-51 after 31. Each solver runs its
 window twice from the same state, once unprofiled (wall ms/step) and once
 under the profiler. Prints one JSON line per solver: wall ms/step with and
 without the profiler, device-busy ms/step, idle share of the profiled wall
-(1 - busy / wall), kernel launches per step, PCISPH mean iterations, and
-device ms/step by group (each sweep kernel, sort/scan/index, memset/copy,
+(1 - busy / wall), kernel launches per step, PCISPH mean iterations,
+rebuilds in the unprofiled window, and device ms/step by group (each sweep kernel, sort/scan/index, memset/copy,
 the rest: elementwise and reductions).
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import re
 import sys
 import time
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+_ap = argparse.ArgumentParser()
+_ap.add_argument("--root", default=str(Path(__file__).resolve().parent.parent))
+ARGS = _ap.parse_args()
+sys.path.insert(0, str(Path(ARGS.root).resolve()))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -74,17 +80,19 @@ def main() -> int:
             return ps
 
         def window(ps):
+            rb0 = int(ps.rebuilds)
             t0 = time.perf_counter()
             for _ in range(steps):
                 ps = step(ps)
             torch.cuda.synchronize()
-            return (time.perf_counter() - t0) / steps * 1e3
+            return ((time.perf_counter() - t0) / steps * 1e3,
+                    int(ps.rebuilds) - rb0)
 
-        wall_unprof = window(burn())
+        wall_unprof, rebuilds = window(burn())
         ps = burn()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            wall = window(ps)
+            wall, _ = window(ps)
         groups, busy, launches = {}, 0.0, 0
         for e in prof.key_averages():
             if e.device_type != DeviceType.CUDA:
@@ -95,7 +103,8 @@ def main() -> int:
             busy += t
             launches += e.count
         print(json.dumps({
-            "solver": name, "steps_profiled": steps,
+            "solver": name, "root": ARGS.root, "steps_profiled": steps,
+            "rebuilds_in_window": rebuilds,
             "wall_ms_per_step_unprofiled": wall_unprof,
             "wall_ms_per_step_profiled": wall,
             "device_busy_ms_per_step": busy,

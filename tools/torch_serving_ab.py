@@ -3,9 +3,10 @@
 
     python3 tools/torch_serving_ab.py ROOT_A ROOT_B [--pairs N]
 
-Runs each checkout's own tools/torch_profile_resident.py (the 1M-particle
-resident WCSPH and PCISPH steps: wall ms/step unprofiled, device ms/step by
-kernel group under torch.profiler) in a fresh process from its root, in the
+Runs this checkout's tools/torch_profile_resident.py on each checkout's
+package (`--root`; the 1M-particle resident WCSPH and PCISPH steps: wall
+ms/step unprofiled, device ms/step by kernel group under torch.profiler,
+PCISPH mean iterations, rebuilds) in a fresh process from its root, in the
 order A B B A for each pair. Prints every run's lines, then per side and
 metric the median, min and max over its runs.
 """
@@ -23,9 +24,11 @@ import numpy as np
 
 def run_side(root: str) -> dict:
     """One profile run of the checkout at `root`: metric -> value."""
-    proc = subprocess.run(
-        [sys.executable, os.path.join("tools", "torch_profile_resident.py")],
-        cwd=root, capture_output=True, text=True, check=True, timeout=600)
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "torch_profile_resident.py")
+    proc = subprocess.run([sys.executable, script, "--root", root], cwd=root,
+                          capture_output=True, text=True, check=True,
+                          timeout=600)
     out = {}
     for line in proc.stdout.splitlines():
         print(line, flush=True)
@@ -35,6 +38,7 @@ def run_side(root: str) -> dict:
         s = rec["solver"]
         out[f"{s}.wall_ms_per_step"] = rec["wall_ms_per_step_unprofiled"]
         out[f"{s}.device_busy_ms_per_step"] = rec["device_busy_ms_per_step"]
+        out[f"{s}.rebuilds_in_window"] = rec["rebuilds_in_window"]
         if rec["mean_iters"] is not None:
             out[f"{s}.mean_iters"] = rec["mean_iters"]
         for g, ms in rec["groups_ms_per_step"].items():
