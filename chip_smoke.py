@@ -11,11 +11,13 @@ Phases, each of which raises (and so exits nonzero) on failure:
      K7, with and without viscosity included), against its plain torch
      version on the card, on a 32^3 dam break after a few WCSPH steps (max
      abs/rel error vs KERNEL_REL_TOL, per output vs KERNEL_BWD_REL_TOL for
-     the backward sweeps, which take seeded cotangent planes); and the
-     three gated sweeps of K10 under three seeded activity grids (all ones,
+     the backward sweeps, which take seeded cotangent planes); the three
+     gated sweeps of K10 under three seeded activity grids (all ones,
      about a quarter of the patches, all zeros, whose outputs must be all
      0), each also bitwise equal to its ungated kernel on the active
-     occupied rows;
+     occupied rows; and K1 and K2 on two streams at once, over that state
+     and the next step's, each bit for bit its call alone (every
+     compacted launch has its own work counter);
   4. the tile rasterizer kernels K11 and K12, 6 and 9 outputs, against
      their plain versions on a 256x144 frame (RASTER_REL_TOL,
      RASTER_BWD_REL_TOL per output);
@@ -426,7 +428,39 @@ def check_kernels_small(device) -> dict:
     errs = compare_kernels(ps.planes, spec, params,
                            seeded_cotangents(spec, device, 1), "n3=32")
     errs.update(compare_gated(ps.planes, spec, params, "n3=32", 11)[0])
+    later = dense_wcsph_resident_step(ps, params, spec, skin=0.0)
+    check_two_streams([ps.planes, later.planes], spec, params)
     return errs
+
+
+def check_two_streams(sets, spec, params, reps: int = 5):
+    """Each compacted launch has its own work counter: K1's and K2's public
+    calls on two plane sets, each set on its own non-default stream, both
+    streams held behind one device sleep so that the two calls start
+    together, `reps` times; each result must equal its set's call alone on
+    the current stream bit for bit."""
+    import torch
+
+    calls = [sweep_calls(p, spec, params, False, None) for p in sets]
+    streams = [torch.cuda.Stream() for _ in sets]
+    for name in ("density", "force"):
+        want = [c[name]() for c in calls]
+        torch.cuda.synchronize()
+        same = 0
+        for _ in range(reps):
+            torch.cuda._sleep(5_000_000)
+            got = []
+            for stream, c in zip(streams, calls):
+                stream.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(stream):
+                    got.append(c[name]())
+            torch.cuda.synchronize()
+            same += all(torch.equal(g, w) for gs, ws in zip(got, want)
+                        for g, w in zip(gs, ws))
+        log(f"two streams {name}: {same} of {reps} runs bit for bit the "
+            "calls alone")
+        check(same == reps, f"{name} on two streams at once differs from "
+              "the calls alone")
 
 
 def candidate_pairs(mask, spec, rows=None) -> int:

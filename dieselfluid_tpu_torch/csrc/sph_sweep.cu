@@ -54,31 +54,36 @@
 // lax.rsqrt, IEEE divides elsewhere. Every masked branch is a select, never
 // a multiply by a mask, so no 0 * inf reaches an output.
 //
-// sweep_block (every sweep but K1, K4 and their gated forms): one 128-thread
-// CTA per 128-slot own block of one row, launched for every interior block
-// of every column; a CTA with no occupied own slot exits after reading its
-// mask. Otherwise it stages the (128 + 2*cap)-slot window of the 9 stencil
-// rows for every input channel in dynamic shared memory ([C][9][W] words,
-// 69.1 KB for the fused force backward at cap 16, hence
-// cudaFuncSetAttribute), and each thread sums the pair function over all
-// its 9 x 3*cap candidate slots, occupied or not, masked by the candidate's
-// mask channel. What holds it back (measured on K1/K4/K10, PERF.md): the
-// grid of mostly empty CTAs, which reserve their shared memory; the 432
-// (cap 16) or 864 (cap 32) candidate iterations per thread whatever the
-// occupancy; half of each warp idle on empty own slots; scalar staging.
+// sweep_block (K5 pressure, the backward sweeps K6-K9 and K10's pressure
+// form): one 128-thread CTA per 128-slot own block of one row, launched for
+// every interior block of every column; a CTA with no occupied own slot
+// exits after reading its mask. Otherwise it stages the (128 + 2*cap)-slot
+// window of the 9 stencil rows for every input channel in dynamic shared
+// memory ([C][9][W] words, 69.1 KB for the fused force backward at cap 16,
+// hence cudaFuncSetAttribute), and each thread sums the pair function over
+// all its 9 x 3*cap candidate slots, occupied or not, masked by the
+// candidate's mask channel. What holds it back (measured on K1-K4 and K10,
+// PERF.md): the grid of mostly empty CTAs, which reserve their shared
+// memory; the 432 (cap 16) or 864 (cap 32) candidate iterations per thread
+// whatever the occupancy; half of each warp idle on empty own slots; scalar
+// staging. Its sweeps take 5-12 channels in.
 //
-// compact_sweep_kernel (K1 density and K4 prefolded pressure, ungated and
-// gated): a persistent grid of as many 128-thread CTAs as fit on the SMs.
-// Each fetches kBatch own blocks at a time from a work counter (blocks
-// fetch, fetch + n_fetch, ..., so one fetch spans the domain and the tail
-// balances) and keeps those whose 128 own mask words hold an occupied slot
-// (and, gated, whose column's canonical patch is active): no CTA is
-// launched for an empty block. For a kept block it
+// compact_sweep_kernel (K1 density, K2 fused force in both forms, K3
+// viscosity, K4 prefolded pressure, and K1/K4 gated): a persistent grid of
+// as many 128-thread CTAs as fit on the SMs. Each fetches kBatch own blocks
+// at a time from its launch's work counter (blocks fetch, fetch + n_fetch,
+// ..., so one fetch spans the domain and the tail balances) and keeps those
+// whose 128 own mask words hold an occupied slot (and, gated, whose
+// column's canonical patch is active): no CTA is launched for an empty
+// block. For a kept block it
 //   * ranks the occupied own slots by ballots and maps them onto threads
 //     0..n-1 in slot order, so warps are full;
-//   * stages the 9-row window with float4 loads of every channel, and
-//     stores each occupied candidate as one float4 (x y z [pq]: no mask
-//     channel) at [row][cell][rank], counting the cell's occupied slots;
+//   * stages the 9-row window with one float4 load per input plane, and
+//     stores each occupied candidate as one or two float4s (the pair's
+//     channels but the mask: x y z [pq] for K1, K4 and K2 at mu = 0; x y z
+//     vx vy vz rho for K3, x y z vx vy vz pq iv for K2) at [half][cell]
+//     [rank], counting the cell's occupied slots. K2 reads rho and press and
+//     folds pq and iv as it stages (ForceFold);
 //   * sums each own slot's pair over only the occupied candidates: a
 //     cell's occupied slots are its first ranks (dense_indices ranks by a
 //     stable sort, build_planes writes exactly those slots, the solvers
@@ -86,12 +91,15 @@
 // Candidates are visited in sweep_block's order (stencil rows 0..8, then
 // slots ascending) with the empty ones skipped. A skipped term adds +-0 to
 // an accumulator that starts at +0, so each sum is bit for bit
-// sweep_block's. The epilogue writes (acc * own_m) * scale: the mass (K1)
-// or mass^2 (K4) the caller would apply, with the same two float32
-// roundings. It writes only occupied own slots, so every slot whose mask
-// is not > 0 keeps the caller's 0. The work counter resets itself when the
-// last CTA leaves, so launches of one compacted sweep must be stream
-// ordered (PyTorch's current stream), never concurrent.
+// sweep_block's. The epilogue writes (acc * own_m) * scale: the mass (K1),
+// mass^2 (K4) or mu * mass (K3) the caller would apply, with the same two
+// float32 roundings (K2 keeps mass^2 and mu * mass in its pair: scale 1).
+// It writes only occupied own slots, so every slot whose mask is not > 0
+// keeps the caller's 0. Shared memory per CTA is 9 * ncw * cap * 16 bytes
+// per float4 of a candidate (ncw = 128 / cap + 2): 23,040 B for one float4
+// at cap 16, 46,080 B for two. Each launch has its own work counter in
+// memory the caller allocates zeroed; the last CTA to leave zeroes it
+// again, so launches on different streams never share a walk.
 
 #include <cuda_runtime.h>
 
@@ -160,7 +168,7 @@ struct ForceFoldPair {  // x y z [vx vy vz] mask pq [iv] -> fx fy fz
   }
 };
 
-struct ViscPair {  // x y z vx vy vz mask rho -> 3 (mu*mass applied outside)
+struct ViscPair {  // x y z vx vy vz mask rho -> 3 (mu*mass: the scale)
   static constexpr int kIn = 8, kOut = 3, kMask = 6, kRho = 7;
   float h, h2, cw;
   __device__ __forceinline__ void operator()(const float* o, const float* c,
@@ -179,7 +187,7 @@ struct ViscPair {  // x y z vx vy vz mask rho -> 3 (mu*mass applied outside)
   }
 };
 
-struct PressPqPair {  // x y z mask pq -> 3 (mass^2 applied outside)
+struct PressPqPair {  // x y z mask pq -> 3 (mass^2: the scale)
   static constexpr int kIn = 5, kOut = 3, kMask = 3, kPq = 4;
   float h2, inv_h, b;
   __device__ __forceinline__ void operator()(const float* o, const float* c,
@@ -521,7 +529,7 @@ int launch_active(const Pair& pair, const float* const* in,
 }
 
 // ---------------------------------------------------------------------------
-// The compacted body: K1, K4 and their gated forms (see the header).
+// The compacted body: K1, K2, K3, K4 and the gated K1/K4 (see the header).
 // ---------------------------------------------------------------------------
 
 // Tuning, each the faster of the variants tools/torch_sweep_variants.py
@@ -529,13 +537,42 @@ int launch_active(const Pair& pair, const float* const* in,
 // slower); no padding after a staged cell (a float4 of pad puts
 // neighbouring cells' candidates on other banks but costs a CTA per SM:
 // 5% slower); the candidate loop unrolled by 4 (overlaps independent
-// pairs; 2 was slower for density).
+// pairs; 2 was slower for density); a two-float4 candidate's halves in two
+// arrays, [half][cell][rank] (kInterleave false), not side by side.
 constexpr int kBatch = 8;       // own blocks per work fetch
 constexpr int kCellPad = 0;     // float4s of padding after each staged cell
+constexpr bool kInterleave = false;
 constexpr int kWarps = kBlock / 32;
 
-// Work counters of the four compacted sweeps: [sweep][fetch, CTAs done].
-__device__ unsigned int g_compact_work[4][2];
+// How the compacted body stages a candidate. Of the `kIn` input planes the
+// mask is at `kMask`; the others, in order, fold into `kVals` floats: the
+// pair functor's channels without its mask.
+template <class Pair>
+struct AsIs {
+  static constexpr int kIn = Pair::kIn, kMask = Pair::kMask,
+                       kVals = Pair::kIn - 1;
+  static __device__ __forceinline__ void fold(const float* raw, float* v) {
+#pragma unroll
+    for (int i = 0; i < kVals; ++i) v[i] = raw[i];
+  }
+};
+
+// K2: x y z [vx vy vz] mask rho press in; pq = press / max(rho, eps)^2 and
+// iv = 1 / max(rho, eps) folded per staged slot, a multiply and IEEE
+// divides rounded as ops/sph_sweep.py's _fold_force rounds them, so no
+// plane of pq or iv is built.
+template <bool kVisc>
+struct ForceFold {
+  static constexpr int kMask = ForceFoldPair<kVisc>::kMask, kIn = kMask + 3,
+                       kVals = ForceFoldPair<kVisc>::kIn - 1;
+  static __device__ __forceinline__ void fold(const float* raw, float* v) {
+#pragma unroll
+    for (int i = 0; i < kMask; ++i) v[i] = raw[i];
+    const float r = fmaxf(raw[kMask], kEps);
+    v[kMask] = raw[kMask + 1] / (r * r);
+    if constexpr (kVisc) v[kMask + 1] = 1.0f / r;
+  }
+};
 
 struct CompactGeom {
   long long n_items;   // nx * ny * (sub - 2) own blocks
@@ -544,14 +581,38 @@ struct CompactGeom {
   int ncw;             // window cells per stencil row: 128 / cap + 2
   int margin;          // slots staged before the own block: max(cap, 4)
   int w4;              // float4 chunks per stencil row
-  int slot;            // this sweep's row of g_compact_work
 };
 
-// A pair's channels but the mask, packed into one float4 in channel order;
-// the mask channel reads 1 (every staged candidate is occupied).
-template <class Pair>
-__device__ __forceinline__ void unpack(const float4 v, float* c) {
-  const float f[4] = {v.x, v.y, v.z, v.w};
+// Float4s per staged candidate: one for up to 4 values, two for up to 8.
+template <class Stage>
+__host__ __device__ constexpr int n_vec() { return (Stage::kVals + 3) / 4; }
+
+// Shared-memory float4 index of half `k` of the candidate at `cell`, `rank`
+// (cs = cap + kCellPad float4s per cell, n_cells = 9 * ncw).
+template <int NV>
+__device__ __forceinline__ int cand_at(int k, int cell, int rank, int cs,
+                                       int n_cells) {
+  if constexpr (kInterleave) return (cell * cs + rank) * NV + k;
+  return k * n_cells * cs + cell * cs + rank;
+}
+
+__device__ __forceinline__ float lane_of(const float4& a, int j) {
+  return j == 0 ? a.x : (j == 1 ? a.y : (j == 2 ? a.z : a.w));
+}
+
+// A staged candidate (NV float4s, the pair's channels but the mask, in
+// order) into the pair's channel array; the mask reads 1 (every staged
+// candidate is occupied).
+template <class Pair, int NV>
+__device__ __forceinline__ void unpack(const float4* q, float* c) {
+  float f[4 * NV];
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    f[4 * k] = q[k].x;
+    f[4 * k + 1] = q[k].y;
+    f[4 * k + 2] = q[k].z;
+    f[4 * k + 3] = q[k].w;
+  }
 #pragma unroll
   for (int i = 0; i < Pair::kIn - 1; ++i)
     c[i < Pair::kMask ? i : i + 1] = f[i];
@@ -560,23 +621,25 @@ __device__ __forceinline__ void unpack(const float4 v, float* c) {
 
 // One own block at `off` (row * row_len + lo): rank, stage, sum, write.
 // Starts and ends with every thread past a barrier.
-template <class Pair>
+template <class Pair, class Stage>
 __device__ __forceinline__ void compact_block(
-    const Pair& pair, const SweepArgs<Pair::kIn, Pair::kOut>& args,
+    const Pair& pair, const SweepArgs<Stage::kIn, Pair::kOut>& args,
     const CompactGeom& geo, float scale, long long off, float4* cand,
     int* cnt, long long* row_off, int* own_slot, float* own_mask,
     int* warp_count) {
-  constexpr int C = Pair::kIn;
+  constexpr int NV = n_vec<Stage>();
+  constexpr int kRaw = Stage::kIn - 1;     // input planes but the mask
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int cap = args.cap, cs = cap + kCellPad, ncw = geo.ncw;
+  const int n_cells = 9 * ncw;
   const long long row_len = static_cast<long long>(args.sub) * kBlock;
-  const float* mask = args.in[Pair::kMask];
+  const float* mask = args.in[Stage::kMask];
 
   const float own_m = mask[off + t];
   const bool occ = own_m > 0.0f;
   const unsigned bal = __ballot_sync(0xffffffffu, occ);
   if (lane == 0) warp_count[warp] = __popc(bal);
-  for (int i = t; i < 9 * ncw; i += kBlock) cnt[i] = 0;
+  for (int i = t; i < n_cells; i += kBlock) cnt[i] = 0;
   if (t < 9)
     row_off[t] = off - geo.margin +
                  static_cast<long long>((t / 3 - 1) * args.py + (t % 3 - 1)) *
@@ -597,34 +660,36 @@ __device__ __forceinline__ void compact_block(
   }
 
   // Stage: chunk e = t + i * 128 of the 9 * w4 float4 chunks is row s = e /
-  // w4, chunk w = e % w4, walked without a divide.
+  // w4, chunk w = e % w4, walked without a divide. One float4 load per
+  // input plane; each occupied slot in the window is folded and stored as
+  // NV float4s.
   const int w4 = geo.w4, skew = geo.margin - cap, win = kBlock + 2 * cap;
   const int dq = kBlock / w4, dr = kBlock - dq * w4;
   int s = t / w4, w = t - (t / w4) * w4;
   while (s < 9) {
     const long long g = row_off[s] + 4 * w;
     const float4 m4 = *reinterpret_cast<const float4*>(mask + g);
-    const float m[4] = {m4.x, m4.y, m4.z, m4.w};
-    float4 v[4];
-    {
-      float4 ch[4];
+    float4 ch[kRaw];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) ch[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-      for (int i = 0; i < C - 1; ++i)
-        ch[i] = *reinterpret_cast<const float4*>(
-            args.in[i < Pair::kMask ? i : i + 1] + g);
-      v[0] = make_float4(ch[0].x, ch[1].x, ch[2].x, ch[3].x);
-      v[1] = make_float4(ch[0].y, ch[1].y, ch[2].y, ch[3].y);
-      v[2] = make_float4(ch[0].z, ch[1].z, ch[2].z, ch[3].z);
-      v[3] = make_float4(ch[0].w, ch[1].w, ch[2].w, ch[3].w);
-    }
+    for (int i = 0; i < kRaw; ++i)
+      ch[i] = *reinterpret_cast<const float4*>(
+          args.in[i < Stage::kMask ? i : i + 1] + g);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int p = 4 * w + j - skew;           // slot in the stencil window
-      if (m[j] > 0.0f && p >= 0 && p < win) {
+      if (lane_of(m4, j) > 0.0f && p >= 0 && p < win) {
+        float raw[kRaw], v[4 * NV];
+#pragma unroll
+        for (int i = 0; i < kRaw; ++i) raw[i] = lane_of(ch[i], j);
+#pragma unroll
+        for (int i = Stage::kVals; i < 4 * NV; ++i) v[i] = 0.0f;
+        Stage::fold(raw, v);
         const int cell = s * ncw + (p >> geo.lcap);
-        cand[cell * cs + (p & (cap - 1))] = v[j];
+        const int rank = p & (cap - 1);
+#pragma unroll
+        for (int k = 0; k < NV; ++k)
+          cand[cand_at<NV>(k, cell, rank, cs, n_cells)] =
+              make_float4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
         atomicAdd(&cnt[cell], 1);
       }
     }
@@ -640,20 +705,30 @@ __device__ __forceinline__ void compact_block(
   if (t < n_own) {
     const int slot = own_slot[t];
     const int kw = (slot >> geo.lcap) + 1;     // own cell in the window
-    float o[C];
-    unpack<Pair>(cand[(4 * ncw + kw) * cs + (slot & (cap - 1))], o);
+    float o[Pair::kIn];
+    {
+      float4 q[NV];
+#pragma unroll
+      for (int k = 0; k < NV; ++k)
+        q[k] = cand[cand_at<NV>(k, 4 * ncw + kw, slot & (cap - 1), cs,
+                                n_cells)];
+      unpack<Pair, NV>(q, o);
+    }
     float acc[Pair::kOut];
 #pragma unroll
     for (int q = 0; q < Pair::kOut; ++q) acc[q] = 0.0f;
     for (int r = 0; r < 9; ++r) {
       for (int dz = 0; dz < 3; ++dz) {
         const int cell = r * ncw + kw - 1 + dz;
-        const float4* p = cand + cell * cs;
         const int n = cnt[cell];
 #pragma unroll 4
         for (int j = 0; j < n; ++j) {
-          float c[C];
-          unpack<Pair>(p[j], c);
+          float4 q[NV];
+#pragma unroll
+          for (int k = 0; k < NV; ++k)
+            q[k] = cand[cand_at<NV>(k, cell, j, cs, n_cells)];
+          float c[Pair::kIn];
+          unpack<Pair, NV>(q, c);
           pair(o, c, acc);
         }
       }
@@ -666,13 +741,17 @@ __device__ __forceinline__ void compact_block(
   __syncthreads();
 }
 
-template <class Pair, bool kGated>
+// `work` is this launch's counter [fetch, CTAs done], zero when the launch
+// starts; the last CTA to leave sets it to zero again.
+template <class Pair, bool kGated, class Stage>
 __global__ void __launch_bounds__(kBlock)
 compact_sweep_kernel(const Pair pair,
-                     const SweepArgs<Pair::kIn, Pair::kOut> args,
+                     const SweepArgs<Stage::kIn, Pair::kOut> args,
                      const CompactGeom geo, const ActiveGate gate,
-                     float scale) {
-  static_assert(Pair::kIn - 1 <= 4, "candidate channels must fit a float4");
+                     float scale, unsigned* work) {
+  static_assert(Stage::kVals == Pair::kIn - 1,
+                "the staged values are the pair's channels but the mask");
+  static_assert(Stage::kVals <= 8, "candidates must fit two float4s");
   extern __shared__ float4 smem4[];
   __shared__ long long item_off[kBatch];
   __shared__ long long row_off[9];
@@ -682,12 +761,11 @@ compact_sweep_kernel(const Pair pair,
   __shared__ unsigned fetch_s, keep_s;
 
   float4* cand = smem4;
-  int* cnt = reinterpret_cast<int*>(smem4 + 9 * geo.ncw *
-                                             (args.cap + kCellPad));
+  int* cnt = reinterpret_cast<int*>(
+      smem4 + n_vec<Stage>() * 9 * geo.ncw * (args.cap + kCellPad));
   const int t = threadIdx.x;
-  const float* mask = args.in[Pair::kMask];
+  const float* mask = args.in[Stage::kMask];
   const long long row_len = static_cast<long long>(args.sub) * kBlock;
-  unsigned* work = g_compact_work[geo.slot];
 
   for (;;) {
     if (t == 0) {
@@ -730,8 +808,9 @@ compact_sweep_kernel(const Pair pair,
     while (keep) {
       const int j = __ffs(keep) - 1;
       keep &= keep - 1u;
-      compact_block(pair, args, geo, scale, item_off[j], cand, cnt, row_off,
-                    own_slot, own_mask, warp_count);
+      compact_block<Pair, Stage>(pair, args, geo, scale, item_off[j], cand,
+                                 cnt, row_off, own_slot, own_mask,
+                                 warp_count);
     }
     __syncthreads();
   }
@@ -747,13 +826,29 @@ compact_sweep_kernel(const Pair pair,
 
 constexpr ActiveGate kNoGate{nullptr, 1, 1};
 
-template <class Pair, bool kGated>
+// The dynamic shared memory of one compacted instantiation at `cap`, set
+// as its limit, and how many of its CTAs fit on an SM.
+template <class Pair, bool kGated, class Stage>
+cudaError_t compact_occupancy(int cap, int* smem, int* per_sm) {
+  const int ncw = kBlock / cap + 2;
+  *smem = 9 * ncw * (n_vec<Stage>() * (cap + kCellPad) *
+                         static_cast<int>(sizeof(float4)) +
+                     static_cast<int>(sizeof(int)));
+  auto kernel = compact_sweep_kernel<Pair, kGated, Stage>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
+                                                       kBlock, *smem);
+}
+
+template <class Pair, bool kGated, class Stage = AsIs<Pair>>
 int launch_compact(const Pair& pair, const float* const* in,
                    float* const* out, int nx, int ny, int sub, int cap,
-                   float scale, int slot, const ActiveGate gate,
+                   float scale, unsigned* work, const ActiveGate gate,
                    void* stream) {
-  SweepArgs<Pair::kIn, Pair::kOut> args{};
-  for (int i = 0; i < Pair::kIn; ++i) args.in[i] = in[i];
+  SweepArgs<Stage::kIn, Pair::kOut> args{};
+  for (int i = 0; i < Stage::kIn; ++i) args.in[i] = in[i];
   for (int o = 0; o < Pair::kOut; ++o) args.out[o] = out[o];
   args.ny = ny;
   args.py = ny + 2;
@@ -766,89 +861,92 @@ int launch_compact(const Pair& pair, const float* const* in,
   geo.w4 = (kBlock + 2 * geo.margin) / 4;
   geo.n_items = static_cast<long long>(nx) * ny * (sub - 2);
   geo.n_fetch = static_cast<unsigned>((geo.n_items + kBatch - 1) / kBatch);
-  geo.slot = slot;
   if (geo.n_items <= 0) return static_cast<int>(cudaSuccess);
-  const int smem = 9 * geo.ncw * ((cap + kCellPad) *
-                                  static_cast<int>(sizeof(float4)) +
-                                  static_cast<int>(sizeof(int)));
-  auto kernel = compact_sweep_kernel<Pair, kGated>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, n_sm = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+  int smem = 0, dev = 0, n_sm = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = compact_occupancy<Pair, kGated, Stage>(cap, &smem, &per_sm)) !=
+          cudaSuccess ||
+      (err = cudaGetDevice(&dev)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, kBlock, smem)) != cudaSuccess)
+                                    dev)) != cudaSuccess)
     return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   long long grid = static_cast<long long>(per_sm) * n_sm;
   if (grid > geo.n_fetch) grid = geo.n_fetch;
+  auto kernel = compact_sweep_kernel<Pair, kGated, Stage>;
   kernel<<<static_cast<unsigned>(grid), kBlock, smem,
            static_cast<cudaStream_t>(stream)>>>(pair, args, geo, gate,
-                                                scale);
+                                                scale, work);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <class Pair>
 int launch_compact_active(const Pair& pair, const float* const* in,
                           float* const* out, int nx, int ny, int sub,
-                          int cap, float scale, int slot, const int* active,
-                          void* stream) {
+                          int cap, float scale, unsigned* work,
+                          const int* active, void* stream) {
   const int patch = ny < 8 ? ny : 8;
   const ActiveGate gate{active, (ny + patch - 1) / patch, patch};
   return launch_compact<Pair, true>(pair, in, out, nx, ny, sub, cap, scale,
-                                    slot, gate, stream);
+                                    work, gate, stream);
 }
 
 }  // namespace
 
 // C interface, one launcher per sweep. `in` and `out` are host arrays of
 // device pointers to contiguous float32 planes of shape (rows, sub, 128), in
-// the channel order of each functor above; outputs must be zero-filled by
-// the caller. Returns the cudaError_t of the launch.
+// the channel order of each functor above (K2: of its ForceFold); outputs
+// must be zero-filled by the caller. Returns the cudaError_t of the launch.
 //
-// The four compacted sweeps (density, prefolded pressure, and their gated
-// forms) also take `scale`, applied to every output as (acc * own_m) *
-// scale, and need a mask plane of 0 and 1 in which each cell's occupied
-// slots are its first ranks (as build_planes writes it); launches of one of
-// them must not run concurrently (they share a work counter).
+// The compacted sweeps (density, fused force in both forms, viscosity,
+// prefolded pressure, and the gated density and prefolded pressure) also
+// take `scale`, applied to every output as (acc * own_m) * scale, and
+// `work`, a device pointer to this launch's own counter: two uint32 words,
+// zero when the launch is enqueued, which the kernel leaves zero again. So
+// a counter may serve the launches of one stream in turn, and launches
+// with counters of their own may run at once on any streams. They need a
+// mask plane of 0 and 1 in which each cell's occupied slots are its first
+// ranks (as build_planes writes it).
 #define DFT_SWEEP_ARGS                                                    \
   const float* const* in, float* const* out, int nx, int ny, int sub, \
       int cap
 #define DFT_SWEEP_PASS in, out, nx, ny, sub, cap, stream
-#define DFT_COMPACT_PASS in, out, nx, ny, sub, cap, scale
+#define DFT_COMPACT_PASS in, out, nx, ny, sub, cap, scale, work
 
 extern "C" {
 
 int dft_density_sweep(DFT_SWEEP_ARGS, float h2, float a, float scale,
-                      void* stream) {
+                      unsigned* work, void* stream) {
   return launch_compact<DensityPair, false>(
-      DensityPair{h2, a}, DFT_COMPACT_PASS, 0, kNoGate, stream);
+      DensityPair{h2, a}, DFT_COMPACT_PASS, kNoGate, stream);
 }
 
 int dft_force_sweep(DFT_SWEEP_ARGS, float h, float h2, float b, float cw,
-                    float mass2, float mu_mass, void* stream) {
-  return launch(ForceFoldPair<true>{h, h2, b, cw, mass2, mu_mass},
-                DFT_SWEEP_PASS);
+                    float mass2, float mu_mass, float scale, unsigned* work,
+                    void* stream) {
+  return launch_compact<ForceFoldPair<true>, false, ForceFold<true>>(
+      ForceFoldPair<true>{h, h2, b, cw, mass2, mu_mass}, DFT_COMPACT_PASS,
+      kNoGate, stream);
 }
 
 int dft_force_p_sweep(DFT_SWEEP_ARGS, float h, float h2, float b,
-                      float mass2, void* stream) {
-  return launch(ForceFoldPair<false>{h, h2, b, 0.0f, mass2, 0.0f},
-                DFT_SWEEP_PASS);
+                      float mass2, float scale, unsigned* work,
+                      void* stream) {
+  return launch_compact<ForceFoldPair<false>, false, ForceFold<false>>(
+      ForceFoldPair<false>{h, h2, b, 0.0f, mass2, 0.0f}, DFT_COMPACT_PASS,
+      kNoGate, stream);
 }
 
-int dft_visc_sweep(DFT_SWEEP_ARGS, float h, float h2, float cw,
-                   void* stream) {
-  return launch(ViscPair{h, h2, cw}, DFT_SWEEP_PASS);
+int dft_visc_sweep(DFT_SWEEP_ARGS, float h, float h2, float cw, float scale,
+                   unsigned* work, void* stream) {
+  return launch_compact<ViscPair, false>(ViscPair{h, h2, cw},
+                                         DFT_COMPACT_PASS, kNoGate, stream);
 }
 
 int dft_press_pq_sweep(DFT_SWEEP_ARGS, float h2, float inv_h, float b,
-                       float scale, void* stream) {
+                       float scale, unsigned* work, void* stream) {
   return launch_compact<PressPqPair, false>(
-      PressPqPair{h2, inv_h, b}, DFT_COMPACT_PASS, 1, kNoGate, stream);
+      PressPqPair{h2, inv_h, b}, DFT_COMPACT_PASS, kNoGate, stream);
 }
 
 int dft_press_sweep(DFT_SWEEP_ARGS, float h, float h2, float b,
@@ -862,9 +960,10 @@ int dft_press_sweep(DFT_SWEEP_ARGS, float h, float h2, float b,
 #define DFT_ACTIVE_PASS in, out, nx, ny, sub, cap, active, stream
 
 int dft_density_active_sweep(DFT_SWEEP_ARGS, float h2, float a, float scale,
-                             const int* active, void* stream) {
-  return launch_compact_active(DensityPair{h2, a}, DFT_COMPACT_PASS, 2,
-                               active, stream);
+                             const int* active, unsigned* work,
+                             void* stream) {
+  return launch_compact_active(DensityPair{h2, a}, DFT_COMPACT_PASS, active,
+                               stream);
 }
 
 int dft_press_active_sweep(DFT_SWEEP_ARGS, float h, float h2, float b,
@@ -873,9 +972,10 @@ int dft_press_active_sweep(DFT_SWEEP_ARGS, float h, float h2, float b,
 }
 
 int dft_press_pq_active_sweep(DFT_SWEEP_ARGS, float h2, float inv_h, float b,
-                              float scale, const int* active, void* stream) {
+                              float scale, const int* active, unsigned* work,
+                              void* stream) {
   return launch_compact_active(PressPqPair{h2, inv_h, b}, DFT_COMPACT_PASS,
-                               3, active, stream);
+                               active, stream);
 }
 
 int dft_density_bwd_sweep(DFT_SWEEP_ARGS, float h2, float a, void* stream) {

@@ -30,11 +30,13 @@ over the same symmetric stencil, so it is a gather with no atomics. Its
 channels are the forward's plus the masked output cotangents ct_0..; its
 outputs are the gradients of every forward input but the mask, in order.
 `density_sum_bwd`, `press_sum_bwd`, `visc_sum_bwd` and `force_sum_bwd` run
-these adjoint sweeps directly. The fused `force_planes` runs on prefolded
+these adjoint sweeps directly. The fused `force_planes` pair reads prefolded
 pq = p / max(rho, eps)^2 and iv = 1 / max(rho, eps) channels, but its
-autograd inputs are rho and press, as the JAX custom_vjp's are: its backward
-(K7 of PERF.md) sweeps the adjoint of the unfolded pair, which is exactly
-mass^2 times the pressure adjoint plus mu*mass times the viscosity adjoint.
+inputs are rho and press, as the JAX custom_vjp's are: the kernel folds pq
+and iv as it stages each candidate, the plain version folds the planes
+first (`Sweep.fold`). Its backward (K7 of PERF.md) sweeps the adjoint of
+the unfolded pair, which is exactly mass^2 times the pressure adjoint plus
+mu*mass times the viscosity adjoint.
 `pressure_force_pq_planes` is forward only (in the JAX package too) and
 raises in backward: a gradient without its force term would be silently
 wrong.
@@ -54,26 +56,31 @@ Dispatch is by the device of the input planes, forward and backward alike:
 adjoint sweeps under the same names; they run on any device (chip_smoke.py
 holds each kernel against them on the card). Each CUDA launch adds one to its
 sweep's `launches` count (`SWEEPS`). Scales the JAX package applies outside
-its kernel (mass, mu*mass, mass^2) are applied here outside the kernel too, so
-Materials gradients flow through plain torch. Cotangents are masked before a
-backward sweep and every output after a sweep with `torch.where(mask > 0,
-out, 0)` as the JAX `_mask_where` does; slots the kernel does not compute,
-ghost rows included, read 0.
+its kernel (mass, mu*mass, mass^2) are applied here outside the kernel too
+when they are 0-d tensors, so Materials gradients flow through plain torch
+(the compact sweeps fold Python numbers, below). Cotangents are masked
+before a backward sweep and every output after a sweep_block sweep with
+`torch.where(mask > 0, out, 0)` as the JAX `_mask_where` does; slots the
+kernel does not compute, ghost rows included, read 0.
 
-The compact sweeps (K1 density, K4 prefolded pressure and their gated
-forms) run the compacted kernel body, and on the CUDA route leave two
-passes per output out of torch:
-  * the `_mask_where`: the kernel writes only slots whose mask is > 0 and
-    the rest keep the zeros the wrapper allocates, ghost rows and blocks
-    included, so the where would return its input bit for bit;
-  * the scale, when `mass` is a Python number: the kernel writes (acc *
-    own_m) * mass (K1) or * mass^2 (K4), the same two float32 roundings as
-    the multiply after the sweep. K1's backward scales the cotangent by
-    mass as that multiply's backward did, so gradients are unchanged. A
-    0-d tensor `mass` (traced Materials) is still applied in torch.
-The plain version applies both as torch passes, as before. The compacted
+The compact sweeps (K1 density, K2 fused force in both forms, K3
+viscosity, K4 prefolded pressure, and K1/K4 gated) run the compacted kernel
+body, and on the CUDA route leave passes out of torch:
+  * the `_mask_where` per output: the kernel writes only slots whose mask
+    is > 0 and the rest keep the zeros the wrapper allocates, ghost rows
+    and blocks included, so the where would return its input bit for bit;
+  * the scale per output, when its factors are Python numbers: the kernel
+    writes (acc * own_m) * mass (K1), * mass^2 (K4) or * mu * mass (K3),
+    the same two float32 roundings as the multiply after the sweep. The
+    backward scales the cotangents as that multiply's backward did, so
+    gradients are unchanged. A 0-d tensor factor (traced Materials) keeps
+    the scale in torch;
+  * K2's folds of pq and iv, two plane-sized passes and two planes.
+The plain version applies all of them as torch passes. The compacted
 kernel needs a mask of 0 and 1 whose occupied slots are each cell's first
-ranks, which is what `build_planes` writes.
+ranks, which is what `build_planes` writes. Each compacted launch gets its
+own zeroed two-word work counter, so launches on different streams may run
+at once.
 """
 
 from __future__ import annotations
@@ -331,14 +338,29 @@ def _force_bwd_pair(k: KernelCoeffs, mass: float, mu: float):
 # ---------------------------------------------------------------------------
 
 
+def _fold_force(ins: Planes, with_iv: bool) -> Planes:
+    """The fused force's per-slot folds pq = p / max(rho, eps)^2 (and
+    iv = 1 / max(rho, eps)), zero on empty slots: the plain version's; the
+    kernel folds each staged candidate with the same roundings."""
+    m = ins["mask"]
+    rho_c = torch.clamp(ins["rho"], min=_EPS)
+    out = dict(ins, pq=torch.where(m > 0, ins["press"] / (rho_c * rho_c),
+                                   0.0))
+    if with_iv:
+        out["iv"] = torch.where(m > 0, 1.0 / rho_c, 0.0)
+    return out
+
+
 @dataclasses.dataclass
 class Sweep:
-    """One instantiation of the stencil sweep: its channels, its C launcher
-    and its launch count (CUDA launches only). A `gated` sweep takes the
-    int32 activity grid as well (K10). A `compact` sweep runs the compacted
-    kernel body: its last constant is the scale the kernel's epilogue
-    applies, and its outputs are final (0 wherever the mask is not > 0, the
-    scale applied), so nothing is applied around the kernel."""
+    """One instantiation of the stencil sweep: its input channels, its C
+    launcher and its launch count (CUDA launches only). A `gated` sweep
+    takes the int32 activity grid as well (K10). A `compact` sweep runs the
+    compacted kernel body: its last constant is the scale the kernel's
+    epilogue applies, and its outputs are final (0 wherever the mask is not
+    > 0, the scale applied), so nothing is applied around the kernel.
+    `fold`, when given, builds the pair's channels from the input planes
+    for the plain version; the kernel folds as it stages."""
 
     name: str
     symbol: str
@@ -347,6 +369,7 @@ class Sweep:
     replaces: str
     gated: bool = False
     compact: bool = False
+    fold: Optional[Callable[[Planes], Planes]] = None
     launches: int = 0
 
 
@@ -356,13 +379,16 @@ _CT3 = ("ct_0", "ct_1", "ct_2")
 DENSITY = Sweep("density", "dft_density_sweep", ("x", "y", "z", "mask"), 1,
                 f"{_PALLAS}:473", compact=True)
 FORCE = Sweep("force", "dft_force_sweep",
-              ("x", "y", "z", "vx", "vy", "vz", "mask", "pq", "iv"), 3,
-              f"{_PALLAS}:593")
+              ("x", "y", "z", "vx", "vy", "vz", "mask", "rho", "press"), 3,
+              f"{_PALLAS}:593", compact=True,
+              fold=functools.partial(_fold_force, with_iv=True))
 FORCE_P = Sweep("force_p", "dft_force_p_sweep",
-                ("x", "y", "z", "mask", "pq"), 3, f"{_PALLAS}:593")
+                ("x", "y", "z", "mask", "rho", "press"), 3, f"{_PALLAS}:593",
+                compact=True,
+                fold=functools.partial(_fold_force, with_iv=False))
 VISC = Sweep("viscosity", "dft_visc_sweep",
              ("x", "y", "z", "vx", "vy", "vz", "mask", "rho"), 3,
-             f"{_PALLAS}:752")
+             f"{_PALLAS}:752", compact=True)
 PRESS_PQ = Sweep("pressure_pq", "dft_press_pq_sweep",
                  ("x", "y", "z", "mask", "pq"), 3, f"{_PALLAS}:825",
                  compact=True)
@@ -489,20 +515,23 @@ def _check_planes(ins: Sequence[torch.Tensor], spec: DenseCellSpec):
 def launch_kernel(sweep: Sweep, ins: Sequence[torch.Tensor],
                   outs: Sequence[torch.Tensor], spec: DenseCellSpec,
                   consts: Sequence[float],
-                  active: Optional[torch.Tensor] = None):
+                  active: Optional[torch.Tensor] = None,
+                  work: Optional[torch.Tensor] = None):
     """Launch `sweep`'s kernel on checked CUDA input planes (in its channel
     order) into the zero-filled output planes `outs`, on the current
-    stream, and count the launch. _sweep_cuda's launch; chip_smoke.py times
-    it alone."""
+    stream, and count the launch. A compact sweep takes `work`, its
+    launch's counter (two int32 words, zero, left zero by the kernel).
+    _sweep_cuda's launch; chip_smoke.py times it alone."""
     from dieselfluid_tpu_torch.ops._build import load_library
 
     if spec.nx * spec.ny >= 2 ** 31 or spec.sub - 2 > 65535:
         raise ValueError(f"domain too large for the sweep grid: {spec}")
-    gate = [active.data_ptr()] if sweep.gated else []
+    ptrs = ([active.data_ptr()] if sweep.gated else []) + (
+        [work.data_ptr()] if sweep.compact else [])
     fn = getattr(load_library(), sweep.symbol)
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
                    + [ctypes.c_float] * len(consts)
-                   + [ctypes.c_void_p] * (len(gate) + 1))
+                   + [ctypes.c_void_p] * (len(ptrs) + 1))
     fn.restype = ctypes.c_int
     with torch.cuda.device(ins[0].device):
         in_ptrs = (ctypes.c_void_p * len(ins))(*[p.data_ptr() for p in ins])
@@ -510,7 +539,7 @@ def launch_kernel(sweep: Sweep, ins: Sequence[torch.Tensor],
             *[o.data_ptr() for o in outs])
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(in_ptrs, out_ptrs, spec.nx, spec.ny, spec.sub,
-                 spec.capacity, *consts, *gate, stream)
+                 spec.capacity, *consts, *ptrs, stream)
     if err != 0:
         raise RuntimeError(f"{sweep.symbol} launch failed: cudaError {err}")
     sweep.launches += 1
@@ -519,25 +548,31 @@ def launch_kernel(sweep: Sweep, ins: Sequence[torch.Tensor],
 def _sweep_cuda(sweep: Sweep, ins: Sequence[torch.Tensor],
                 spec: DenseCellSpec, consts: Sequence[float],
                 active: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
-    with torch.cuda.device(ins[0].device):
+    dev = ins[0].device
+    with torch.cuda.device(dev):
         outs = [torch.zeros(spec.plane_shape, dtype=torch.float32,
-                            device=ins[0].device) for _ in range(sweep.n_out)]
-    launch_kernel(sweep, ins, outs, spec, consts, active)
+                            device=dev) for _ in range(sweep.n_out)]
+        work = (torch.zeros(2, dtype=torch.int32, device=dev)
+                if sweep.compact else None)
+    launch_kernel(sweep, ins, outs, spec, consts, active, work)
     return outs
 
 
 def _run_plain(sweep: Sweep, pair: Callable, ins: Planes,
                spec: DenseCellSpec, consts: Sequence[float],
                active: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
-    """The plain version on any device. A gated sweep runs the ungated one
-    and zeroes the rows whose canonical patch is inactive, as the kernel
-    leaves them. A compact sweep's outputs then get what its kernel's
-    epilogue gives: 0 wherever the mask is not > 0, then the scale (its last
-    constant), each as the torch pass the caller applied before."""
+    """The plain version on any device, on the planes of `sweep.fold` when
+    it has one. A gated sweep runs the ungated one and zeroes the rows
+    whose canonical patch is inactive, as the kernel leaves them. A compact
+    sweep's outputs then get what its kernel's epilogue gives: 0 wherever
+    the mask is not > 0, then the scale (its last constant), each as the
+    torch pass the caller applied before."""
     arrs = [ins[n] for n in sweep.in_names]
     _check_planes(arrs, spec)
-    outs = _sweep_plain(pair, dict(zip(sweep.in_names, arrs)), sweep.n_out,
-                        spec)
+    named = dict(zip(sweep.in_names, arrs))
+    if sweep.fold is not None:
+        named = sweep.fold(named)
+    outs = _sweep_plain(pair, named, sweep.n_out, spec)
     if sweep.gated:
         _check_active(active, spec, arrs[0].device)
         rows = act_rows_of(active, spec)
@@ -595,33 +630,21 @@ def _backward_sweep(run, spec: DenseCellSpec, adjoint: Op, ins: Planes,
     return [_mask_where(m, g) for g in run(sweep, pair, ins, spec, consts)]
 
 
-def _primal_names(fwd: Op, adjoint: Optional[Op]) -> Tuple[str, ...]:
-    """The autograd inputs of a sweep: its adjoint's input channels but the
-    cotangents (they are the forward's own, but for the fused force, whose
-    forward reads folds of rho and press), or the forward's without one."""
-    if adjoint is None:
-        return fwd[0].in_names
-    return tuple(n for n in adjoint[0].in_names if not n.startswith("ct_"))
-
-
 class _SweepFunction(torch.autograd.Function):
     """A masked forward sweep whose backward is its adjoint sweep, run by
     the same `run` (kernel on CUDA, plain on the CPU; plain anywhere for
-    `plain`). `fold`, when given, builds the forward's channels from the
-    autograd inputs (untracked). A compact sweep's outputs come masked and
-    scaled from `run`; its backward scales the cotangents by that scale
-    first. A sweep without an adjoint raises in backward."""
+    `plain`). The autograd inputs are the sweep's input channels, which are
+    its adjoint's but the cotangents. A compact sweep's outputs come masked
+    and scaled from `run`; its backward scales the cotangents by that
+    scale first. A sweep without an adjoint raises in backward."""
 
     @staticmethod
-    def forward(ctx, run, spec, fwd: Op, adjoint: Optional[Op], fold,
-                *arrs):
+    def forward(ctx, run, spec, fwd: Op, adjoint: Optional[Op], *arrs):
         sweep, pair, consts = fwd
-        ins = dict(zip(_primal_names(fwd, adjoint), arrs))
+        ins = dict(zip(sweep.in_names, arrs))
         ctx.set_materialize_grads(False)
         ctx.run, ctx.spec, ctx.fwd, ctx.adjoint = run, spec, fwd, adjoint
         ctx.save_for_backward(*arrs)
-        if fold is not None:
-            ins = fold(ins)
         outs = run(sweep, pair, ins, spec, consts)
         if sweep.compact:
             return tuple(outs)
@@ -637,7 +660,7 @@ class _SweepFunction(torch.autograd.Function):
                 "are forward-only in the JAX package too (ROADMAP B4, B11); "
                 "differentiate through materials= / unroll_for_grad=True, "
                 "which use the factored ungated sweeps")
-        names = _primal_names(ctx.fwd, ctx.adjoint)
+        names = sweep.in_names
         ins = dict(zip(names, ctx.saved_tensors))
         scale = ctx.fwd[2][-1] if sweep.compact else 1.0
         if scale != 1.0:
@@ -646,14 +669,14 @@ class _SweepFunction(torch.autograd.Function):
             cts = tuple(None if c is None else c * scale for c in cts)
         grads = iter(_backward_sweep(ctx.run, ctx.spec, ctx.adjoint, ins,
                                      cts))
-        return (None,) * 5 + tuple(None if n == "mask" else next(grads)
+        return (None,) * 4 + tuple(None if n == "mask" else next(grads)
                                    for n in names)
 
 
 def _apply(run, spec: DenseCellSpec, fwd: Op, adjoint: Optional[Op],
-           ins: Planes, fold=None):
-    return _SweepFunction.apply(run, spec, fwd, adjoint, fold,
-                                *[ins[n] for n in _primal_names(fwd, adjoint)])
+           ins: Planes):
+    return _SweepFunction.apply(run, spec, fwd, adjoint,
+                                *[ins[n] for n in fwd[0].in_names])
 
 
 def _density_ops(k: KernelCoeffs, scale: float = 1.0) -> Tuple[Op, Op]:
@@ -662,14 +685,15 @@ def _density_ops(k: KernelCoeffs, scale: float = 1.0) -> Tuple[Op, Op]:
             (DENSITY_BWD, _density_bwd_pair(k), c))
 
 
-def _kernel_scale(mass, power: int) -> float:
-    """The scale a compact sweep's epilogue applies: mass ** power when
-    `mass` is a Python number (the float32 multiply the caller did after
-    the sweep), 1.0 for a 0-d tensor, which the caller still applies in
-    torch so that a gradient reaches it."""
-    if isinstance(mass, torch.Tensor):
+def _kernel_scale(*factors) -> float:
+    """The scale a compact sweep's epilogue applies: the product of
+    `factors` when all are Python numbers (the float32 multiply the caller
+    did after the sweep; the product itself in double, as Python formed
+    it), 1.0 when one is a 0-d tensor: the caller still applies the
+    product in torch, so that a gradient reaches it."""
+    if any(isinstance(f, torch.Tensor) for f in factors):
         return 1.0
-    return float(mass) if power == 1 else float(mass) * float(mass)
+    return functools.reduce(lambda a, b: a * b, (float(f) for f in factors))
 
 
 def _press_ops(k: KernelCoeffs) -> Tuple[Op, Op]:
@@ -678,10 +702,11 @@ def _press_ops(k: KernelCoeffs) -> Tuple[Op, Op]:
     return (PRESS, _press_pair(k), c), (PRESS_BWD, _press_bwd_pair(k), c)
 
 
-def _visc_ops(k: KernelCoeffs) -> Tuple[Op, Op]:
+def _visc_ops(k: KernelCoeffs, scale: float = 1.0) -> Tuple[Op, Op]:
     h = float(k.h)
     c = (h, h * h, float(k.c))
-    return (VISC, _visc_pair(k), c), (VISC_BWD, _visc_bwd_pair(k), c)
+    return ((VISC, _visc_pair(k), c + (scale,)),
+            (VISC_BWD, _visc_bwd_pair(k), c))
 
 
 # ---------------------------------------------------------------------------
@@ -697,43 +722,29 @@ def _with(planes: Planes, **extra) -> Planes:
 
 def _density(run, planes: Planes, spec: DenseCellSpec, k: KernelCoeffs,
              mass) -> torch.Tensor:
-    (s,) = _apply(run, spec, *_density_ops(k, _kernel_scale(mass, 1)),
-                  planes)
+    (s,) = _apply(run, spec, *_density_ops(k, _kernel_scale(mass)), planes)
     return mass * s if isinstance(mass, torch.Tensor) else s
-
-
-def _fold_force(ins: Planes, with_iv: bool) -> Planes:
-    """The fused force's per-slot folds pq = p / max(rho, eps)^2 (and
-    iv = 1 / max(rho, eps)), zero on empty slots."""
-    m = ins["mask"]
-    rho_c = torch.clamp(ins["rho"], min=_EPS)
-    out = _with(ins, pq=torch.where(m > 0, ins["press"] / (rho_c * rho_c),
-                                    0.0))
-    if with_iv:
-        out["iv"] = torch.where(m > 0, 1.0 / rho_c, 0.0)
-    return out
 
 
 def _force_ops(k: KernelCoeffs, mass: float, mu: float) -> Tuple[Op, Op]:
     """The folded forward sweep and the adjoint of the unfolded pair; mass
-    and mu are baked into both kernels (mu == 0: the pressure-only forms)."""
+    and mu are baked into both kernels (mu == 0: the pressure-only forms),
+    so the forward's epilogue scale is 1."""
     h, b = float(k.h), float(k.b)
-    bwd_consts = (h, h * h, b, float(k.c), mass * mass, mu * mass)
+    consts = (h, h * h, b, float(k.c), mass * mass, mu * mass)
     if mu == 0.0:
-        return ((FORCE_P, _force_fold_pair(k, mass, mu),
-                 (h, h * h, b, mass * mass)),
-                (FORCE_P_BWD, _force_bwd_pair(k, mass, mu),
-                 (h, h * h, b, mass * mass)))
-    return ((FORCE, _force_fold_pair(k, mass, mu), bwd_consts),
-            (FORCE_BWD, _force_bwd_pair(k, mass, mu), bwd_consts))
+        consts = (h, h * h, b, mass * mass)
+        return ((FORCE_P, _force_fold_pair(k, mass, mu), consts + (1.0,)),
+                (FORCE_P_BWD, _force_bwd_pair(k, mass, mu), consts))
+    return ((FORCE, _force_fold_pair(k, mass, mu), consts + (1.0,)),
+            (FORCE_BWD, _force_bwd_pair(k, mass, mu), consts))
 
 
 def _force(run, planes: Planes, rho_plane: torch.Tensor,
            press_plane: torch.Tensor, spec: DenseCellSpec, k: KernelCoeffs,
            mass: float, mu: float):
     return _apply(run, spec, *_force_ops(k, mass, mu),
-                  _with(planes, rho=rho_plane, press=press_plane),
-                  fold=functools.partial(_fold_force, with_iv=mu != 0.0))
+                  _with(planes, rho=rho_plane, press=press_plane))
 
 
 def _pressure(run, planes: Planes, rho_plane: torch.Tensor,
@@ -747,9 +758,12 @@ def _pressure(run, planes: Planes, rho_plane: torch.Tensor,
 
 def _viscosity(run, planes: Planes, rho_plane: torch.Tensor,
                spec: DenseCellSpec, k: KernelCoeffs, mass, mu):
-    fx, fy, fz = _apply(run, spec, *_visc_ops(k),
+    scale = _kernel_scale(mu, mass)
+    fx, fy, fz = _apply(run, spec, *_visc_ops(k, scale),
                         _with(planes, rho=rho_plane))
     s = mu * mass
+    if not isinstance(s, torch.Tensor):
+        return fx, fy, fz
     return s * fx, s * fy, s * fz
 
 
@@ -760,7 +774,7 @@ def _pressure_pq(run, planes: Planes, pq_plane: torch.Tensor,
     if active is not None:
         sweep, run = PRESS_PQ_ACTIVE, functools.partial(run, active=active)
     fwd = (sweep, _press_pq_pair(k),
-           (h * h, 1.0 / h, float(k.b), _kernel_scale(mass, 2)))
+           (h * h, 1.0 / h, float(k.b), _kernel_scale(mass, mass)))
     fx, fy, fz = _apply(run, spec, fwd, None, _with(planes, pq=pq_plane))
     if not isinstance(mass, torch.Tensor):
         return fx, fy, fz
@@ -770,7 +784,7 @@ def _pressure_pq(run, planes: Planes, pq_plane: torch.Tensor,
 
 def _density_active(run, planes: Planes, spec: DenseCellSpec,
                     k: KernelCoeffs, mass, active) -> torch.Tensor:
-    (_, pair, c), _ = _density_ops(k, _kernel_scale(mass, 1))
+    (_, pair, c), _ = _density_ops(k, _kernel_scale(mass))
     (s,) = _apply(functools.partial(run, active=active), spec,
                   (DENSITY_ACTIVE, pair, c), None, planes)
     return mass * s if isinstance(mass, torch.Tensor) else s
@@ -826,8 +840,9 @@ def force_planes(planes: Planes, rho_plane: torch.Tensor,
                  press_plane: torch.Tensor, spec: DenseCellSpec,
                  k: KernelCoeffs, mass: float, mu: float):
     """(fx, fy, fz): symmetric pressure force + viscosity, with the per-slot
-    folds pq = p / max(rho, eps)^2 and iv = 1 / max(rho, eps) built outside
-    the sweep and mass, mu baked into the kernel. mu == 0 runs the
+    folds pq = p / max(rho, eps)^2 and iv = 1 / max(rho, eps) made as the
+    kernel stages each candidate (as torch passes before the plain
+    version) and mass, mu baked into the kernel. mu == 0 runs the
     pressure-only sweep, which reads no velocity planes. Differentiable in
     positions, velocities, rho and press (not in the static mass, mu): the
     backward sweeps the adjoint of the unfolded pair (K7)."""
@@ -845,17 +860,18 @@ def pressure_force_planes(planes: Planes, rho_plane: torch.Tensor,
 
 def viscosity_force_planes(planes: Planes, rho_plane: torch.Tensor,
                            spec: DenseCellSpec, k: KernelCoeffs, mass, mu):
-    """Laplacian viscosity force, mu * mass applied outside the sweep (both
-    may be 0-d tensors). Differentiable in positions, velocities, rho, mass
-    and mu."""
+    """Laplacian viscosity force scaled by mu * mass: in the kernel's
+    epilogue when both are Python numbers, in torch when either is a 0-d
+    tensor. Differentiable in positions, velocities, rho, mass and mu."""
     return _viscosity(_run, planes, rho_plane, spec, k, mass, mu)
 
 
 def pressure_force_pq_planes(planes: Planes, pq_plane: torch.Tensor,
                              spec: DenseCellSpec, k: KernelCoeffs, mass,
                              active: Optional[torch.Tensor] = None):
-    """Pressure force from a prefolded pq = press / rho_ff^2 plane; the
-    mass^2 scale applies outside the sweep. Forward only: its backward
+    """Pressure force from a prefolded pq = press / rho_ff^2 plane, scaled
+    by mass^2 (in the kernel's epilogue when `mass` is a Python number).
+    Forward only: its backward
     raises. `active` (int32, `active_patch_shape(spec)`) gates the sweep
     per (x, y-patch), K10: the columns of an inactive patch read 0."""
     return _pressure_pq(_run, planes, pq_plane, spec, k, mass, active)

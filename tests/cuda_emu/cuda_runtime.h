@@ -6,6 +6,7 @@
 // host's (rsqrtf is 1 / sqrtf), so it checks a kernel's logic, not its
 // rounding on the card.
 #pragma once
+#include <algorithm>
 #include <barrier>
 #include <cmath>
 #include <cstring>
@@ -117,33 +118,61 @@ inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 inline float fmaxf(float a, float b) { return std::fmax(a, b); }
 
 // kernel<<<grid, block, smem, stream>>>(...) becomes emu_launch(grid,
-// block, smem, [&] { kernel(...); }): every CTA in turn, its dynamic shared
-// memory filled with garbage first, as it may hold on the card.
-inline void emu_launch(dim3 grid, dim3 block, size_t smem,
-                       const std::function<void()>& fn) {
-  gridDim = grid;
-  blockDim = block;
-  std::vector<char> dyn(smem + 16);
-  emu_dyn_smem = dyn.data();
-  const int nt = static_cast<int>(block.x), nw = (nt + 31) / 32;
-  for (unsigned by = 0; by < grid.y; ++by) {
-    for (unsigned bx = 0; bx < grid.x; ++bx) {
-      std::barrier<> bb(nt);
-      emu_block_bar = &bb;
-      std::vector<std::unique_ptr<std::barrier<>>> wb;
-      for (int w = 0; w < nw; ++w) {
-        wb.emplace_back(new std::barrier<>(32));
-        emu_warp_bar[w] = wb.back().get();
-      }
-      std::memset(emu_dyn_smem, 0xff, smem);
-      std::vector<std::thread> th;
-      for (int t = 0; t < nt; ++t)
-        th.emplace_back([=, &fn] {
-          threadIdx = {static_cast<unsigned>(t), 0, 0};
-          blockIdx = {bx, by, 0};
-          fn();
-        });
-      for (auto& x : th) x.join();
-    }
+// block, smem, [=] { kernel(...); }): every CTA in turn, its dynamic shared
+// memory filled with garbage first, as it may hold on the card. While
+// `emu_deferred` is set, launches queue instead, and emu_flush() runs the
+// queued launches' CTAs in turns (CTA 0 of each, then CTA 1 of each, ...),
+// as launches on two streams may share the card.
+struct EmuLaunch {
+  dim3 grid, block;
+  size_t smem;
+  std::function<void()> fn;
+  std::vector<char> dyn;
+};
+inline bool emu_deferred = false;
+inline std::vector<EmuLaunch> emu_queue;
+
+inline void emu_run_cta(EmuLaunch& launch, unsigned bx, unsigned by) {
+  gridDim = launch.grid;
+  blockDim = launch.block;
+  emu_dyn_smem = launch.dyn.data();
+  const int nt = static_cast<int>(launch.block.x), nw = (nt + 31) / 32;
+  std::barrier<> bb(nt);
+  emu_block_bar = &bb;
+  std::vector<std::unique_ptr<std::barrier<>>> wb;
+  for (int w = 0; w < nw; ++w) {
+    wb.emplace_back(new std::barrier<>(32));
+    emu_warp_bar[w] = wb.back().get();
   }
+  std::memset(emu_dyn_smem, 0xff, launch.smem);
+  std::vector<std::thread> th;
+  const std::function<void()>& fn = launch.fn;
+  for (int t = 0; t < nt; ++t)
+    th.emplace_back([=, &fn] {
+      threadIdx = {static_cast<unsigned>(t), 0, 0};
+      blockIdx = {bx, by, 0};
+      fn();
+    });
+  for (auto& x : th) x.join();
+}
+
+inline void emu_launch(dim3 grid, dim3 block, size_t smem,
+                       std::function<void()> fn) {
+  EmuLaunch launch{grid, block, smem, std::move(fn),
+                   std::vector<char>(smem + 16)};
+  if (emu_deferred) {
+    emu_queue.push_back(std::move(launch));
+    return;
+  }
+  for (unsigned by = 0; by < grid.y; ++by)
+    for (unsigned bx = 0; bx < grid.x; ++bx) emu_run_cta(launch, bx, by);
+}
+
+inline void emu_flush() {
+  unsigned most = 0;
+  for (auto& l : emu_queue) most = std::max(most, l.grid.x * l.grid.y);
+  for (unsigned i = 0; i < most; ++i)
+    for (auto& l : emu_queue)
+      if (i < l.grid.x * l.grid.y) emu_run_cta(l, i % l.grid.x, i / l.grid.x);
+  emu_queue.clear();
 }

@@ -294,17 +294,20 @@ def test_gated_kernel_matches_plain_and_ungated(planes, name, kind):
 
 
 # --------------------------------------------------------------------------
-# The compacted body (K1, K4 and their gated forms) on edge cases
+# The compacted body (K1, K2 in both forms, K3, K4 and the gated K1/K4) on
+# edge cases, and on two streams at once
 # --------------------------------------------------------------------------
 
-COMPACT = ("density", "pressure_pq", "density_active", "pressure_pq_active")
+COMPACT = ("density", "pressure_pq", "force", "force_p", "viscosity",
+           "density_active", "pressure_pq_active")
 
 
 def _edge_planes(kind, cap, device, ny_cells=None):
     """Planes of `kind` on the card, binned with capacity `cap` at h = 0.25:
     'full' packs 4000 seeded points into the middle (cells full to
     capacity, the rest overflowing), 'lone' holds one particle, 'empty'
-    none, 'column' a seeded cloud in a box with `ny_cells` cells in y."""
+    none, 'column' a seeded cloud in a box with `ny_cells` cells in y; with
+    seeded pq, velocity, rho and press planes."""
     params = lattice_rest_density(0.125, FluidParams.for_spacing(0.125))
     rng = np.random.default_rng(21)
     hi_y = 1.0
@@ -321,9 +324,14 @@ def _edge_planes(kind, cap, device, ny_cells=None):
     spec = tc.DenseCellSpec.for_domain((-1.0, -1.0, -1.0), (1.0, hi_y, 1.0),
                                        params.h, capacity=cap)
     t = torch.from_numpy(pts.astype(np.float32)).to(device)
-    vals = {"x": t[:, 0], "y": t[:, 1], "z": t[:, 2],
-            "pq": torch.from_numpy(rng.uniform(0.0, 50.0, len(pts)).astype(
-                np.float32)).to(device)}
+    n = len(pts)
+    vals = {"x": t[:, 0], "y": t[:, 1], "z": t[:, 2]}
+    for c, v in (("pq", rng.uniform(0.0, 50.0, n)),
+                 ("vx", rng.normal(size=n)), ("vy", rng.normal(size=n)),
+                 ("vz", rng.normal(size=n)),
+                 ("rho", rng.uniform(0.9, 1.2, n) * params.d0),
+                 ("press", rng.uniform(0.0, 50.0, n))):
+        vals[c] = torch.from_numpy(v.astype(np.float32)).to(device)
     flat, valid, _ = tc.dense_indices(t, spec)
     return params, spec, tc.build_planes(vals, flat, valid, spec)
 
@@ -335,6 +343,13 @@ def _compact_call(name, params, spec, p, plain, active=None):
         return (fns.density_planes(p, spec, k, params.mass),)
     if name == "pressure_pq":
         return fns.pressure_force_pq_planes(p, p["pq"], spec, k, params.mass)
+    if name in ("force", "force_p"):
+        return fns.force_planes(p, p["rho"], p["press"], spec, k,
+                                params.mass,
+                                float(params.mu) if name == "force" else 0.0)
+    if name == "viscosity":
+        return fns.viscosity_force_planes(p, p["rho"], spec, k, params.mass,
+                                          float(params.mu))
     if name == "density_active":
         return (fns.density_planes_active(p, spec, k, params.mass, active),)
     return fns.pressure_force_pq_planes(p, p["pq"], spec, k, params.mass,
@@ -357,7 +372,7 @@ def _check_compact(name, params, spec, p, active=None):
 @pytest.mark.parametrize("cap", [16, 32])
 @pytest.mark.parametrize("kind", ["full", "lone", "empty"])
 def test_compact_kernels_on_edge_planes(cuda, kind, cap):
-    """The four compacted launchers against their plain versions on cells
+    """The seven compacted launchers against their plain versions on cells
     full to capacity, a lone particle and an all-empty plane (all 0), at
     the bench's and the CLI's capacities; the gated forms under an all-ones
     grid."""
@@ -390,6 +405,30 @@ def test_compact_gated_kernels_on_odd_patches(cuda, ny_cells, kind):
         for g, f in zip(got, full):
             assert torch.equal(g[rows], f[rows])
             assert not bool(g[~rows].any())
+
+
+@pytest.mark.parametrize("name", ["density", "force", "viscosity",
+                                  "pressure_pq"])
+def test_compact_launches_on_two_streams_at_once(cuda, name):
+    """Each compacted launch has its own work counter: one compacted sweep
+    on two plane sets, each on its own non-default stream, both streams
+    released together behind a device sleep, 5 times; each result equals
+    its set's call alone bit for bit."""
+    sets = [_edge_planes("full", 16, cuda), _edge_planes("column", 16, cuda,
+                                                          11)]
+    want = [_compact_call(name, *s, plain=False) for s in sets]
+    streams = [torch.cuda.Stream() for _ in sets]
+    torch.cuda.synchronize()
+    for _ in range(5):
+        torch.cuda._sleep(5_000_000)
+        got = []
+        for stream, s in zip(streams, sets):
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                got.append(_compact_call(name, *s, plain=False))
+        torch.cuda.synchronize()
+        for gs, ws in zip(got, want):
+            assert all(torch.equal(g, w) for g, w in zip(gs, ws)), name
 
 
 def test_density_gradient_through_compact_kernel_matches_cpu(planes):

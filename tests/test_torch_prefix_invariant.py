@@ -1,15 +1,18 @@
-"""The mask invariant the compacted sweep kernel (K1, K4 and their gated
-forms) relies on: every mask plane a main path hands a sweep holds only 0
-and 1, and in every cell its occupied slots are ranks 0..n-1. The kernel
-counts a cell's occupied slots and visits only that many of them.
+"""The mask invariant the compacted sweep kernel (K1, K2 in both forms,
+K3, K4 and the gated K1/K4) relies on: every mask plane a main path hands
+a sweep holds only 0 and 1, and in every cell its occupied slots are ranks
+0..n-1. The kernel counts a cell's occupied slots and visits only that
+many of them.
 
 Checked on the plane producers directly (build_planes after dense_indices,
 on a dam break and with cells forced to overflow; the boundary-extended
 binning) and, through a spy on the sweeps' dispatch, on every mask the
-solvers pass to a compact sweep: the per-step WCSPH and PCISPH steps (the
-correction loop's predicted planes, the column_skip loop's, the unrolled
-loop's scatter of predicted positions), and the resident WCSPH and PCISPH
-states over several skin > 0 steps between rebuilds.
+solvers pass to a compact sweep: the per-step WCSPH steps (static params,
+mu = 0, and Materials, which runs the factored pressure and viscosity) and
+PCISPH steps (the correction loop's predicted planes, the column_skip
+loop's, the unrolled loop's scatter of predicted positions), and the
+resident WCSPH and PCISPH states over several skin > 0 steps between
+rebuilds.
 """
 
 import numpy as np
@@ -131,13 +134,16 @@ def _check(masks, spec, names):
 def test_per_step_solvers_hand_prefix_masks(spy):
     params, s, spec = _setup()
     delta = compute_pci_delta(params, DX)
+    mats = Materials.from_params(params, CPU, requires_grad=True)
     tds.dense_wcsph_step(s, params, spec)
+    tds.dense_wcsph_step(s, params.replace(mu=0.0), spec)
+    tds.dense_wcsph_step(s, params, spec, materials=mats)
     tds.dense_pcisph_step(s, params, spec, delta, warm_start=True)
     tds.dense_pcisph_step(s, params, spec, delta, column_skip=True)
-    mats = Materials.from_params(params, CPU, requires_grad=True)
     tds.dense_pcisph_step(s, params, spec, delta, materials=mats,
                           unroll_for_grad=True, unroll_iters=2)
-    _check(spy, spec, ("density", "pressure_pq", "density_active",
+    _check(spy, spec, ("density", "force", "force_p", "viscosity",
+                       "pressure_pq", "density_active",
                        "pressure_pq_active"))
 
 
@@ -160,4 +166,4 @@ def test_resident_states_between_rebuilds_hand_prefix_masks(spy):
             ages.append(int(ps.rebuilds))
             assert prefix_violations(ps.planes["mask"], spec.capacity) == 0
         assert 0 < ages[-1] < 6, ages
-    _check(spy, spec, ("density", "pressure_pq"))
+    _check(spy, spec, ("density", "force", "viscosity", "pressure_pq"))

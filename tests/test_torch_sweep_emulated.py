@@ -5,16 +5,19 @@ __syncthreads and the warp collectives, CTAs one at a time on `emu_sms`
 emulated SMs).
 
 This runs the kernel's bookkeeping on the CPU: the work fetches and their
-self-resetting counter, the gate, the ballot ranking of own slots onto
-threads, the float4 staging walk and the per-cell counts. For K1 and K4,
-ungated and gated, on capacities 2 to 32, cells full to capacity, a lone
-particle, an empty plane and odd patch grids, the compacted launchers must
-give bit for bit what sweep_block (the body every other sweep runs, the one
-K1 and K4 ran before) gives with the mask and the scale applied after it,
-must stay within KERNEL_REL_TOL of the plain torch version, and must give
-the same again on a second launch. The arithmetic is the host's (rsqrtf is
-1 / sqrtf here), so the rounding on the card is the card-only tests' and
-chip_smoke.py's to check.
+per-launch, self-resetting counter, the gate, the ballot ranking of own
+slots onto threads, the float4 staging walk (one or two float4s a
+candidate, K2's folds of pq and iv) and the per-cell counts. For K1 and K4,
+ungated and gated, here, and for K2 in both forms and K3 in
+test_torch_sweep_emulated_wide.py, on capacities 2 to 32, cells full to
+capacity, a lone particle, an empty plane and odd patch grids, the
+compacted launchers must give bit for bit what sweep_block (the body the
+other sweeps run, the one these ran before) gives with the folds before it
+and the mask and the scale applied after it, must stay within
+KERNEL_REL_TOL of the plain torch version, and must give the same again on
+a second launch with the same counter and leave the counter zero. The
+arithmetic is the host's (rsqrtf is 1 / sqrtf here), so the rounding on
+the card is the card-only tests' and chip_smoke.py's to check.
 """
 
 import ctypes
@@ -39,11 +42,28 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parent.parent
 DX = 0.125
 
-# sweep_block's launchers for K1 and K4, which the library no longer
-# exports, appended to the source so that its templates are in scope.
+# sweep_block's launchers for K1, K2 (both forms), K3 and K4, which the
+# library no longer exports, and the emulator's controls, appended to the
+# source so that its templates are in scope.
 SHIM = """
 extern "C" {
 void emu_set_sms(int n) { emu_sms = n; }
+void emu_defer(int on) { emu_deferred = on != 0; }
+void emu_run_deferred() { emu_flush(); }
+int emu_block_force(DFT_SWEEP_ARGS, float h, float h2, float b, float cw,
+                    float mass2, float mu_mass, void* stream) {
+  return launch(ForceFoldPair<true>{h, h2, b, cw, mass2, mu_mass},
+                DFT_SWEEP_PASS);
+}
+int emu_block_force_p(DFT_SWEEP_ARGS, float h, float h2, float b,
+                      float mass2, void* stream) {
+  return launch(ForceFoldPair<false>{h, h2, b, 0.0f, mass2, 0.0f},
+                DFT_SWEEP_PASS);
+}
+int emu_block_visc(DFT_SWEEP_ARGS, float h, float h2, float cw,
+                   void* stream) {
+  return launch(ViscPair{h, h2, cw}, DFT_SWEEP_PASS);
+}
 int emu_block_density(DFT_SWEEP_ARGS, float h2, float a, void* stream) {
   return launch(DensityPair{h2, a}, DFT_SWEEP_PASS);
 }
@@ -69,7 +89,7 @@ def emulated_source(src: str) -> str:
     def launch(m):
         grid, block, smem = m.group(2).split(",")[:3]
         return (f"emu_launch(dim3({grid}), dim3({block}), {smem}, "
-                f"[&] {{ {m.group(1)}({m.group(3)}); }});")
+                f"[=] {{ {m.group(1)}({m.group(3)}); }});")
 
     out, n = re.subn(r"(\w+)<<<(.*?)>>>\((.*?)\);", launch, src, flags=re.S)
     assert n == 2, n
@@ -99,32 +119,47 @@ def lib(tmp_path_factory):
     return ctypes.CDLL(str(so))
 
 
-def _call(lib, sym, ins, n_out, spec, consts, active=None):
+def _call(lib, sym, ins, n_out, spec, consts, active=None, work=None):
+    """Outputs of launcher `sym`; a compacted one (given `work`, its
+    counter) must leave the counter zero unless launches are deferred."""
     fn = getattr(lib, sym)
-    gate = [active.data_ptr()] if active is not None else []
+    ptrs = ([active.data_ptr()] if active is not None else []) + (
+        [work.data_ptr()] if work is not None else [])
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
                    + [ctypes.c_float] * len(consts)
-                   + [ctypes.c_void_p] * (len(gate) + 1))
+                   + [ctypes.c_void_p] * (len(ptrs) + 1))
     fn.restype = ctypes.c_int
     outs = [torch.zeros(spec.plane_shape) for _ in range(n_out)]
-    ptrs = (ctypes.c_void_p * n_out)(*[o.data_ptr() for o in outs])
+    out_ptrs = (ctypes.c_void_p * n_out)(*[o.data_ptr() for o in outs])
     in_ptrs = (ctypes.c_void_p * len(ins))(*[p.data_ptr() for p in ins])
-    assert fn(in_ptrs, ptrs, spec.nx, spec.ny, spec.sub, spec.capacity,
-              *consts, *gate, None) == 0
+    assert fn(in_ptrs, out_ptrs, spec.nx, spec.ny, spec.sub, spec.capacity,
+              *consts, *ptrs, None) == 0
     return outs
 
 
+def _counter():
+    return torch.zeros(2, dtype=torch.int32)
+
+
 def _planes(pts, cap, hi_y=1.0, seed=0):
+    """Planes of x y z and seeded pq, velocities, rho and press."""
     params = lattice_rest_density(DX, FluidParams.for_spacing(DX))
     spec = tc.DenseCellSpec.for_domain((-1.0, -1.0, -1.0), (1.0, hi_y, 1.0),
                                        params.h, capacity=cap)
     t = torch.from_numpy(np.asarray(pts, np.float32).reshape(-1, 3))
-    pq = np.random.default_rng(seed).uniform(0.0, 50.0, t.shape[0])
+    n = t.shape[0]
+    rng = np.random.default_rng(seed)
+    vals = {"x": t[:, 0], "y": t[:, 1], "z": t[:, 2],
+            "pq": rng.uniform(0.0, 50.0, n)}
+    for c in ("vx", "vy", "vz"):
+        vals[c] = rng.normal(size=n)
+    vals["rho"] = rng.uniform(0.9, 1.2, n) * params.d0
+    vals["press"] = rng.uniform(0.0, 50.0, n)
+    vals = {c: v if isinstance(v, torch.Tensor)
+            else torch.from_numpy(v.astype(np.float32))
+            for c, v in vals.items()}
     flat, valid, _ = tc.dense_indices(t, spec)
-    planes = tc.build_planes({"x": t[:, 0], "y": t[:, 1], "z": t[:, 2],
-                              "pq": torch.from_numpy(pq.astype(np.float32))},
-                             flat, valid, spec)
-    return params, spec, planes
+    return params, spec, tc.build_planes(vals, flat, valid, spec)
 
 
 def _dam(cap):
@@ -166,10 +201,11 @@ def _compare(lib, params, spec, p, active=None):
     gated = active is not None
     suffix = "_active" if gated else ""
     m = p["mask"] > 0
+    wd, wq = _counter(), _counter()
     runs = {
         "density": (
             [_call(lib, f"dft_density{suffix}_sweep", d_in, 1, spec,
-                   cd + (sd,), active) for _ in range(2)],
+                   cd + (sd,), active, wd) for _ in range(2)],
             [torch.where(m, o, 0.0) * sd for o in _call(
                 lib, f"emu_block_density{suffix}", d_in, 1, spec, cd,
                 active)],
@@ -177,12 +213,17 @@ def _compare(lib, params, spec, p, active=None):
              if gated else sw.plain.density_planes(p, spec, k, mass)]),
         "pressure_pq": (
             [_call(lib, f"dft_press_pq{suffix}_sweep", q_in, 3, spec,
-                   cq + (sq,), active) for _ in range(2)],
+                   cq + (sq,), active, wq) for _ in range(2)],
             [torch.where(m, o, 0.0) * sq for o in _call(
                 lib, f"emu_block_press_pq{suffix}", q_in, 3, spec, cq,
                 active)],
             list(sw.plain.pressure_force_pq_planes(p, p["pq"], spec, k, mass,
                                                    active=active)))}
+    _check_runs(runs, m)
+    assert not bool(wd.any()) and not bool(wq.any())
+
+
+def _check_runs(runs, m):
     for name, ((got, again), block, plain) in runs.items():
         for g, a, b, w in zip(got, again, block, plain):
             assert torch.equal(g, a), name              # the counter reset

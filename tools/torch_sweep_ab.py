@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""K1 (density) and K4 (prefolded pressure) of two checkouts of the port, on
-the same seeded 1M planes, in turns, on one card.
+"""The compacted sweeps of two checkouts of the port, on the same seeded 1M
+planes, in turns, on one card: K1 (density), K4 (prefolded pressure), K2
+(the fused force, with mu and at mu = 0) and K3 (viscosity).
 
     python3 tools/torch_sweep_ab.py ROOT_A ROOT_B [--pairs N]
 
 Each side runs in a fresh process from its own root (this file's worker,
 importing that root's package): the bench's 1M dam break (chip_smoke's
 bench_setup, n3=100, capacity 16) with its positions jittered by +-0.2 dx
-from a numpy seed and a seeded pq plane, binned by that root's cellops.
-Per side it times the public calls density_planes and
-pressure_force_pq_planes, ungated and gated (the all-ones and chip_smoke's
-seeded 25.5% activity grid): the call (CUDA events, median of 20 after 2
+from a numpy seed and seeded pq, velocity, rho and press planes, binned by
+that root's cellops. Per side it times the public calls density_planes
+and pressure_force_pq_planes, ungated and gated (the all-ones and
+chip_smoke's seeded 25.5% activity grid), force_planes (the bench's mu and
+0) and viscosity_force_planes: the call (CUDA events, median of 20 after 2
 warm-ups) and, under torch.profiler over 10 calls, the device time of the
 sweep kernels alone and of everything else the call runs (memsets, the
 wrapper's torch passes). The order is A B B A per pair. The first run of
@@ -30,12 +32,15 @@ import sys
 import numpy as np
 
 OUT_DIR = "build/sweep_ab"
+# The ungated calls whose outputs the two sides must share, in this order.
+SAVED = ("density", "pressure_pq", "force", "force_p", "viscosity")
 
 
 def seeded_planes(dev):
-    """(params, spec, planes with x y z mask pq, KernelCoeffs): the bench's
-    1M dam break jittered by +-0.2 dx (numpy seed 5), with a seeded pq,
-    binned by the imported package's cellops."""
+    """(params, spec, planes with x y z mask pq vx vy vz rho press,
+    KernelCoeffs): the bench's 1M dam break jittered by +-0.2 dx (numpy
+    seed 5), with seeded pq, velocities N(0, 0.5), rho in d0 * [0.95, 1.1]
+    and press in [0, 50], binned by the imported package's cellops."""
     import torch
 
     import chip_smoke as cs
@@ -47,12 +52,18 @@ def seeded_planes(dev):
     rng = np.random.default_rng(5)
     pos = state.pos.cpu().numpy() + rng.uniform(
         -0.2 * dx, 0.2 * dx, size=tuple(state.pos.shape)).astype(np.float32)
-    pq = rng.uniform(0.0, 1e-2, size=pos.shape[0]).astype(np.float32)
+    n = pos.shape[0]
+    pq = rng.uniform(0.0, 1e-2, size=n).astype(np.float32)
+    vel = rng.normal(scale=0.5, size=(n, 3)).astype(np.float32)
+    rho = (rng.uniform(0.95, 1.1, size=n) * params.d0).astype(np.float32)
+    press = rng.uniform(0.0, 50.0, size=n).astype(np.float32)
     t = torch.from_numpy(pos).to(dev)
+    vals = {"x": t[:, 0], "y": t[:, 1], "z": t[:, 2]}
+    for c, v in (("pq", pq), ("vx", vel[:, 0]), ("vy", vel[:, 1]),
+                 ("vz", vel[:, 2]), ("rho", rho), ("press", press)):
+        vals[c] = torch.from_numpy(np.ascontiguousarray(v)).to(dev)
     flat, valid, _ = tc.dense_indices(t, spec)
-    planes = tc.build_planes({"x": t[:, 0], "y": t[:, 1], "z": t[:, 2],
-                              "pq": torch.from_numpy(pq).to(dev)},
-                             flat, valid, spec)
+    planes = tc.build_planes(vals, flat, valid, spec)
     return params, spec, planes, KernelCoeffs.build(params.h)
 
 
@@ -68,11 +79,18 @@ def worker(root: str, save: str) -> int:
     dev = torch.device("cuda", 0)
     params, spec, planes, k = seeded_planes(dev)
     grids = cs.activity_grids(spec, dev, 12)
-    mass = params.mass
+    mass, mu = params.mass, float(params.mu)
+    rho, press = planes["rho"], planes["press"]
     calls = {
         "density": lambda: (sw.density_planes(planes, spec, k, mass),),
         "pressure_pq": lambda: sw.pressure_force_pq_planes(
-            planes, planes["pq"], spec, k, mass)}
+            planes, planes["pq"], spec, k, mass),
+        "force": lambda: sw.force_planes(planes, rho, press, spec, k, mass,
+                                         mu),
+        "force_p": lambda: sw.force_planes(planes, rho, press, spec, k,
+                                           mass, 0.0),
+        "viscosity": lambda: sw.viscosity_force_planes(planes, rho, spec, k,
+                                                       mass, mu)}
     for g in ("ones", "quarter"):
         calls[f"density_active.{g}"] = (
             lambda a=grids[g]: (sw.density_planes_active(planes, spec, k,
@@ -100,7 +118,7 @@ def worker(root: str, save: str) -> int:
         res[name] = {"call_ms": call_ms, "kernel_ms": kern / 10 / 1e3,
                      "other_device_ms": other / 10 / 1e3}
     if save:
-        outs = calls["density"]() + tuple(calls["pressure_pq"]())
+        outs = [o for name in SAVED for o in calls[name]()]
         torch.save([o.cpu() for o in outs], save)
     print(json.dumps(res), flush=True)
     return 0
@@ -123,7 +141,7 @@ def compare(path_a: str, path_b: str) -> dict:
     import torch
 
     a, b = torch.load(path_a), torch.load(path_b)
-    names = ["density", "pq_x", "pq_y", "pq_z"]
+    names = ["density"] + [f"{s}_{c}" for s in SAVED[1:] for c in "xyz"]
     out = {}
     for n, x, y in zip(names, a, b):
         d = (x - y).abs()

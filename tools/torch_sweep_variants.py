@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
-"""Variants of the compacted sweep body (K1, K4) against each other, in one
-process on one card.
+"""Variants of the compacted sweep body (K1, K4, K2 in both forms, K3)
+against each other, in one process on one card.
 
     python3 tools/torch_sweep_variants.py [--reps 20] [--rounds 2]
 
 Builds csrc/sph_sweep.cu once per variant, with its tuning choices set
-(kCellPad: the float4 pad per staged cell, which moves neighbouring cells'
-candidates onto other banks but costs shared memory; kBatch: the own blocks
-per work fetch; unroll: the `#pragma unroll` factor of the candidate loop,
-which lets the compiler overlap independent pairs), each with its own nvcc, all
-started together, into build/variants/. Then, on torch_sweep_ab.py's seeded 1M planes, times each
-variant's dft_density_sweep and dft_press_pq_sweep launch alone (CUDA
-events around `reps` launches into preallocated zeroed planes), the
-variants in turns (forward then backward order, `rounds` times), and checks
-that every variant writes the committed source's outputs bit for bit. Also times the
+(kInterleave: a two-float4 candidate's halves side by side instead of in
+two arrays; kBatch: the own blocks per work fetch; unroll: the `#pragma
+unroll` factor of the candidate loop, which lets the compiler overlap
+independent pairs), each with its own nvcc, all started together, into
+build/variants/, each with an appended query of its compacted kernels'
+CTAs per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the dynamic
+shared memory its launcher asks for) at capacities 16 and 32. Then, on
+torch_sweep_ab.py's seeded 1M planes, times each variant's compacted
+launchers alone (CUDA events around `reps` launches into preallocated
+zeroed planes, one zeroed work counter each), the variants in turns
+(forward then backward order, `rounds` times), and checks that every
+variant writes the committed source's outputs bit for bit. Also times the
 passes the wrapper does or no longer does around a launch: the zero-filled
 allocation of one plane (its memset), and a where and a scale over one
 plane. Prints one JSON line.
@@ -37,17 +40,42 @@ sys.path.insert(0, str(ROOT / "tools"))
 import numpy as np  # noqa: E402
 
 # name -> settings; "committed" is the source as it is (kBatch 8, kCellPad
-# 0, the candidate loop unrolled by 4); unroll None drops the pragma (the
-# compiler's choice), as the first compacted kernel had it.
+# 0, kInterleave false, the candidate loop unrolled by 4); unroll None
+# drops the pragma (the compiler's choice).
 VARIANTS = {"committed": {},
-            "batch16_pad1_nopragma": {"kBatch": 16, "kCellPad": 1,
-                                      "unroll": None},
-            "batch16_pad0_nopragma": {"kBatch": 16, "unroll": None},
-            "batch16_pad0_unroll4": {"kBatch": 16},
-            "batch8_pad0_unroll2": {"unroll": 2},
-            "batch8_pad1_unroll4": {"kCellPad": 1}}
+            "interleave": {"kInterleave": "true"},
+            "unroll2": {"unroll": 2},
+            "batch16": {"kBatch": 16}}
 CAND_UNROLL = re.compile(r"^#pragma unroll 4\n( *for \(int j = 0; j < n; "
                          r"\+\+j\) \{)$", re.M)
+# The compacted instantiations, in the order of OCCUPANCY's switch.
+COMPACT = ("density", "pressure_pq", "force", "force_p", "viscosity",
+           "density_active", "pressure_pq_active")
+OCCUPANCY = """
+extern "C" int tool_ctas_per_sm(int which, int cap, int* smem) {
+  int per_sm = -1;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (which) {
+    case 0: err = compact_occupancy<DensityPair, false, AsIs<DensityPair>>(
+        cap, smem, &per_sm); break;
+    case 1: err = compact_occupancy<PressPqPair, false, AsIs<PressPqPair>>(
+        cap, smem, &per_sm); break;
+    case 2: err = compact_occupancy<ForceFoldPair<true>, false,
+                                    ForceFold<true>>(cap, smem, &per_sm);
+      break;
+    case 3: err = compact_occupancy<ForceFoldPair<false>, false,
+                                    ForceFold<false>>(cap, smem, &per_sm);
+      break;
+    case 4: err = compact_occupancy<ViscPair, false, AsIs<ViscPair>>(
+        cap, smem, &per_sm); break;
+    case 5: err = compact_occupancy<DensityPair, true, AsIs<DensityPair>>(
+        cap, smem, &per_sm); break;
+    case 6: err = compact_occupancy<PressPqPair, true, AsIs<PressPqPair>>(
+        cap, smem, &per_sm); break;
+  }
+  return err == cudaSuccess ? per_sm : -static_cast<int>(err);
+}
+"""
 
 
 def variant_source(src: str, settings: dict) -> str:
@@ -56,11 +84,11 @@ def variant_source(src: str, settings: dict) -> str:
             pragma = "" if v is None else f"#pragma unroll {v}\n"
             src, n = CAND_UNROLL.subn(lambda m: pragma + m.group(1), src)
         else:
-            src, n = re.subn(rf"constexpr int {c} = \d+;",
-                             f"constexpr int {c} = {v};", src)
+            src, n = re.subn(rf"constexpr (int|bool) {c} = [^;]+;",
+                             rf"constexpr \g<1> {c} = {v};", src)
         if n != 1:
             raise RuntimeError(f"{c} not found once in the source")
-    return src
+    return src + OCCUPANCY
 
 
 def build_variants() -> dict:
@@ -110,33 +138,56 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     libs, ptxas = build_variants()
     params, spec, planes, k = seeded_planes(dev)
-    h = float(k.h)
+    h, mass, mu = float(k.h), float(params.mass), float(params.mu)
+    vel = ("x", "y", "z", "vx", "vy", "vz", "mask")
     sweeps = {
         "density": ("dft_density_sweep", ("x", "y", "z", "mask"), 1,
-                    (h * h, float(k.a), float(params.mass))),
+                    (h * h, float(k.a), mass)),
         "pressure_pq": ("dft_press_pq_sweep", ("x", "y", "z", "mask", "pq"),
-                        3, (h * h, 1.0 / h, float(k.b),
-                            float(params.mass) ** 2))}
+                        3, (h * h, 1.0 / h, float(k.b), mass * mass)),
+        "force": ("dft_force_sweep", vel + ("rho", "press"), 3,
+                  (h, h * h, float(k.b), float(k.c), mass * mass, mu * mass,
+                   1.0)),
+        "force_p": ("dft_force_p_sweep",
+                    ("x", "y", "z", "mask", "rho", "press"), 3,
+                    (h, h * h, float(k.b), mass * mass, 1.0)),
+        "viscosity": ("dft_visc_sweep", vel + ("rho",), 3,
+                      (h, h * h, float(k.c), mu * mass))}
     stream = torch.cuda.current_stream().cuda_stream
 
     def launcher(lib, sweep):
         sym, names, n_out, consts = sweeps[sweep]
         fn = getattr(lib, sym)
         fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-                       + [ctypes.c_float] * len(consts) + [ctypes.c_void_p])
+                       + [ctypes.c_float] * len(consts)
+                       + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
         outs = [torch.zeros(spec.plane_shape, device=dev)
                 for _ in range(n_out)]
+        work = torch.zeros(2, dtype=torch.int32, device=dev)
         ins = (ctypes.c_void_p * len(names))(
             *[planes[n].data_ptr() for n in names])
         ptrs = (ctypes.c_void_p * n_out)(*[o.data_ptr() for o in outs])
 
         def go():
             err = fn(ins, ptrs, spec.nx, spec.ny, spec.sub, spec.capacity,
-                     *consts, stream)
+                     *consts, work.data_ptr(), stream)
             if err != 0:
                 raise RuntimeError(f"{sym} failed: cudaError {err}")
         return go, outs
+
+    def occupancy(lib) -> dict:
+        """name -> {cap: [CTAs per SM, dynamic shared bytes]}."""
+        fn = lib.tool_ctas_per_sm
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        out = {}
+        for i, name in enumerate(COMPACT):
+            for cap in (16, 32):
+                smem = ctypes.c_int(0)
+                out.setdefault(name, {})[cap] = [
+                    fn(i, cap, ctypes.byref(smem)), smem.value]
+        return out
 
     def timed(go) -> float:
         go()
@@ -169,6 +220,7 @@ def main() -> int:
     print(json.dumps({
         "card": cs.card_line(), "reps": args.reps, "rounds": args.rounds,
         "variants": VARIANTS, "ptxas": ptxas,
+        "ctas_per_sm": {v: occupancy(libs[v]) for v in VARIANTS},
         "kernel_ms": {f"{v}.{s}": {"median": float(np.median(t)),
                                    "min": min(t), "max": max(t)}
                       for (v, s), t in times.items()},
