@@ -15,8 +15,8 @@ Phases, each of which raises (and so exits nonzero) on failure:
      gated sweeps of K10 under three seeded activity grids (all ones,
      about a quarter of the patches, all zeros, whose outputs must be all
      0), each also bitwise equal to its ungated kernel on the active
-     occupied rows; and K1 and K2 on two streams at once, over that state
-     and the next step's, each bit for bit its call alone (every
+     occupied rows; and K1, K2 and K8 on two streams at once, over that
+     state and the next step's, each bit for bit its call alone (every
      compacted launch has its own work counter);
   4. the tile rasterizer kernels K11 and K12, 6 and 9 outputs, against
      their plain versions on a 256x144 frame (RASTER_REL_TOL,
@@ -434,16 +434,17 @@ def check_kernels_small(device) -> dict:
 
 
 def check_two_streams(sets, spec, params, reps: int = 5):
-    """Each compacted launch has its own work counter: K1's and K2's public
-    calls on two plane sets, each set on its own non-default stream, both
-    streams held behind one device sleep so that the two calls start
-    together, `reps` times; each result must equal its set's call alone on
-    the current stream bit for bit."""
+    """Each compacted launch has its own work counter: K1's, K2's and K8's
+    public calls (K8 with seeded cotangents) on two plane sets, each set on
+    its own non-default stream, both streams held behind one device sleep
+    so that the two calls start together, `reps` times; each result must
+    equal its set's call alone on the current stream bit for bit."""
     import torch
 
-    calls = [sweep_calls(p, spec, params, False, None) for p in sets]
+    cts = seeded_cotangents(spec, sets[0]["x"].device, 5)
+    calls = [sweep_calls(p, spec, params, False, cts) for p in sets]
     streams = [torch.cuda.Stream() for _ in sets]
-    for name in ("density", "force"):
+    for name in ("density", "force", "pressure_bwd"):
         want = [c[name]() for c in calls]
         torch.cuda.synchronize()
         same = 0

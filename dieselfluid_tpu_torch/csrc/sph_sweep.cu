@@ -8,18 +8,20 @@
 //                      without the viscosity term (mu == 0)
 //   viscosity          _visc_pair        (pallas_sph.py:729)
 //   prefolded pressure _press_pq_pair    (pallas_sph.py:806)
-//   pressure           _press_pair       (pallas_sph.py:660, `_press_sum`)
+//   pressure           _press_pair       (pallas_sph.py:660, `_press_sum`):
+//                      the fused force's mu == 0 pair with mass2 = 1, its
+//                      pq folded as staged (ForceFold<false>)
 //   and the backward sweeps `_density_sum_bwd` (:484), `_press_sum_bwd`
 //   (:699), `_visc_sum_bwd` (:765) and the fused force's `_force_bwd`
 //   (:624, with and without viscosity), whose pair functions the JAX
 //   package derives with jax.vjp (`_bwd_pair`, :415) and which are written
-//   out by hand here (DensityBwdPair, PressBwdPair, ViscBwdPair,
+//   out by hand here (DensityBwdPair, PressBwdFoldPair, ViscBwdPair,
 //   ForceBwdPair);
 //   and, gated per (x, y-patch) by an int32 activity grid (`_sweep`'s
 //   `active=`, gate at :216-251), density, pressure and prefolded pressure:
 //   `density_planes_active` (:855), `pressure_force_planes_active` (:862),
-//   `pressure_force_pq_planes(active=)` (:825) — K10: sweep_active_kernel
-//   for pressure, compact_sweep_kernel<Pair, true> for the other two.
+//   `pressure_force_pq_planes(active=)` (:825) — K10:
+//   compact_sweep_kernel<Pair, true> for all three.
 //
 // Every sweep computes, for each occupied slot i of the (rows, sub, 128)
 // float32 planes,
@@ -54,36 +56,38 @@
 // lax.rsqrt, IEEE divides elsewhere. Every masked branch is a select, never
 // a multiply by a mask, so no 0 * inf reaches an output.
 //
-// sweep_block (K5 pressure, the backward sweeps K6-K9 and K10's pressure
-// form): one 128-thread CTA per 128-slot own block of one row, launched for
-// every interior block of every column; a CTA with no occupied own slot
-// exits after reading its mask. Otherwise it stages the (128 + 2*cap)-slot
-// window of the 9 stencil rows for every input channel in dynamic shared
-// memory ([C][9][W] words, 69.1 KB for the fused force backward at cap 16,
-// hence cudaFuncSetAttribute), and each thread sums the pair function over
-// all its 9 x 3*cap candidate slots, occupied or not, masked by the
-// candidate's mask channel. What holds it back (measured on K1-K4 and K10,
+// sweep_block (the backward sweeps K6, K7 in both forms, and K9): one
+// 128-thread CTA per 128-slot own block of one row, launched for every
+// interior block of every column; a CTA with no occupied own slot exits
+// after reading its mask. Otherwise it stages the (128 + 2*cap)-slot window
+// of the 9 stencil rows for every input channel in dynamic shared memory
+// ([C][9][W] words, 69.1 KB for the fused force backward at cap 16, hence
+// cudaFuncSetAttribute), and each thread sums the pair function over all
+// its 9 x 3*cap candidate slots, occupied or not, masked by the candidate's
+// mask channel. What holds it back (measured on K1-K5, K8 and K10,
 // PERF.md): the grid of mostly empty CTAs, which reserve their shared
 // memory; the 432 (cap 16) or 864 (cap 32) candidate iterations per thread
 // whatever the occupancy; half of each warp idle on empty own slots; scalar
 // staging. Its sweeps take 5-12 channels in.
 //
 // compact_sweep_kernel (K1 density, K2 fused force in both forms, K3
-// viscosity, K4 prefolded pressure, and K1/K4 gated): a persistent grid of
-// as many 128-thread CTAs as fit on the SMs. Each fetches kBatch own blocks
-// at a time from its launch's work counter (blocks fetch, fetch + n_fetch,
-// ..., so one fetch spans the domain and the tail balances) and keeps those
-// whose 128 own mask words hold an occupied slot (and, gated, whose
-// column's canonical patch is active): no CTA is launched for an empty
-// block. For a kept block it
+// viscosity, K4 prefolded pressure, K5 pressure, the pressure backward K8,
+// and K10: K1, K4 and K5 gated): a persistent grid of as many 128-thread
+// CTAs as fit on the SMs. Each fetches kBatch own blocks at a time from its
+// launch's work counter (blocks fetch, fetch + n_fetch, ..., so one fetch
+// spans the domain and the tail balances) and keeps those whose 128 own
+// mask words hold an occupied slot (and, gated, whose column's canonical
+// patch is active): no CTA is launched for an empty block. For a kept block
+// it
 //   * ranks the occupied own slots by ballots and maps them onto threads
 //     0..n-1 in slot order, so warps are full;
 //   * stages the 9-row window with one float4 load per input plane, and
 //     stores each occupied candidate as one or two float4s (the pair's
-//     channels but the mask: x y z [pq] for K1, K4 and K2 at mu = 0; x y z
-//     vx vy vz rho for K3, x y z vx vy vz pq iv for K2) at [half][cell]
-//     [rank], counting the cell's occupied slots. K2 reads rho and press and
-//     folds pq and iv as it stages (ForceFold);
+//     channels but the mask: x y z [pq] for K1, K4, K5 and K2 at mu = 0;
+//     x y z vx vy vz rho for K3, x y z vx vy vz pq iv for K2, x y z pq ct0
+//     ct1 ct2 for K8) at [half][cell][rank], counting the cell's occupied
+//     slots. K2, K5 and K8 read rho and press and fold pq (and K2 iv) as
+//     they stage (ForceFold, PressBwdFold);
 //   * sums each own slot's pair over only the occupied candidates: a
 //     cell's occupied slots are its first ranks (dense_indices ranks by a
 //     stable sort, build_planes writes exactly those slots, the solvers
@@ -92,14 +96,39 @@
 // slots ascending) with the empty ones skipped. A skipped term adds +-0 to
 // an accumulator that starts at +0, so each sum is bit for bit
 // sweep_block's. The epilogue writes (acc * own_m) * scale: the mass (K1),
-// mass^2 (K4) or mu * mass (K3) the caller would apply, with the same two
-// float32 roundings (K2 keeps mass^2 and mu * mass in its pair: scale 1).
-// It writes only occupied own slots, so every slot whose mask is not > 0
-// keeps the caller's 0. Shared memory per CTA is 9 * ncw * cap * 16 bytes
-// per float4 of a candidate (ncw = 128 / cap + 2): 23,040 B for one float4
-// at cap 16, 46,080 B for two. Each launch has its own work counter in
-// memory the caller allocates zeroed; the last CTA to leave zeroes it
-// again, so launches on different streams never share a walk.
+// mass^2 (K4, K5) or mu * mass (K3) the caller would apply, with the same
+// two float32 roundings (K2 keeps mass^2 and mu * mass in its pair, K8 has
+// none: scale 1). It writes only occupied own slots, so every slot whose
+// mask is not > 0 keeps the caller's 0. Shared memory per CTA is 9 * ncw *
+// cap * 16 bytes per float4 of a candidate (ncw = 128 / cap + 2): 23,040 B
+// for one float4 at cap 16, 46,080 B for two. Each launch has its own work
+// counter in memory the caller allocates zeroed; the last CTA to leave
+// zeroes it again, so launches on different streams never share a walk.
+//
+// K5 on the fused force's pair: JAX's `_press_pair` sums (p_i / r_i^2 +
+// p_j / r_j^2) * B q1^2 / d * d, r = max(rho, eps), which is term for term
+// ForceFoldPair<false> with mass2 = 1 (the same live test, rsqrtf, dist / h
+// and b * q1 * q1) on pq = p / r^2, and ForceFold<false> folds pq with
+// press_coeff's roundings (a multiply and an IEEE divide, nothing to
+// contract). mass2 * coeff with mass2 = 1 is exact, so the pair's terms are
+// the old pressure pair's bit for bit; mass^2 is the epilogue's scale.
+//
+// K8 and the role swap. An adjoint pair reads the candidate's cotangent,
+// rho and press when the own slot is the source (bb = near && own_mask > 0),
+// whatever the candidate's mask. sweep_block visited empty candidates too;
+// the compacted body skips them, which is exact because every such term is
+// +-0 on the planes the callers pass: the cotangents at empty slots are 0
+// on sweep_block's route (the wrapper masks them, as JAX's
+// `_press_sum_bwd` does), rho is 0 there (density_planes writes only
+// occupied slots, to_plane scatters into zeros) and so is press
+// (dense_step.py's where(mask > 0, ., 0) and to_plane). Then e = 0, and
+// every term is a product with e or with e.d. A non-zero press at an
+// empty slot would make coeff = p_i / r_i^2 + p_j / eps^2 (eps^2 = 1e-24:
+// 5e25 for p_j = 50); coeff * phi or 2 * coeff * dphi may then overflow to
+// inf, and sweep_block's term becomes inf * 0 = NaN (p_j above ~3.4e14
+// makes coeff itself inf). The compacted body reads no input, cotangents
+// included, at an empty slot, so its wrapper masks neither the cotangents
+// nor the outputs.
 
 #include <cuda_runtime.h>
 
@@ -204,32 +233,12 @@ struct PressPqPair {  // x y z mask pq -> 3 (mass^2: the scale)
   }
 };
 
-// p_i / max(rho_i, eps)^2 + p_j / max(rho_j, eps)^2
+// p_i / max(rho_i, eps)^2 + p_j / max(rho_j, eps)^2 (the pressure adjoint's
+// coeff; K5's forward and the folded K8 fold each term as they stage it).
 __device__ __forceinline__ float press_coeff(float rho_i, float p_i,
                                              float rho_j, float p_j) {
   return p_i / (rho_i * rho_i) + p_j / (rho_j * rho_j);
 }
-
-struct PressPair {  // x y z mask rho press -> 3 (mass^2 applied outside)
-  static constexpr int kIn = 6, kOut = 3, kMask = 3, kRho = 4, kPress = 5;
-  float h, h2, b;
-  __device__ __forceinline__ void operator()(const float* o, const float* c,
-                                             float* acc) const {
-    const float dx = c[0] - o[0], dy = c[1] - o[1], dz = c[2] - o[2];
-    const float d2 = dx * dx + dy * dy + dz * dz;
-    const bool live = (d2 > kEps) && (d2 < h2) && (c[kMask] > 0.0f);
-    const float inv_d = rsqrtf(live ? d2 : 1.0f);
-    const float dist = d2 * inv_d;
-    const float q1 = 1.0f - dist / h;
-    const float o1d = b * q1 * q1;
-    const float coeff = press_coeff(fmaxf(o[kRho], kEps), o[kPress],
-                                    fmaxf(c[kRho], kEps), c[kPress]);
-    const float s_p = live ? coeff * o1d * inv_d : 0.0f;
-    acc[0] += s_p * dx;
-    acc[1] += s_p * dy;
-    acc[2] += s_p * dz;
-  }
-};
 
 // value * d max(x, eps)/dx, with jnp.maximum's half at the tie.
 __device__ __forceinline__ float max_eps_grad(float x, float value) {
@@ -267,7 +276,12 @@ struct DensityBwdPair {  // x y z mask ct -> dx dy dz
 // g = coeff * phi(d2) * d, phi = B q1^2 / r. With e = bb ct_j - a ct_i:
 //   d/dx_i = coeff (2 phi'(d2) (e.d) d + phi e)
 //   d/dp_i = -phi (e.d) / rho_i^2,  d/drho_i = 2 phi (e.d) p_i / rho_i^3.
-template <int kMask, int kRho, int kPress, int kCt, int kOutRho, int kOutPress>
+// coeff = p_i / max(rho_i, eps)^2 + p_j / max(rho_j, eps)^2, formed from
+// both slots' rho and press at kRho and kPress, or, where kPq >= 0, as
+// pq_i + pq_j from pq = p / max(rho, eps)^2 folded as staged (which rounds
+// as press_coeff; kRho and kPress then index the own slot's raw values).
+template <int kMask, int kRho, int kPress, int kCt, int kOutRho, int kOutPress,
+          int kPq = -1>
 struct PressBwdTerms {
   float h, h2, b;
   __device__ __forceinline__ void operator()(const float* o, const float* c,
@@ -285,8 +299,11 @@ struct PressBwdTerms {
     const float inv_d2 = inv_d * inv_d;
     const float dphi = -(b / h) * q1 * inv_d2 - 0.5f * o1d * inv_d2 * inv_d;
     const float rho_i = fmaxf(o[kRho], kEps);
-    const float coeff =
-        press_coeff(rho_i, o[kPress], fmaxf(c[kRho], kEps), c[kPress]);
+    float coeff;
+    if constexpr (kPq < 0)
+      coeff = press_coeff(rho_i, o[kPress], fmaxf(c[kRho], kEps), c[kPress]);
+    else
+      coeff = o[kPq] + c[kPq];
     const float ex = (bb ? c[kCt] : 0.0f) - (a ? o[kCt] : 0.0f);
     const float ey = (bb ? c[kCt + 1] : 0.0f) - (a ? o[kCt + 1] : 0.0f);
     const float ez = (bb ? c[kCt + 2] : 0.0f) - (a ? o[kCt + 2] : 0.0f);
@@ -343,9 +360,18 @@ struct ViscBwdTerms {
   }
 };
 
-struct PressBwdPair {  // x y z mask rho press ct0..2 -> dx dy dz drho dpress
-  static constexpr int kIn = 9, kOut = 5, kMask = 3;
-  PressBwdTerms<3, 4, 5, 6, 3, 4> terms;
+// K8, on the compacted body with each candidate's pq = p / max(rho, eps)^2
+// folded as staged (PressBwdFold): x y z mask pq ct0..2, and after them the
+// own slot's raw rho and press, read once per own slot. coeff = pq_i + pq_j
+// rounds as press_coeff, so the sums are those of the pair on raw rho and
+// press (PressBwdTerms<3, 4, 5, 6, 3, 4>, which K8 ran on sweep_block) bit
+// for bit, with one IEEE divide a pair fewer; staging raw rho and press
+// took 13% longer on an H100 (PERF.md). nvcc hoists the own slot's p_i /
+// r_i^2 and 1 / r_i^2 out of the candidate loop: two divides a pair
+// remain, dist / h and the drho term's / rho_i.
+struct PressBwdFoldPair {  // x y z mask pq ct0..2 [own rho press] -> 5
+  static constexpr int kIn = 8, kOut = 5, kMask = 3;
+  PressBwdTerms<3, 8, 9, 5, 3, 4, 4> terms;
   __device__ __forceinline__ void operator()(const float* o, const float* c,
                                              float* acc) const {
     terms(o, c, 1.0f, acc);
@@ -395,8 +421,7 @@ struct ForceBwdPair<false> {  // x y z mask rho press ct0..2 -> 5
 };
 
 // The body of one CTA: the 128-slot own block blockIdx.y + 1 of the cell
-// column blockIdx.x. Inlined into the ungated and the gated kernel alike, so
-// a column both sweep computes the same values in the same order.
+// column blockIdx.x.
 template <class Pair>
 __device__ __forceinline__ void sweep_block(
     const Pair pair, const SweepArgs<Pair::kIn, Pair::kOut> args) {
@@ -457,7 +482,7 @@ sweep_kernel(const Pair pair, const SweepArgs<Pair::kIn, Pair::kOut> args) {
   sweep_block(pair, args);
 }
 
-// K10, the active-gated sweep (JAX `_sweep(..., active=)`, pallas_sph.py:107,
+// K10, the active-gated sweeps (JAX `_sweep(..., active=)`, pallas_sph.py:107,
 // gate at :216-251): the PCISPH convergence-gated loop re-sweeps only the
 // (x, y-patch) cells of an int32 grid, one entry per patch of `patch` =
 // min(8, ny) consecutive y-columns at one x, `nyp` = ceil(ny / patch)
@@ -470,23 +495,6 @@ struct ActiveGate {
   int nyp;
   int patch;
 };
-
-// Same grid and body as sweep_kernel. Every thread of a CTA reads the same
-// entry, first of all, and an inactive CTA exits at once: it stages nothing
-// and its outputs keep the caller's zeros. (The gated density and
-// prefolded pressure run compact_sweep_kernel instead, which skips an
-// inactive column's blocks in its walk.)
-template <class Pair>
-__global__ void __launch_bounds__(kBlock)
-sweep_active_kernel(const Pair pair,
-                    const SweepArgs<Pair::kIn, Pair::kOut> args,
-                    const ActiveGate gate) {
-  const int col = blockIdx.x;
-  if (gate.active[(col / args.ny) * gate.nyp + (col % args.ny) / gate.patch]
-      == 0)
-    return;
-  sweep_block(pair, args);
-}
 
 template <class Pair, class Kernel, class... Extra>
 int launch_kernel(Kernel kernel, const Pair& pair, const float* const* in,
@@ -518,18 +526,8 @@ int launch(const Pair& pair, const float* const* in, float* const* out,
                        stream);
 }
 
-template <class Pair>
-int launch_active(const Pair& pair, const float* const* in,
-                  float* const* out, int nx, int ny, int sub, int cap,
-                  const int* active, void* stream) {
-  const int patch = ny < 8 ? ny : 8;
-  const ActiveGate gate{active, (ny + patch - 1) / patch, patch};
-  return launch_kernel(sweep_active_kernel<Pair>, pair, in, out, nx, ny, sub,
-                       cap, stream, gate);
-}
-
 // ---------------------------------------------------------------------------
-// The compacted body: K1, K2, K3, K4 and the gated K1/K4 (see the header).
+// The compacted body: K1-K5, K8 and the gated K1/K4/K5 (see the header).
 // ---------------------------------------------------------------------------
 
 // Tuning, each the faster of the variants tools/torch_sweep_variants.py
@@ -546,15 +544,19 @@ constexpr int kWarps = kBlock / 32;
 
 // How the compacted body stages a candidate. Of the `kIn` input planes the
 // mask is at `kMask`; the others, in order, fold into `kVals` floats: the
-// pair functor's channels without its mask.
+// pair functor's channels without its mask. `own` reads `kOwn` more values
+// of the own slot from the input planes, which the pair finds after its
+// channels (none but for PressBwdFold).
 template <class Pair>
 struct AsIs {
   static constexpr int kIn = Pair::kIn, kMask = Pair::kMask,
-                       kVals = Pair::kIn - 1;
+                       kVals = Pair::kIn - 1, kOwn = 0;
   static __device__ __forceinline__ void fold(const float* raw, float* v) {
 #pragma unroll
     for (int i = 0; i < kVals; ++i) v[i] = raw[i];
   }
+  static __device__ __forceinline__ void own(const float* const*, long long,
+                                             float*) {}
 };
 
 // K2: x y z [vx vy vz] mask rho press in; pq = press / max(rho, eps)^2 and
@@ -564,13 +566,37 @@ struct AsIs {
 template <bool kVisc>
 struct ForceFold {
   static constexpr int kMask = ForceFoldPair<kVisc>::kMask, kIn = kMask + 3,
-                       kVals = ForceFoldPair<kVisc>::kIn - 1;
+                       kVals = ForceFoldPair<kVisc>::kIn - 1, kOwn = 0;
   static __device__ __forceinline__ void fold(const float* raw, float* v) {
 #pragma unroll
     for (int i = 0; i < kMask; ++i) v[i] = raw[i];
     const float r = fmaxf(raw[kMask], kEps);
     v[kMask] = raw[kMask + 1] / (r * r);
     if constexpr (kVisc) v[kMask + 1] = 1.0f / r;
+  }
+  static __device__ __forceinline__ void own(const float* const*, long long,
+                                             float*) {}
+};
+
+// K8 folded: x y z mask rho press ct0..2 in; each candidate staged as x y z
+// pq ct0..2 (pq rounded as ForceFold's), and the own slot's raw rho and
+// press read from their planes for the drho and dpress terms.
+struct PressBwdFold {
+  static constexpr int kIn = 9, kMask = 3, kVals = 7, kOwn = 2;
+  static __device__ __forceinline__ void fold(const float* raw, float* v) {
+    v[0] = raw[0];
+    v[1] = raw[1];
+    v[2] = raw[2];
+    const float r = fmaxf(raw[3], kEps);
+    v[3] = raw[4] / (r * r);
+    v[4] = raw[5];
+    v[5] = raw[6];
+    v[6] = raw[7];
+  }
+  static __device__ __forceinline__ void own(const float* const* in,
+                                             long long idx, float* e) {
+    e[0] = in[4][idx];
+    e[1] = in[5][idx];
   }
 };
 
@@ -705,7 +731,7 @@ __device__ __forceinline__ void compact_block(
   if (t < n_own) {
     const int slot = own_slot[t];
     const int kw = (slot >> geo.lcap) + 1;     // own cell in the window
-    float o[Pair::kIn];
+    float o[Pair::kIn + Stage::kOwn];
     {
       float4 q[NV];
 #pragma unroll
@@ -713,6 +739,7 @@ __device__ __forceinline__ void compact_block(
         q[k] = cand[cand_at<NV>(k, 4 * ncw + kw, slot & (cap - 1), cs,
                                 n_cells)];
       unpack<Pair, NV>(q, o);
+      Stage::own(args.in, off + slot, o + Pair::kIn);
     }
     float acc[Pair::kOut];
 #pragma unroll
@@ -880,27 +907,29 @@ int launch_compact(const Pair& pair, const float* const* in,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class Pair>
+template <class Pair, class Stage = AsIs<Pair>>
 int launch_compact_active(const Pair& pair, const float* const* in,
                           float* const* out, int nx, int ny, int sub,
                           int cap, float scale, unsigned* work,
                           const int* active, void* stream) {
   const int patch = ny < 8 ? ny : 8;
   const ActiveGate gate{active, (ny + patch - 1) / patch, patch};
-  return launch_compact<Pair, true>(pair, in, out, nx, ny, sub, cap, scale,
-                                    work, gate, stream);
+  return launch_compact<Pair, true, Stage>(pair, in, out, nx, ny, sub, cap,
+                                           scale, work, gate, stream);
 }
 
 }  // namespace
 
 // C interface, one launcher per sweep. `in` and `out` are host arrays of
 // device pointers to contiguous float32 planes of shape (rows, sub, 128), in
-// the channel order of each functor above (K2: of its ForceFold); outputs
-// must be zero-filled by the caller. Returns the cudaError_t of the launch.
+// the channel order of each functor above (K2, K5: of its ForceFold; K8: x
+// y z mask rho press ct0..2); outputs must be zero-filled by the caller.
+// Returns the cudaError_t of the launch.
 //
 // The compacted sweeps (density, fused force in both forms, viscosity,
-// prefolded pressure, and the gated density and prefolded pressure) also
-// take `scale`, applied to every output as (acc * own_m) * scale, and
+// prefolded pressure, pressure, the pressure backward, and the gated
+// density, pressure and prefolded pressure) also take `scale`, applied to
+// every output as (acc * own_m) * scale, and
 // `work`, a device pointer to this launch's own counter: two uint32 words,
 // zero when the launch is enqueued, which the kernel leaves zero again. So
 // a counter may serve the launches of one stream in turn, and launches
@@ -949,15 +978,17 @@ int dft_press_pq_sweep(DFT_SWEEP_ARGS, float h2, float inv_h, float b,
       PressPqPair{h2, inv_h, b}, DFT_COMPACT_PASS, kNoGate, stream);
 }
 
-int dft_press_sweep(DFT_SWEEP_ARGS, float h, float h2, float b,
-                    void* stream) {
-  return launch(PressPair{h, h2, b}, DFT_SWEEP_PASS);
+// K5: the fused force's mu == 0 pair with mass2 = 1 (mass^2: `scale`).
+int dft_press_sweep(DFT_SWEEP_ARGS, float h, float h2, float b, float scale,
+                    unsigned* work, void* stream) {
+  return launch_compact<ForceFoldPair<false>, false, ForceFold<false>>(
+      ForceFoldPair<false>{h, h2, b, 0.0f, 1.0f, 0.0f}, DFT_COMPACT_PASS,
+      kNoGate, stream);
 }
 
 // K10: the gated forms of density, pressure and the prefolded pressure.
 // `active` is a device pointer to the contiguous int32 (nx, ceil(ny / P))
 // activity grid, P = min(8, ny).
-#define DFT_ACTIVE_PASS in, out, nx, ny, sub, cap, active, stream
 
 int dft_density_active_sweep(DFT_SWEEP_ARGS, float h2, float a, float scale,
                              const int* active, unsigned* work,
@@ -967,8 +998,11 @@ int dft_density_active_sweep(DFT_SWEEP_ARGS, float h2, float a, float scale,
 }
 
 int dft_press_active_sweep(DFT_SWEEP_ARGS, float h, float h2, float b,
-                           const int* active, void* stream) {
-  return launch_active(PressPair{h, h2, b}, DFT_ACTIVE_PASS);
+                           float scale, const int* active, unsigned* work,
+                           void* stream) {
+  return launch_compact_active<ForceFoldPair<false>, ForceFold<false>>(
+      ForceFoldPair<false>{h, h2, b, 0.0f, 1.0f, 0.0f}, DFT_COMPACT_PASS,
+      active, stream);
 }
 
 int dft_press_pq_active_sweep(DFT_SWEEP_ARGS, float h2, float inv_h, float b,
@@ -983,8 +1017,9 @@ int dft_density_bwd_sweep(DFT_SWEEP_ARGS, float h2, float a, void* stream) {
 }
 
 int dft_press_bwd_sweep(DFT_SWEEP_ARGS, float h, float h2, float b,
-                        void* stream) {
-  return launch(PressBwdPair{{h, h2, b}}, DFT_SWEEP_PASS);
+                        float scale, unsigned* work, void* stream) {
+  return launch_compact<PressBwdFoldPair, false, PressBwdFold>(
+      PressBwdFoldPair{{h, h2, b}}, DFT_COMPACT_PASS, kNoGate, stream);
 }
 
 int dft_visc_bwd_sweep(DFT_SWEEP_ARGS, float h, float h2, float cw,

@@ -59,23 +59,26 @@ sweep's `launches` count (`SWEEPS`). Scales the JAX package applies outside
 its kernel (mass, mu*mass, mass^2) are applied here outside the kernel too
 when they are 0-d tensors, so Materials gradients flow through plain torch
 (the compact sweeps fold Python numbers, below). Cotangents are masked
-before a backward sweep and every output after a sweep_block sweep with
-`torch.where(mask > 0, out, 0)` as the JAX `_mask_where` does; slots the
-kernel does not compute, ghost rows included, read 0.
+before a sweep_block backward sweep and every output after a sweep_block
+sweep with `torch.where(mask > 0, out, 0)` as the JAX `_mask_where` does;
+slots the kernel does not compute, ghost rows included, read 0.
 
 The compact sweeps (K1 density, K2 fused force in both forms, K3
-viscosity, K4 prefolded pressure, and K1/K4 gated) run the compacted kernel
-body, and on the CUDA route leave passes out of torch:
+viscosity, K4 prefolded pressure, K5 pressure, the pressure backward K8,
+and K1/K4/K5 gated) run the compacted kernel body, and on the CUDA route
+leave passes out of torch:
   * the `_mask_where` per output: the kernel writes only slots whose mask
     is > 0 and the rest keep the zeros the wrapper allocates, ghost rows
     and blocks included, so the where would return its input bit for bit;
+  * K8's `_mask_where` per cotangent: the kernel reads no input at an
+    empty slot, so a cotangent's value there cannot reach a gradient;
   * the scale per output, when its factors are Python numbers: the kernel
-    writes (acc * own_m) * mass (K1), * mass^2 (K4) or * mu * mass (K3),
-    the same two float32 roundings as the multiply after the sweep. The
-    backward scales the cotangents as that multiply's backward did, so
+    writes (acc * own_m) * mass (K1), * mass^2 (K4, K5) or * mu * mass
+    (K3), the same two float32 roundings as the multiply after the sweep.
+    The backward scales the cotangents as that multiply's backward did, so
     gradients are unchanged. A 0-d tensor factor (traced Materials) keeps
     the scale in torch;
-  * K2's folds of pq and iv, two plane-sized passes and two planes.
+  * K2's folds of pq and iv (K5's of pq), plane-sized passes and planes.
 The plain version applies all of them as torch passes. The compacted
 kernel needs a mask of 0 and 1 whose occupied slots are each cell's first
 ranks, which is what `build_planes` writes. Each compacted launch gets its
@@ -357,8 +360,9 @@ class Sweep:
     launcher and its launch count (CUDA launches only). A `gated` sweep
     takes the int32 activity grid as well (K10). A `compact` sweep runs the
     compacted kernel body: its last constant is the scale the kernel's
-    epilogue applies, and its outputs are final (0 wherever the mask is not
-    > 0, the scale applied), so nothing is applied around the kernel.
+    epilogue applies, its outputs are final (0 wherever the mask is not
+    > 0, the scale applied), so nothing is applied around the kernel, and
+    it reads no input at a slot whose mask is not > 0.
     `fold`, when given, builds the pair's channels from the input planes
     for the plain version; the kernel folds as it stages."""
 
@@ -393,11 +397,12 @@ PRESS_PQ = Sweep("pressure_pq", "dft_press_pq_sweep",
                  ("x", "y", "z", "mask", "pq"), 3, f"{_PALLAS}:825",
                  compact=True)
 PRESS = Sweep("pressure", "dft_press_sweep",
-              ("x", "y", "z", "mask", "rho", "press"), 3, f"{_PALLAS}:684")
+              ("x", "y", "z", "mask", "rho", "press"), 3, f"{_PALLAS}:684",
+              compact=True)
 DENSITY_BWD = Sweep("density_bwd", "dft_density_bwd_sweep",
                     DENSITY.in_names + ("ct_0",), 3, f"{_PALLAS}:484")
 PRESS_BWD = Sweep("pressure_bwd", "dft_press_bwd_sweep",
-                  PRESS.in_names + _CT3, 5, f"{_PALLAS}:699")
+                  PRESS.in_names + _CT3, 5, f"{_PALLAS}:699", compact=True)
 VISC_BWD = Sweep("viscosity_bwd", "dft_visc_bwd_sweep",
                  VISC.in_names + _CT3, 7, f"{_PALLAS}:765")
 FORCE_BWD = Sweep("force_bwd", "dft_force_bwd_sweep",
@@ -410,7 +415,8 @@ DENSITY_ACTIVE = Sweep("density_active", "dft_density_active_sweep",
                        DENSITY.in_names, 1, f"{_PALLAS}:855", gated=True,
                        compact=True)
 PRESS_ACTIVE = Sweep("pressure_active", "dft_press_active_sweep",
-                     PRESS.in_names, 3, f"{_PALLAS}:862", gated=True)
+                     PRESS.in_names, 3, f"{_PALLAS}:862", gated=True,
+                     compact=True)
 PRESS_PQ_ACTIVE = Sweep("pressure_pq_active", "dft_press_pq_active_sweep",
                         PRESS_PQ.in_names, 3, f"{_PALLAS}:825", gated=True,
                         compact=True)
@@ -566,10 +572,15 @@ def _run_plain(sweep: Sweep, pair: Callable, ins: Planes,
     whose canonical patch is inactive, as the kernel leaves them. A compact
     sweep's outputs then get what its kernel's epilogue gives: 0 wherever
     the mask is not > 0, then the scale (its last constant), each as the
-    torch pass the caller applied before."""
+    torch pass the caller applied before; a compact adjoint's cotangents
+    are masked first (its kernel reads none at an empty slot, the plain
+    adjoint pair reads a candidate's whatever its mask)."""
     arrs = [ins[n] for n in sweep.in_names]
     _check_planes(arrs, spec)
     named = dict(zip(sweep.in_names, arrs))
+    if sweep.compact:
+        named = {n: _mask_where(named["mask"], v) if n.startswith("ct_")
+                 else v for n, v in named.items()}
     if sweep.fold is not None:
         named = sweep.fold(named)
     outs = _sweep_plain(pair, named, sweep.n_out, spec)
@@ -620,14 +631,21 @@ def _backward_sweep(run, spec: DenseCellSpec, adjoint: Op, ins: Planes,
     """The adjoint sweep on the forward's input planes and the output
     cotangents (None reads 0; expanded or strided ones are copied): masked
     cotangents in, masked gradients out, one per forward input but the
-    mask, in order."""
+    mask, in order. A compact adjoint takes its cotangents as they are and
+    gives final gradients (`run` masks on the plain route)."""
     sweep, pair, consts = adjoint
     m = ins["mask"]
     ins = dict(ins)
     for o, ct in enumerate(cts):
-        ins[f"ct_{o}"] = (torch.zeros_like(m) if ct is None
-                          else _mask_where(m, ct).contiguous())
-    return [_mask_where(m, g) for g in run(sweep, pair, ins, spec, consts)]
+        if ct is None:
+            ct = torch.zeros_like(m)
+        elif not sweep.compact:
+            ct = _mask_where(m, ct)
+        ins[f"ct_{o}"] = ct.contiguous()
+    grads = run(sweep, pair, ins, spec, consts)
+    if sweep.compact:
+        return grads
+    return [_mask_where(m, g) for g in grads]
 
 
 class _SweepFunction(torch.autograd.Function):
@@ -696,10 +714,21 @@ def _kernel_scale(*factors) -> float:
     return functools.reduce(lambda a, b: a * b, (float(f) for f in factors))
 
 
-def _press_ops(k: KernelCoeffs) -> Tuple[Op, Op]:
+def _torch_scale(outs, *factors):
+    """A compact sweep's outputs times the product of `factors` when one
+    is a 0-d tensor (the kernel's scale was 1, `_kernel_scale`); as they
+    are when all are Python numbers (the kernel applied the product)."""
+    if not any(isinstance(f, torch.Tensor) for f in factors):
+        return outs
+    s = functools.reduce(lambda a, b: a * b, factors)
+    return tuple(s * o for o in outs)
+
+
+def _press_ops(k: KernelCoeffs, scale: float = 1.0) -> Tuple[Op, Op]:
     h = float(k.h)
     c = (h, h * h, float(k.b))
-    return (PRESS, _press_pair(k), c), (PRESS_BWD, _press_bwd_pair(k), c)
+    return ((PRESS, _press_pair(k), c + (scale,)),
+            (PRESS_BWD, _press_bwd_pair(k), c + (1.0,)))
 
 
 def _visc_ops(k: KernelCoeffs, scale: float = 1.0) -> Tuple[Op, Op]:
@@ -723,7 +752,7 @@ def _with(planes: Planes, **extra) -> Planes:
 def _density(run, planes: Planes, spec: DenseCellSpec, k: KernelCoeffs,
              mass) -> torch.Tensor:
     (s,) = _apply(run, spec, *_density_ops(k, _kernel_scale(mass)), planes)
-    return mass * s if isinstance(mass, torch.Tensor) else s
+    return _torch_scale((s,), mass)[0]
 
 
 def _force_ops(k: KernelCoeffs, mass: float, mu: float) -> Tuple[Op, Op]:
@@ -750,21 +779,16 @@ def _force(run, planes: Planes, rho_plane: torch.Tensor,
 def _pressure(run, planes: Planes, rho_plane: torch.Tensor,
               press_plane: torch.Tensor, spec: DenseCellSpec,
               k: KernelCoeffs, mass):
-    fx, fy, fz = _apply(run, spec, *_press_ops(k),
-                        _with(planes, rho=rho_plane, press=press_plane))
-    m2 = mass * mass
-    return m2 * fx, m2 * fy, m2 * fz
+    ops = _press_ops(k, _kernel_scale(mass, mass))
+    return _torch_scale(_apply(run, spec, *ops, _with(
+        planes, rho=rho_plane, press=press_plane)), mass, mass)
 
 
 def _viscosity(run, planes: Planes, rho_plane: torch.Tensor,
                spec: DenseCellSpec, k: KernelCoeffs, mass, mu):
-    scale = _kernel_scale(mu, mass)
-    fx, fy, fz = _apply(run, spec, *_visc_ops(k, scale),
-                        _with(planes, rho=rho_plane))
-    s = mu * mass
-    if not isinstance(s, torch.Tensor):
-        return fx, fy, fz
-    return s * fx, s * fy, s * fz
+    ops = _visc_ops(k, _kernel_scale(mu, mass))
+    return _torch_scale(_apply(run, spec, *ops,
+                               _with(planes, rho=rho_plane)), mu, mass)
 
 
 def _pressure_pq(run, planes: Planes, pq_plane: torch.Tensor,
@@ -775,11 +799,8 @@ def _pressure_pq(run, planes: Planes, pq_plane: torch.Tensor,
         sweep, run = PRESS_PQ_ACTIVE, functools.partial(run, active=active)
     fwd = (sweep, _press_pq_pair(k),
            (h * h, 1.0 / h, float(k.b), _kernel_scale(mass, mass)))
-    fx, fy, fz = _apply(run, spec, fwd, None, _with(planes, pq=pq_plane))
-    if not isinstance(mass, torch.Tensor):
-        return fx, fy, fz
-    m2 = mass * mass
-    return m2 * fx, m2 * fy, m2 * fz
+    return _torch_scale(_apply(run, spec, fwd, None,
+                               _with(planes, pq=pq_plane)), mass, mass)
 
 
 def _density_active(run, planes: Planes, spec: DenseCellSpec,
@@ -787,18 +808,17 @@ def _density_active(run, planes: Planes, spec: DenseCellSpec,
     (_, pair, c), _ = _density_ops(k, _kernel_scale(mass))
     (s,) = _apply(functools.partial(run, active=active), spec,
                   (DENSITY_ACTIVE, pair, c), None, planes)
-    return mass * s if isinstance(mass, torch.Tensor) else s
+    return _torch_scale((s,), mass)[0]
 
 
 def _pressure_active(run, planes: Planes, rho_plane: torch.Tensor,
                      press_plane: torch.Tensor, spec: DenseCellSpec,
                      k: KernelCoeffs, mass, active):
-    (_, pair, c), _ = _press_ops(k)
-    fx, fy, fz = _apply(functools.partial(run, active=active), spec,
-                        (PRESS_ACTIVE, pair, c), None,
-                        _with(planes, rho=rho_plane, press=press_plane))
-    m2 = mass * mass
-    return m2 * fx, m2 * fy, m2 * fz
+    (_, pair, c), _ = _press_ops(k, _kernel_scale(mass, mass))
+    return _torch_scale(_apply(
+        functools.partial(run, active=active), spec,
+        (PRESS_ACTIVE, pair, c), None,
+        _with(planes, rho=rho_plane, press=press_plane)), mass, mass)
 
 
 def _density_bwd(run, planes: Planes, ct: torch.Tensor, spec: DenseCellSpec,
@@ -852,9 +872,10 @@ def force_planes(planes: Planes, rho_plane: torch.Tensor,
 def pressure_force_planes(planes: Planes, rho_plane: torch.Tensor,
                           press_plane: torch.Tensor, spec: DenseCellSpec,
                           k: KernelCoeffs, mass):
-    """Symmetric pressure force from unfolded rho/press planes, mass^2
-    applied outside the sweep (`mass` may be a 0-d tensor). Differentiable
-    in positions, rho, press and mass."""
+    """Symmetric pressure force from unfolded rho/press planes, scaled by
+    mass^2: in the kernel's epilogue when `mass` is a Python number, in
+    torch when it is a 0-d tensor. Differentiable in positions, rho, press
+    and mass."""
     return _pressure(_run, planes, rho_plane, press_plane, spec, k, mass)
 
 

@@ -294,12 +294,13 @@ def test_gated_kernel_matches_plain_and_ungated(planes, name, kind):
 
 
 # --------------------------------------------------------------------------
-# The compacted body (K1, K2 in both forms, K3, K4 and the gated K1/K4) on
-# edge cases, and on two streams at once
+# The compacted body (K1, K2 in both forms, K3, K4, K5, K8 and the gated
+# K1/K4/K5) on edge cases, and on two streams at once
 # --------------------------------------------------------------------------
 
 COMPACT = ("density", "pressure_pq", "force", "force_p", "viscosity",
-           "density_active", "pressure_pq_active")
+           "pressure", "pressure_bwd", "density_active", "pressure_pq_active",
+           "pressure_active")
 
 
 def _edge_planes(kind, cap, device, ny_cells=None):
@@ -307,7 +308,8 @@ def _edge_planes(kind, cap, device, ny_cells=None):
     'full' packs 4000 seeded points into the middle (cells full to
     capacity, the rest overflowing), 'lone' holds one particle, 'empty'
     none, 'column' a seeded cloud in a box with `ny_cells` cells in y; with
-    seeded pq, velocity, rho and press planes."""
+    seeded pq, velocity, rho and press planes, and three cotangent planes
+    ct_0..2 seeded in every slot, empty ones too."""
     params = lattice_rest_density(0.125, FluidParams.for_spacing(0.125))
     rng = np.random.default_rng(21)
     hi_y = 1.0
@@ -333,7 +335,11 @@ def _edge_planes(kind, cap, device, ny_cells=None):
                  ("press", rng.uniform(0.0, 50.0, n))):
         vals[c] = torch.from_numpy(v.astype(np.float32)).to(device)
     flat, valid, _ = tc.dense_indices(t, spec)
-    return params, spec, tc.build_planes(vals, flat, valid, spec)
+    planes = tc.build_planes(vals, flat, valid, spec)
+    for i in range(3):
+        planes[f"ct_{i}"] = torch.from_numpy(rng.normal(
+            size=spec.plane_shape).astype(np.float32)).to(device)
+    return params, spec, planes
 
 
 def _compact_call(name, params, spec, p, plain, active=None):
@@ -350,6 +356,16 @@ def _compact_call(name, params, spec, p, plain, active=None):
     if name == "viscosity":
         return fns.viscosity_force_planes(p, p["rho"], spec, k, params.mass,
                                           float(params.mu))
+    if name == "pressure":
+        return fns.pressure_force_planes(p, p["rho"], p["press"], spec, k,
+                                         params.mass)
+    if name == "pressure_bwd":
+        return fns.press_sum_bwd(p, p["rho"], p["press"],
+                                 tuple(p[f"ct_{i}"] for i in range(3)), spec,
+                                 k)
+    if name == "pressure_active":
+        return fns.pressure_force_planes_active(p, p["rho"], p["press"], spec,
+                                                k, params.mass, active)
     if name == "density_active":
         return (fns.density_planes_active(p, spec, k, params.mass, active),)
     return fns.pressure_force_pq_planes(p, p["pq"], spec, k, params.mass,
@@ -357,12 +373,19 @@ def _compact_call(name, params, spec, p, plain, active=None):
 
 
 def _check_compact(name, params, spec, p, active=None):
+    """Forward sweeps within KERNEL_REL_TOL of the largest output, the
+    backward's gradients each within KERNEL_BWD_REL_TOL of its own."""
     got = _compact_call(name, params, spec, p, False, active)
     torch.cuda.synchronize()
     want = _compact_call(name, params, spec, p, True, active)
-    scale = max(float(w.abs().max()) for w in want)
-    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    assert err <= sw.KERNEL_REL_TOL * scale, (name, err, scale)
+    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    scales = [float(w.abs().max()) for w in want]
+    if name.endswith("_bwd"):
+        for err, scale in zip(errs, scales):
+            assert err <= sw.KERNEL_BWD_REL_TOL * scale, (name, err, scale)
+    else:
+        err, scale = max(errs), max(scales)
+        assert err <= sw.KERNEL_REL_TOL * scale, (name, err, scale)
     off = p["mask"] <= 0
     for g in got:
         assert bool(torch.isfinite(g).all()) and not bool(g[off].any())
@@ -372,7 +395,7 @@ def _check_compact(name, params, spec, p, active=None):
 @pytest.mark.parametrize("cap", [16, 32])
 @pytest.mark.parametrize("kind", ["full", "lone", "empty"])
 def test_compact_kernels_on_edge_planes(cuda, kind, cap):
-    """The seven compacted launchers against their plain versions on cells
+    """The ten compacted launchers against their plain versions on cells
     full to capacity, a lone particle and an all-empty plane (all 0), at
     the bench's and the CLI's capacities; the gated forms under an all-ones
     grid."""
@@ -399,7 +422,7 @@ def test_compact_gated_kernels_on_odd_patches(cuda, ny_cells, kind):
     assert spec.ny == ny_cells
     active = _grid(spec, kind, cuda)
     rows = sw.act_rows_of(active, spec).expand_as(p["mask"])
-    for name in ("density_active", "pressure_pq_active"):
+    for name in ("density_active", "pressure_pq_active", "pressure_active"):
         got = _check_compact(name, params, spec, p, active)
         full = _compact_call(name[:-len("_active")], params, spec, p, False)
         for g, f in zip(got, full):
@@ -408,7 +431,7 @@ def test_compact_gated_kernels_on_odd_patches(cuda, ny_cells, kind):
 
 
 @pytest.mark.parametrize("name", ["density", "force", "viscosity",
-                                  "pressure_pq"])
+                                  "pressure_pq", "pressure_bwd"])
 def test_compact_launches_on_two_streams_at_once(cuda, name):
     """Each compacted launch has its own work counter: one compacted sweep
     on two plane sets, each on its own non-default stream, both streams

@@ -1,18 +1,22 @@
 """The mask invariant the compacted sweep kernel (K1, K2 in both forms,
-K3, K4 and the gated K1/K4) relies on: every mask plane a main path hands
-a sweep holds only 0 and 1, and in every cell its occupied slots are ranks
-0..n-1. The kernel counts a cell's occupied slots and visits only that
-many of them.
+K3, K4, K5, the pressure backward K8 and the gated K1/K4/K5) relies on:
+every mask plane a main path hands a sweep holds only 0 and 1, and in
+every cell its occupied slots are ranks 0..n-1. The kernel counts a cell's
+occupied slots and visits only that many of them. And, for K5 and K8 on
+the training path (planes from _pos_vel_planes, rho from density_planes or
+to_plane, press from a where or to_plane), rho and press are 0 at every
+empty slot: there the old sweep_block body read them (K8's role swap), so
+the compacted body, which skips empty slots, equals it only then.
 
 Checked on the plane producers directly (build_planes after dense_indices,
 on a dam break and with cells forced to overflow; the boundary-extended
 binning) and, through a spy on the sweeps' dispatch, on every mask the
 solvers pass to a compact sweep: the per-step WCSPH steps (static params,
-mu = 0, and Materials, which runs the factored pressure and viscosity) and
-PCISPH steps (the correction loop's predicted planes, the column_skip
-loop's, the unrolled loop's scatter of predicted positions), and the
-resident WCSPH and PCISPH states over several skin > 0 steps between
-rebuilds.
+mu = 0, and Materials, which runs the factored pressure and viscosity,
+backward included) and PCISPH steps (the correction loop's predicted
+planes, the column_skip loop's, the unrolled loop's scatter of predicted
+positions, backward included), and the resident WCSPH and PCISPH states
+over several skin > 0 steps between rebuilds.
 """
 
 import numpy as np
@@ -112,23 +116,29 @@ def test_boundary_extended_binning():
 
 @pytest.fixture
 def spy(monkeypatch):
-    """Every mask a compact sweep gets through the sweeps' dispatch."""
-    masks = []
+    """The input planes of every compact sweep call through the sweeps'
+    dispatch (the backward sweeps' too: autograd keeps the forward's
+    dispatch)."""
+    calls = []
     real = sw._run
 
     def run(sweep, pair, ins, spec, consts, active=None):
         if sweep.compact:
-            masks.append((sweep.name, ins["mask"]))
+            calls.append((sweep.name, dict(ins)))
         return real(sweep, pair, ins, spec, consts, active)
 
     monkeypatch.setattr(sw, "_run", run)
-    return masks
+    return calls
 
 
-def _check(masks, spec, names):
-    assert {n for n, _ in masks} == set(names)
-    for name, m in masks:
+def _check(calls, spec, names):
+    assert {n for n, _ in calls} == set(names)
+    for name, ins in calls:
+        m = ins["mask"]
         assert prefix_violations(m, spec.capacity) == 0, name
+        if name in ("pressure", "pressure_bwd"):
+            for c in ("rho", "press"):
+                assert not bool(ins[c][m <= 0].any()), (name, c)
 
 
 def test_per_step_solvers_hand_prefix_masks(spy):
@@ -137,14 +147,18 @@ def test_per_step_solvers_hand_prefix_masks(spy):
     mats = Materials.from_params(params, CPU, requires_grad=True)
     tds.dense_wcsph_step(s, params, spec)
     tds.dense_wcsph_step(s, params.replace(mu=0.0), spec)
-    tds.dense_wcsph_step(s, params, spec, materials=mats)
+    nxt, _ = tds.dense_wcsph_step(s, params, spec, materials=mats)
+    torch.autograd.grad((nxt.pos ** 2).sum(), mats.mass)
     tds.dense_pcisph_step(s, params, spec, delta, warm_start=True)
     tds.dense_pcisph_step(s, params, spec, delta, column_skip=True)
-    tds.dense_pcisph_step(s, params, spec, delta, materials=mats,
-                          unroll_for_grad=True, unroll_iters=2)
+    nxt, _ = tds.dense_pcisph_step(s, params, spec, delta, materials=mats,
+                                   unroll_for_grad=True, unroll_iters=2)
+    n_wcsph = sum(n == "pressure_bwd" for n, _ in spy)
+    torch.autograd.grad((nxt.pos ** 2).sum(), mats.mass)
+    assert n_wcsph == 1 and sum(n == "pressure_bwd" for n, _ in spy) == 3
     _check(spy, spec, ("density", "force", "force_p", "viscosity",
-                       "pressure_pq", "density_active",
-                       "pressure_pq_active"))
+                       "pressure_pq", "pressure", "pressure_bwd",
+                       "density_active", "pressure_pq_active"))
 
 
 def test_resident_states_between_rebuilds_hand_prefix_masks(spy):

@@ -8,8 +8,9 @@ This runs the kernel's bookkeeping on the CPU: the work fetches and their
 per-launch, self-resetting counter, the gate, the ballot ranking of own
 slots onto threads, the float4 staging walk (one or two float4s a
 candidate, K2's folds of pq and iv) and the per-cell counts. For K1 and K4,
-ungated and gated, here, and for K2 in both forms and K3 in
-test_torch_sweep_emulated_wide.py, on capacities 2 to 32, cells full to
+ungated and gated, here, for K2 in both forms and K3 in
+test_torch_sweep_emulated_wide.py, and for K5 (ungated and gated) and K8
+in test_torch_sweep_emulated_press.py, on capacities 2 to 32, cells full to
 capacity, a lone particle, an empty plane and odd patch grids, the
 compacted launchers must give bit for bit what sweep_block (the body the
 other sweeps run, the one these ran before) gives with the folds before it
@@ -42,10 +43,61 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parent.parent
 DX = 0.125
 
-# sweep_block's launchers for K1, K2 (both forms), K3 and K4, which the
-# library no longer exports, and the emulator's controls, appended to the
-# source so that its templates are in scope.
+# sweep_block's launchers for K1-K5, K8 and the gated K1/K4/K5, which the
+# library no longer exports, with the old pressure and pressure backward
+# pairs and the old gated kernel (sweep_block behind a per-CTA read of the
+# activity grid) they ran,
+# and the emulator's controls, appended to the source so that its templates
+# are in scope.
 SHIM = """
+namespace {
+struct PressPair {  // x y z mask rho press -> 3 (mass^2 applied outside)
+  static constexpr int kIn = 6, kOut = 3, kMask = 3, kRho = 4, kPress = 5;
+  float h, h2, b;
+  void operator()(const float* o, const float* c, float* acc) const {
+    const float dx = c[0] - o[0], dy = c[1] - o[1], dz = c[2] - o[2];
+    const float d2 = dx * dx + dy * dy + dz * dz;
+    const bool live = (d2 > kEps) && (d2 < h2) && (c[kMask] > 0.0f);
+    const float inv_d = rsqrtf(live ? d2 : 1.0f);
+    const float dist = d2 * inv_d;
+    const float q1 = 1.0f - dist / h;
+    const float o1d = b * q1 * q1;
+    const float coeff = press_coeff(fmaxf(o[kRho], kEps), o[kPress],
+                                    fmaxf(c[kRho], kEps), c[kPress]);
+    const float s_p = live ? coeff * o1d * inv_d : 0.0f;
+    acc[0] += s_p * dx;
+    acc[1] += s_p * dy;
+    acc[2] += s_p * dz;
+  }
+};
+struct PressBwdPair {  // x y z mask rho press ct0..2 -> dx dy dz drho dpress
+  static constexpr int kIn = 9, kOut = 5, kMask = 3;
+  PressBwdTerms<3, 4, 5, 6, 3, 4> terms;
+  void operator()(const float* o, const float* c, float* acc) const {
+    terms(o, c, 1.0f, acc);
+  }
+};
+template <class Pair>
+void sweep_active_kernel(const Pair pair,
+                         const SweepArgs<Pair::kIn, Pair::kOut> args,
+                         const ActiveGate gate) {
+  const int col = blockIdx.x;
+  if (gate.active[(col / args.ny) * gate.nyp + (col % args.ny) / gate.patch]
+      == 0)
+    return;
+  sweep_block(pair, args);
+}
+template <class Pair>
+int launch_active(const Pair& pair, const float* const* in,
+                  float* const* out, int nx, int ny, int sub, int cap,
+                  const int* active, void* stream) {
+  const int patch = ny < 8 ? ny : 8;
+  const ActiveGate gate{active, (ny + patch - 1) / patch, patch};
+  return launch_kernel(sweep_active_kernel<Pair>, pair, in, out, nx, ny, sub,
+                       cap, stream, gate);
+}
+}  // namespace
+#define DFT_ACTIVE_PASS in, out, nx, ny, sub, cap, active, stream
 extern "C" {
 void emu_set_sms(int n) { emu_sms = n; }
 void emu_defer(int on) { emu_deferred = on != 0; }
@@ -78,6 +130,18 @@ int emu_block_density_active(DFT_SWEEP_ARGS, float h2, float a,
 int emu_block_press_pq_active(DFT_SWEEP_ARGS, float h2, float inv_h,
                               float b, const int* active, void* stream) {
   return launch_active(PressPqPair{h2, inv_h, b}, DFT_ACTIVE_PASS);
+}
+int emu_block_press(DFT_SWEEP_ARGS, float h, float h2, float b,
+                    void* stream) {
+  return launch(PressPair{h, h2, b}, DFT_SWEEP_PASS);
+}
+int emu_block_press_active(DFT_SWEEP_ARGS, float h, float h2, float b,
+                           const int* active, void* stream) {
+  return launch_active(PressPair{h, h2, b}, DFT_ACTIVE_PASS);
+}
+int emu_block_press_bwd(DFT_SWEEP_ARGS, float h, float h2, float b,
+                        void* stream) {
+  return launch(PressBwdPair{{h, h2, b}}, DFT_SWEEP_PASS);
 }
 }
 """

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """The compacted sweeps of two checkouts of the port, on the same seeded 1M
 planes, in turns, on one card: K1 (density), K4 (prefolded pressure), K2
-(the fused force, with mu and at mu = 0) and K3 (viscosity).
+(the fused force, with mu and at mu = 0), K3 (viscosity), K5 (pressure)
+and K8 (its backward, on seeded cotangents), with the fused force's
+backward K7 (both forms), which shares K8's adjoint terms.
 
     python3 tools/torch_sweep_ab.py ROOT_A ROOT_B [--pairs N]
 
@@ -9,16 +11,19 @@ Each side runs in a fresh process from its own root (this file's worker,
 importing that root's package): the bench's 1M dam break (chip_smoke's
 bench_setup, n3=100, capacity 16) with its positions jittered by +-0.2 dx
 from a numpy seed and seeded pq, velocity, rho and press planes, binned by
-that root's cellops. Per side it times the public calls density_planes
-and pressure_force_pq_planes, ungated and gated (the all-ones and
-chip_smoke's seeded 25.5% activity grid), force_planes (the bench's mu and
-0) and viscosity_force_planes: the call (CUDA events, median of 20 after 2
-warm-ups) and, under torch.profiler over 10 calls, the device time of the
-sweep kernels alone and of everything else the call runs (memsets, the
-wrapper's torch passes). The order is A B B A per pair. The first run of
-each side saves its ungated outputs under ROOT_B/build/; at the end they
-are compared: bit for bit, else the largest difference and the number of
-differing slots. Prints one JSON line per run and a summary line.
+that root's cellops, and three N(0, 1) cotangent planes over every slot
+(chip_smoke.seeded_cotangents, seed 3). Per side it times the public calls
+density_planes, pressure_force_pq_planes and pressure_force_planes,
+ungated and gated (the all-ones and chip_smoke's seeded 25.5% activity
+grid), force_planes (the bench's mu and 0), viscosity_force_planes,
+press_sum_bwd and force_sum_bwd (mu and 0): the call (CUDA events, median
+of 20 after 2 warm-ups) and, under torch.profiler over 10 calls, the
+device time of the sweep kernels alone and of everything else the call
+runs (memsets, the wrapper's torch passes). The order is A B B A per pair.
+The first run of each side saves the outputs of the SAVED calls under
+ROOT_B/build/; at the end they are compared: bit for bit, else the largest
+difference and the number of differing slots. Prints one JSON line per run
+and a summary line.
 """
 
 from __future__ import annotations
@@ -32,8 +37,10 @@ import sys
 import numpy as np
 
 OUT_DIR = "build/sweep_ab"
-# The ungated calls whose outputs the two sides must share, in this order.
-SAVED = ("density", "pressure_pq", "force", "force_p", "viscosity")
+# The calls whose outputs the two sides must share.
+SAVED = ("density", "pressure_pq", "force", "force_p", "viscosity",
+         "pressure", "pressure_bwd", "force_bwd", "force_p_bwd",
+         "pressure_active.quarter")
 
 
 def seeded_planes(dev):
@@ -79,6 +86,7 @@ def worker(root: str, save: str) -> int:
     dev = torch.device("cuda", 0)
     params, spec, planes, k = seeded_planes(dev)
     grids = cs.activity_grids(spec, dev, 12)
+    cts = cs.seeded_cotangents(spec, dev, 3)
     mass, mu = params.mass, float(params.mu)
     rho, press = planes["rho"], planes["press"]
     calls = {
@@ -90,7 +98,15 @@ def worker(root: str, save: str) -> int:
         "force_p": lambda: sw.force_planes(planes, rho, press, spec, k,
                                            mass, 0.0),
         "viscosity": lambda: sw.viscosity_force_planes(planes, rho, spec, k,
-                                                       mass, mu)}
+                                                       mass, mu),
+        "pressure": lambda: sw.pressure_force_planes(planes, rho, press,
+                                                     spec, k, mass),
+        "pressure_bwd": lambda: sw.press_sum_bwd(planes, rho, press, cts,
+                                                 spec, k),
+        "force_bwd": lambda: sw.force_sum_bwd(planes, rho, press, cts, spec,
+                                              k, mass, mu),
+        "force_p_bwd": lambda: sw.force_sum_bwd(planes, rho, press, cts,
+                                                spec, k, mass, 0.0)}
     for g in ("ones", "quarter"):
         calls[f"density_active.{g}"] = (
             lambda a=grids[g]: (sw.density_planes_active(planes, spec, k,
@@ -98,6 +114,9 @@ def worker(root: str, save: str) -> int:
         calls[f"pressure_pq_active.{g}"] = (
             lambda a=grids[g]: sw.pressure_force_pq_planes(
                 planes, planes["pq"], spec, k, mass, active=a))
+        calls[f"pressure_active.{g}"] = (
+            lambda a=grids[g]: sw.pressure_force_planes_active(
+                planes, rho, press, spec, k, mass, a))
     res = {"root": root, "card": cs.card_line(),
            "active_patches_quarter": int(grids["quarter"].sum())}
     for name, fn in calls.items():
@@ -118,8 +137,8 @@ def worker(root: str, save: str) -> int:
         res[name] = {"call_ms": call_ms, "kernel_ms": kern / 10 / 1e3,
                      "other_device_ms": other / 10 / 1e3}
     if save:
-        outs = [o for name in SAVED for o in calls[name]()]
-        torch.save([o.cpu() for o in outs], save)
+        torch.save({name: [o.cpu() for o in calls[name]()]
+                    for name in SAVED}, save)
     print(json.dumps(res), flush=True)
     return 0
 
@@ -141,14 +160,14 @@ def compare(path_a: str, path_b: str) -> dict:
     import torch
 
     a, b = torch.load(path_a), torch.load(path_b)
-    names = ["density"] + [f"{s}_{c}" for s in SAVED[1:] for c in "xyz"]
     out = {}
-    for n, x, y in zip(names, a, b):
-        d = (x - y).abs()
-        out[n] = {"bitwise": bool(torch.equal(x, y)),
-                  "max_abs_diff": float(d.max()),
-                  "max_abs": float(y.abs().max()),
-                  "differing_slots": int((x != y).sum())}
+    for name in SAVED:
+        for i, (x, y) in enumerate(zip(a[name], b[name])):
+            d = (x - y).abs()
+            out[f"{name}[{i}]"] = {"bitwise": bool(torch.equal(x, y)),
+                                   "max_abs_diff": float(d.max()),
+                                   "max_abs": float(y.abs().max()),
+                                   "differing_slots": int((x != y).sum())}
     return out
 
 

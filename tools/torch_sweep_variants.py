@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Variants of the compacted sweep body (K1, K4, K2 in both forms, K3)
-against each other, in one process on one card.
+"""Variants of the compacted sweep body (K1, K4, K2 in both forms, K3, K5,
+K8) against each other, in one process on one card.
 
     python3 tools/torch_sweep_variants.py [--reps 20] [--rounds 2]
 
@@ -12,14 +12,16 @@ independent pairs), each with its own nvcc, all started together, into
 build/variants/, each with an appended query of its compacted kernels'
 CTAs per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the dynamic
 shared memory its launcher asks for) at capacities 16 and 32. Then, on
-torch_sweep_ab.py's seeded 1M planes, times each variant's compacted
-launchers alone (CUDA events around `reps` launches into preallocated
+torch_sweep_ab.py's seeded 1M planes (K8 on chip_smoke's seeded
+cotangents), times each variant's compacted launchers alone (CUDA events
+around `reps` launches into preallocated
 zeroed planes, one zeroed work counter each), the variants in turns
 (forward then backward order, `rounds` times), and checks that every
 variant writes the committed source's outputs bit for bit. Also times the
 passes the wrapper does or no longer does around a launch: the zero-filled
 allocation of one plane (its memset), and a where and a scale over one
-plane. Prints one JSON line.
+plane. Prints one JSON line; with --sass DIR, also writes each variant's
+cuobjdump -sass listing there.
 """
 
 from __future__ import annotations
@@ -50,7 +52,8 @@ CAND_UNROLL = re.compile(r"^#pragma unroll 4\n( *for \(int j = 0; j < n; "
                          r"\+\+j\) \{)$", re.M)
 # The compacted instantiations, in the order of OCCUPANCY's switch.
 COMPACT = ("density", "pressure_pq", "force", "force_p", "viscosity",
-           "density_active", "pressure_pq_active")
+           "density_active", "pressure_pq_active", "pressure",
+           "pressure_bwd", "pressure_active")
 OCCUPANCY = """
 extern "C" int tool_ctas_per_sm(int which, int cap, int* smem) {
   int per_sm = -1;
@@ -72,6 +75,14 @@ extern "C" int tool_ctas_per_sm(int which, int cap, int* smem) {
         cap, smem, &per_sm); break;
     case 6: err = compact_occupancy<PressPqPair, true, AsIs<PressPqPair>>(
         cap, smem, &per_sm); break;
+    case 7: err = compact_occupancy<ForceFoldPair<false>, false,
+                                    ForceFold<false>>(cap, smem, &per_sm);
+      break;
+    case 8: err = compact_occupancy<PressBwdFoldPair, false, PressBwdFold>(
+        cap, smem, &per_sm); break;
+    case 9: err = compact_occupancy<ForceFoldPair<false>, true,
+                                    ForceFold<false>>(cap, smem, &per_sm);
+      break;
   }
   return err == cudaSuccess ? per_sm : -static_cast<int>(err);
 }
@@ -91,7 +102,7 @@ def variant_source(src: str, settings: dict) -> str:
     return src + OCCUPANCY
 
 
-def build_variants() -> dict:
+def build_variants(sass_dir: str = "") -> dict:
     from dieselfluid_tpu_torch.ops import _build
 
     src = (ROOT / "dieselfluid_tpu_torch" / "csrc" / "sph_sweep.cu").read_text()
@@ -112,13 +123,21 @@ def build_variants() -> dict:
         log = p.communicate()[0]
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed on {name}:\n{log}")
-        # ptxas's register line after each compacted kernel's entry.
+        if sass_dir:
+            os.makedirs(sass_dir, exist_ok=True)
+            with open(os.path.join(sass_dir, f"{name}.sass"), "w") as f:
+                subprocess.run([os.path.join(os.path.dirname(nvcc),
+                                             "cuobjdump"), "-sass",
+                                str(libs[name])], stdout=f, check=True)
+        # ptxas's spill and register lines after each compacted kernel's
+        # entry, with its mangled name.
         entry, ptxas[name] = "", []
         for line in log.splitlines():
             if "Compiling entry function" in line:
-                entry = line
-            elif "registers" in line and "compact_sweep_kernel" in entry:
-                ptxas[name].append(line.strip())
+                entry = line.split("'")[1]
+            elif ("registers" in line or "spill" in line) and \
+                    "compact_sweep_kernel" in entry:
+                ptxas[name].append(f"{entry} {line.strip()}")
     return {n: ctypes.CDLL(str(p)) for n, p in libs.items()}, ptxas
 
 
@@ -131,13 +150,16 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--sass", default="")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    libs, ptxas = build_variants()
+    libs, ptxas = build_variants(args.sass)
     params, spec, planes, k = seeded_planes(dev)
+    planes = dict(planes, **{f"ct_{i}": c for i, c in enumerate(
+        cs.seeded_cotangents(spec, dev, 3))})
     h, mass, mu = float(k.h), float(params.mass), float(params.mu)
     vel = ("x", "y", "z", "vx", "vy", "vz", "mask")
     sweeps = {
@@ -152,7 +174,13 @@ def main() -> int:
                     ("x", "y", "z", "mask", "rho", "press"), 3,
                     (h, h * h, float(k.b), mass * mass, 1.0)),
         "viscosity": ("dft_visc_sweep", vel + ("rho",), 3,
-                      (h, h * h, float(k.c), mu * mass))}
+                      (h, h * h, float(k.c), mu * mass)),
+        "pressure": ("dft_press_sweep",
+                     ("x", "y", "z", "mask", "rho", "press"), 3,
+                     (h, h * h, float(k.b), mass * mass)),
+        "pressure_bwd": ("dft_press_bwd_sweep",
+                         ("x", "y", "z", "mask", "rho", "press", "ct_0",
+                          "ct_1", "ct_2"), 5, (h, h * h, float(k.b), 1.0))}
     stream = torch.cuda.current_stream().cuda_stream
 
     def launcher(lib, sweep):
