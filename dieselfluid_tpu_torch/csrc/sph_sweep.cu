@@ -15,8 +15,8 @@
 //   (:699), `_visc_sum_bwd` (:765) and the fused force's `_force_bwd`
 //   (:624, with and without viscosity), whose pair functions the JAX
 //   package derives with jax.vjp (`_bwd_pair`, :415) and which are written
-//   out by hand here (DensityBwdPair, PressBwdFoldPair, ViscBwdPair,
-//   ForceBwdPair);
+//   out by hand here (DensityBwdPair, PressBwdFoldPair, ViscBwdFoldPair,
+//   ForceBwdFoldPair);
 //   and, gated per (x, y-patch) by an int32 activity grid (`_sweep`'s
 //   `active=`, gate at :216-251), density, pressure and prefolded pressure:
 //   `density_planes_active` (:855), `pressure_force_planes_active` (:862),
@@ -56,38 +56,38 @@
 // lax.rsqrt, IEEE divides elsewhere. Every masked branch is a select, never
 // a multiply by a mask, so no 0 * inf reaches an output.
 //
-// sweep_block (the backward sweeps K6, K7 in both forms, and K9): one
-// 128-thread CTA per 128-slot own block of one row, launched for every
-// interior block of every column; a CTA with no occupied own slot exits
-// after reading its mask. Otherwise it stages the (128 + 2*cap)-slot window
-// of the 9 stencil rows for every input channel in dynamic shared memory
-// ([C][9][W] words, 69.1 KB for the fused force backward at cap 16, hence
-// cudaFuncSetAttribute), and each thread sums the pair function over all
-// its 9 x 3*cap candidate slots, occupied or not, masked by the candidate's
-// mask channel. What holds it back (measured on K1-K5, K8 and K10,
-// PERF.md): the grid of mostly empty CTAs, which reserve their shared
-// memory; the 432 (cap 16) or 864 (cap 32) candidate iterations per thread
-// whatever the occupancy; half of each warp idle on empty own slots; scalar
-// staging. Its sweeps take 5-12 channels in.
+// sweep_block (the density backward K6 alone): one 128-thread CTA per
+// 128-slot own block of one row, launched for every interior block of every
+// column; a CTA with no occupied own slot exits after reading its mask.
+// Otherwise it stages the (128 + 2*cap)-slot window of the 9 stencil rows
+// for every input channel in dynamic shared memory ([C][9][W] words), and
+// each thread sums the pair function over all its 9 x 3*cap candidate
+// slots, occupied or not, masked by the candidate's mask channel. What
+// holds it back (measured on the sweeps that left it, PERF.md): the grid of
+// mostly empty CTAs, which reserve their shared memory; the 432 (cap 16) or
+// 864 (cap 32) candidate iterations per thread whatever the occupancy; half
+// of each warp idle on empty own slots; scalar staging.
 //
 // compact_sweep_kernel (K1 density, K2 fused force in both forms, K3
-// viscosity, K4 prefolded pressure, K5 pressure, the pressure backward K8,
-// and K10: K1, K4 and K5 gated): a persistent grid of as many 128-thread
-// CTAs as fit on the SMs. Each fetches kBatch own blocks at a time from its
-// launch's work counter (blocks fetch, fetch + n_fetch, ..., so one fetch
-// spans the domain and the tail balances) and keeps those whose 128 own
-// mask words hold an occupied slot (and, gated, whose column's canonical
-// patch is active): no CTA is launched for an empty block. For a kept block
-// it
+// viscosity, K4 prefolded pressure, K5 pressure, the backward sweeps K7 in
+// both forms, K8 and K9, and K10: K1, K4 and K5 gated): a persistent grid
+// of as many 128-thread CTAs as fit on the SMs. Each fetches kBatch own
+// blocks at a time from its launch's work counter (blocks fetch, fetch +
+// n_fetch, ..., so one fetch spans the domain and the tail balances) and
+// keeps those whose 128 own mask words hold an occupied slot (and, gated,
+// whose column's canonical patch is active): no CTA is launched for an
+// empty block. For a kept block it
 //   * ranks the occupied own slots by ballots and maps them onto threads
 //     0..n-1 in slot order, so warps are full;
 //   * stages the 9-row window with one float4 load per input plane, and
-//     stores each occupied candidate as one or two float4s (the pair's
-//     channels but the mask: x y z [pq] for K1, K4, K5 and K2 at mu = 0;
-//     x y z vx vy vz rho for K3, x y z vx vy vz pq iv for K2, x y z pq ct0
-//     ct1 ct2 for K8) at [half][cell][rank], counting the cell's occupied
-//     slots. K2, K5 and K8 read rho and press and fold pq (and K2 iv) as
-//     they stage (ForceFold, PressBwdFold);
+//     stores each occupied candidate as one, two or three float4s (the
+//     pair's channels but the mask: x y z [pq] for K1, K4, K5 and K2 at mu
+//     = 0; x y z vx vy vz rho for K3, x y z vx vy vz pq iv for K2; x y z pq
+//     ct0..2 for K8 and K7 at mu = 0; x y z vx vy vz iv ct0..2 for K9; x y
+//     z vx vy vz pq iv ct0..2 for K7) at [part][cell][rank], counting the
+//     cell's occupied slots. K2, K5, K7, K8 and K9 read rho (and press) and
+//     fold pq and iv as they stage (ForceFold, PressBwdFold, ViscBwdFold,
+//     ForceBwdFold);
 //   * sums each own slot's pair over only the occupied candidates: a
 //     cell's occupied slots are its first ranks (dense_indices ranks by a
 //     stable sort, build_planes writes exactly those slots, the solvers
@@ -97,38 +97,46 @@
 // an accumulator that starts at +0, so each sum is bit for bit
 // sweep_block's. The epilogue writes (acc * own_m) * scale: the mass (K1),
 // mass^2 (K4, K5) or mu * mass (K3) the caller would apply, with the same
-// two float32 roundings (K2 keeps mass^2 and mu * mass in its pair, K8 has
-// none: scale 1). It writes only occupied own slots, so every slot whose
-// mask is not > 0 keeps the caller's 0. Shared memory per CTA is 9 * ncw *
-// cap * 16 bytes per float4 of a candidate (ncw = 128 / cap + 2): 23,040 B
-// for one float4 at cap 16, 46,080 B for two. Each launch has its own work
-// counter in memory the caller allocates zeroed; the last CTA to leave
-// zeroes it again, so launches on different streams never share a walk.
+// two float32 roundings (K2 and K7 keep mass^2 and mu * mass in their
+// pairs, K8 and K9 have none: scale 1). It writes only occupied own slots,
+// so every slot whose mask is not > 0 keeps the caller's 0. Shared memory
+// per CTA is 9 * ncw * cap * 16 bytes per float4 of a candidate (ncw = 128
+// / cap + 2) plus 9 * ncw counts: 23,400 B for one float4 at cap 16,
+// 46,440 B for two, 69,480 B for three (83,160 B at cap 32). Each launch
+// has its own work counter in memory the caller allocates zeroed; the last
+// CTA to leave zeroes it again, so launches on different streams never
+// share a walk.
 //
 // K5 on the fused force's pair: JAX's `_press_pair` sums (p_i / r_i^2 +
 // p_j / r_j^2) * B q1^2 / d * d, r = max(rho, eps), which is term for term
 // ForceFoldPair<false> with mass2 = 1 (the same live test, rsqrtf, dist / h
-// and b * q1 * q1) on pq = p / r^2, and ForceFold<false> folds pq with
-// press_coeff's roundings (a multiply and an IEEE divide, nothing to
+// and b * q1 * q1) on pq = p / r^2, and ForceFold<false> folds pq with the
+// old pair's roundings (a multiply and an IEEE divide, nothing to
 // contract). mass2 * coeff with mass2 = 1 is exact, so the pair's terms are
 // the old pressure pair's bit for bit; mass^2 is the epilogue's scale.
 //
-// K8 and the role swap. An adjoint pair reads the candidate's cotangent,
-// rho and press when the own slot is the source (bb = near && own_mask > 0),
-// whatever the candidate's mask. sweep_block visited empty candidates too;
-// the compacted body skips them, which is exact because every such term is
-// +-0 on the planes the callers pass: the cotangents at empty slots are 0
-// on sweep_block's route (the wrapper masks them, as JAX's
-// `_press_sum_bwd` does), rho is 0 there (density_planes writes only
-// occupied slots, to_plane scatters into zeros) and so is press
-// (dense_step.py's where(mask > 0, ., 0) and to_plane). Then e = 0, and
-// every term is a product with e or with e.d. A non-zero press at an
-// empty slot would make coeff = p_i / r_i^2 + p_j / eps^2 (eps^2 = 1e-24:
-// 5e25 for p_j = 50); coeff * phi or 2 * coeff * dphi may then overflow to
-// inf, and sweep_block's term becomes inf * 0 = NaN (p_j above ~3.4e14
-// makes coeff itself inf). The compacted body reads no input, cotangents
-// included, at an empty slot, so its wrapper masks neither the cotangents
-// nor the outputs.
+// The adjoints (K7, K8, K9) and the role swap. An adjoint pair reads the
+// candidate's cotangents, press and velocities when the own slot is the
+// source (bb = near && own_mask > 0), whatever the candidate's mask.
+// sweep_block visited empty candidates too; the compacted body skips them,
+// which is exact because every such term is +-0 when, at every empty slot,
+//   * the cotangents are 0: sweep_block's wrapper masked them (as JAX's
+//     `_press_sum_bwd` and `_visc_sum_bwd` do), and the compacted body
+//     reads none at an empty slot, so its wrapper masks neither them nor
+//     the outputs;
+//   * press is 0 and rho finite (density_planes writes only occupied
+//     slots, to_plane scatters into zeros, dense_step.py's where(mask > 0,
+//     ., 0)): a non-zero press there makes coeff = p_i / r_i^2 + p_j / eps^2
+//     (eps^2 = 1e-24: 5e25 for p_j = 50); coeff * phi or 2 * coeff * dphi
+//     may then overflow to inf, and sweep_block's term becomes inf * 0 =
+//     NaN (p_j above ~3.4e14 makes coeff itself inf). rho enters only
+//     through max(rho, eps), and 1 / max(rho_j, eps) only on the receiver's
+//     side, which an empty candidate never takes;
+//   * the positions and the velocities are finite (0 from the same
+//     scatters): d and v_j - v_i multiply the zero cotangent terms.
+// Then e = 0, and every term is a product with e, e.d, e.dv or ct_j.dv.
+// tests/test_torch_prefix_invariant.py checks the planes the solvers hand
+// these sweeps.
 
 #include <cuda_runtime.h>
 
@@ -233,13 +241,6 @@ struct PressPqPair {  // x y z mask pq -> 3 (mass^2: the scale)
   }
 };
 
-// p_i / max(rho_i, eps)^2 + p_j / max(rho_j, eps)^2 (the pressure adjoint's
-// coeff; K5's forward and the folded K8 fold each term as they stage it).
-__device__ __forceinline__ float press_coeff(float rho_i, float p_i,
-                                             float rho_j, float p_j) {
-  return p_i / (rho_i * rho_i) + p_j / (rho_j * rho_j);
-}
-
 // value * d max(x, eps)/dx, with jnp.maximum's half at the tie.
 __device__ __forceinline__ float max_eps_grad(float x, float value) {
   return (x > kEps) ? value : ((x == kEps) ? 0.5f * value : 0.0f);
@@ -268,20 +269,23 @@ struct DensityBwdPair {  // x y z mask ct -> dx dy dz
 };
 
 // The two adjoints below are written once, as terms over channel positions
-// (input mask, rho, press and first cotangent; output rho and press), with
-// the positions x y z at 0..2 and the velocities at 3..5, in and out. Each
-// adds `s` times its gradients into `acc`: the sweeps K8 and K9 take s = 1,
-// the fused force's adjoint (K7) takes s = mass^2 and s = mu * mass.
+// (input mask, the own slot's raw rho and press, the folded pq or iv, first
+// cotangent; output rho and press), with the positions x y z at 0..2 and
+// the velocities at 3..5, in and out. Each adds `s` times its gradients
+// into `acc`: the sweeps K8 and K9 take s = 1, the fused force's adjoint
+// (K7) takes s = mass^2 and s = mu * mass. Both read a slot's rho only
+// through its folds, staged for own and candidate alike with the roundings
+// of the pair on raw planes (PressBwdFold, ViscBwdFold, ForceBwdFold), and
+// the own slot's raw rho (and press) for the drho and dpress terms.
 
 // g = coeff * phi(d2) * d, phi = B q1^2 / r. With e = bb ct_j - a ct_i:
 //   d/dx_i = coeff (2 phi'(d2) (e.d) d + phi e)
 //   d/dp_i = -phi (e.d) / rho_i^2,  d/drho_i = 2 phi (e.d) p_i / rho_i^3.
-// coeff = p_i / max(rho_i, eps)^2 + p_j / max(rho_j, eps)^2, formed from
-// both slots' rho and press at kRho and kPress, or, where kPq >= 0, as
-// pq_i + pq_j from pq = p / max(rho, eps)^2 folded as staged (which rounds
-// as press_coeff; kRho and kPress then index the own slot's raw values).
+// coeff = p_i / max(rho_i, eps)^2 + p_j / max(rho_j, eps)^2, formed as
+// pq_i + pq_j from pq = p / max(rho, eps)^2 at kPq (a multiply and an IEEE
+// divide each, as p_i / (r_i * r_i) + p_j / (r_j * r_j) rounds).
 template <int kMask, int kRho, int kPress, int kCt, int kOutRho, int kOutPress,
-          int kPq = -1>
+          int kPq>
 struct PressBwdTerms {
   float h, h2, b;
   __device__ __forceinline__ void operator()(const float* o, const float* c,
@@ -299,11 +303,7 @@ struct PressBwdTerms {
     const float inv_d2 = inv_d * inv_d;
     const float dphi = -(b / h) * q1 * inv_d2 - 0.5f * o1d * inv_d2 * inv_d;
     const float rho_i = fmaxf(o[kRho], kEps);
-    float coeff;
-    if constexpr (kPq < 0)
-      coeff = press_coeff(rho_i, o[kPress], fmaxf(c[kRho], kEps), c[kPress]);
-    else
-      coeff = o[kPq] + c[kPq];
+    const float coeff = o[kPq] + c[kPq];
     const float ex = (bb ? c[kCt] : 0.0f) - (a ? o[kCt] : 0.0f);
     const float ey = (bb ? c[kCt + 1] : 0.0f) - (a ? o[kCt + 1] : 0.0f);
     const float ez = (bb ? c[kCt + 2] : 0.0f) - (a ? o[kCt + 2] : 0.0f);
@@ -324,7 +324,14 @@ struct PressBwdTerms {
 // g = o2d(d2) / rho_j * (v_j - v_i). With e = bb ct_j / rho_i - a ct_i /
 // rho_j:  d/dx_i = 2 o2d'(d2) (e.dv) d,  d/dv_i = o2d e,
 // d/drho_i = bb o2d (ct_j.dv) / rho_i^2 (i's rho as the source's).
-template <int kMask, int kRho, int kCt, int kOutRho>
+// 1 / max(rho, eps) is read at kIv (one IEEE divide, as 1 / max(rho, eps)
+// on the raw planes rounds); kRho indexes the own slot's raw rho. The two
+// products of e are rounded apart (__fmul_rn): where the masks read 1 at
+// compile time (the compacted body), a == bb, and nvcc would contract
+// ct_j / rho_i - ct_i / rho_j into an FMA, which the same terms on mask
+// planes (two runtime selects) never formed: 58% of K9's outputs moved by
+// an ulp on an H100 (PERF.md).
+template <int kMask, int kRho, int kCt, int kOutRho, int kIv>
 struct ViscBwdTerms {
   float h, h2, cw;
   __device__ __forceinline__ void operator()(const float* o, const float* c,
@@ -338,13 +345,14 @@ struct ViscBwdTerms {
     const float dist = d2 * inv_d;
     const float o2d = cw * (1.0f - dist / h);
     const float do2d = -0.5f * (cw / h) * inv_d;
-    const float inv_ri = 1.0f / fmaxf(o[kRho], kEps);
-    const float inv_rj = 1.0f / fmaxf(c[kRho], kEps);
-    const float ex = (bb ? c[kCt] * inv_ri : 0.0f) - (a ? o[kCt] * inv_rj : 0.0f);
-    const float ey =
-        (bb ? c[kCt + 1] * inv_ri : 0.0f) - (a ? o[kCt + 1] * inv_rj : 0.0f);
-    const float ez =
-        (bb ? c[kCt + 2] * inv_ri : 0.0f) - (a ? o[kCt + 2] * inv_rj : 0.0f);
+    const float inv_ri = o[kIv];
+    const float inv_rj = c[kIv];
+    const float ex = (bb ? __fmul_rn(c[kCt], inv_ri) : 0.0f) -
+                     (a ? __fmul_rn(o[kCt], inv_rj) : 0.0f);
+    const float ey = (bb ? __fmul_rn(c[kCt + 1], inv_ri) : 0.0f) -
+                     (a ? __fmul_rn(o[kCt + 1], inv_rj) : 0.0f);
+    const float ez = (bb ? __fmul_rn(c[kCt + 2], inv_ri) : 0.0f) -
+                     (a ? __fmul_rn(o[kCt + 2], inv_rj) : 0.0f);
     const float dvx = c[3] - o[3], dvy = c[4] - o[4], dvz = c[5] - o[5];
     const float g = 2.0f * do2d * (ex * dvx + ey * dvy + ez * dvz);
     const float wdv =
@@ -360,16 +368,17 @@ struct ViscBwdTerms {
   }
 };
 
-// K8, on the compacted body with each candidate's pq = p / max(rho, eps)^2
-// folded as staged (PressBwdFold): x y z mask pq ct0..2, and after them the
-// own slot's raw rho and press, read once per own slot. coeff = pq_i + pq_j
-// rounds as press_coeff, so the sums are those of the pair on raw rho and
-// press (PressBwdTerms<3, 4, 5, 6, 3, 4>, which K8 ran on sweep_block) bit
-// for bit, with one IEEE divide a pair fewer; staging raw rho and press
-// took 13% longer on an H100 (PERF.md). nvcc hoists the own slot's p_i /
-// r_i^2 and 1 / r_i^2 out of the candidate loop: two divides a pair
-// remain, dist / h and the drho term's / rho_i.
-struct PressBwdFoldPair {  // x y z mask pq ct0..2 [own rho press] -> 5
+// The adjoint pairs, each on its compacted staging: the pair's channels are
+// the staged values with the mask at kMask, then the own slot's raw values
+// (Stage::own). Each sums, bit for bit, what the same terms on raw rho and
+// press planes summed on sweep_block (the pairs K7, K8 and K9 ran there,
+// which tests/test_torch_sweep_emulated.py keeps): the folds round as those
+// terms did, and nvcc hoists the own slot's p_i / r_i^2 and 1 / r_i^2 out
+// of the candidate loop.
+
+// K8 (s = 1) on PressBwdFold's x y z mask pq ct0..2 [own rho press]; staging
+// raw rho and press took 13% longer on an H100 (PERF.md).
+struct PressBwdFoldPair {  // -> dx dy dz drho dpress
   static constexpr int kIn = 8, kOut = 5, kMask = 3;
   PressBwdTerms<3, 8, 9, 5, 3, 4, 4> terms;
   __device__ __forceinline__ void operator()(const float* o, const float* c,
@@ -378,9 +387,10 @@ struct PressBwdFoldPair {  // x y z mask pq ct0..2 [own rho press] -> 5
   }
 };
 
-struct ViscBwdPair {  // x y z vx vy vz mask rho ct0..2 -> 7
+// K9 on ViscBwdFold's x y z vx vy vz mask iv ct0..2 [own rho].
+struct ViscBwdFoldPair {  // -> dx dy dz dvx dvy dvz drho
   static constexpr int kIn = 11, kOut = 7, kMask = 6;
-  ViscBwdTerms<6, 7, 8, 6> terms;
+  ViscBwdTerms<6, 11, 8, 6, 7> terms;
   __device__ __forceinline__ void operator()(const float* o, const float* c,
                                              float* acc) const {
     terms(o, c, 1.0f, acc);
@@ -390,17 +400,18 @@ struct ViscBwdPair {  // x y z vx vy vz mask rho ct0..2 -> 7
 // The adjoint of the unfolded fused force pair (JAX `_force_pair`, K7). That
 // pair is exactly mass^2 * the pressure pair + mu * mass * the viscosity
 // pair, with the same live test and eps clamps, so its adjoint is the two
-// adjoints scaled and summed: x, y, z and rho take both, v the viscosity
-// part, press the pressure part. kVisc = false is the mu == 0 form, which
-// reads no velocities.
+// adjoints scaled and summed, term by term in the pair (s * t summed rounds
+// otherwise than s * the sum): x, y, z and rho take both, v the viscosity
+// part, press the pressure part. kVisc = false is the mu == 0 form, on K8's
+// staging (PressBwdFold), which reads no velocities.
 template <bool kVisc>
-struct ForceBwdPair;
+struct ForceBwdFoldPair;
 
 template <>
-struct ForceBwdPair<true> {  // x y z vx vy vz mask rho press ct0..2 -> 8
+struct ForceBwdFoldPair<true> {  // ForceBwdFold's 11 values -> 8
   static constexpr int kIn = 12, kOut = 8, kMask = 6;
-  PressBwdTerms<6, 7, 8, 9, 6, 7> press;
-  ViscBwdTerms<6, 7, 9, 6> visc;
+  PressBwdTerms<6, 12, 13, 9, 6, 7, 7> press;
+  ViscBwdTerms<6, 12, 9, 6, 8> visc;
   float mass2, mu_mass;
   __device__ __forceinline__ void operator()(const float* o, const float* c,
                                              float* acc) const {
@@ -410,9 +421,9 @@ struct ForceBwdPair<true> {  // x y z vx vy vz mask rho press ct0..2 -> 8
 };
 
 template <>
-struct ForceBwdPair<false> {  // x y z mask rho press ct0..2 -> 5
-  static constexpr int kIn = 9, kOut = 5, kMask = 3;
-  PressBwdTerms<3, 4, 5, 6, 3, 4> press;
+struct ForceBwdFoldPair<false> {  // PressBwdFold's 7 values -> 5
+  static constexpr int kIn = 8, kOut = 5, kMask = 3;
+  PressBwdTerms<3, 8, 9, 5, 3, 4, 4> press;
   float mass2;
   __device__ __forceinline__ void operator()(const float* o, const float* c,
                                              float* acc) const {
@@ -527,7 +538,8 @@ int launch(const Pair& pair, const float* const* in, float* const* out,
 }
 
 // ---------------------------------------------------------------------------
-// The compacted body: K1-K5, K8 and the gated K1/K4/K5 (see the header).
+// The compacted body: K1-K5, K7-K9 and the gated K1/K4/K5 (see the
+// header).
 // ---------------------------------------------------------------------------
 
 // Tuning, each the faster of the variants tools/torch_sweep_variants.py
@@ -535,8 +547,8 @@ int launch(const Pair& pair, const float* const* in, float* const* out,
 // slower); no padding after a staged cell (a float4 of pad puts
 // neighbouring cells' candidates on other banks but costs a CTA per SM:
 // 5% slower); the candidate loop unrolled by 4 (overlaps independent
-// pairs; 2 was slower for density); a two-float4 candidate's halves in two
-// arrays, [half][cell][rank] (kInterleave false), not side by side.
+// pairs; 2 was slower for density); a candidate's float4s in one array
+// each, [part][cell][rank] (kInterleave false), not side by side.
 constexpr int kBatch = 8;       // own blocks per work fetch
 constexpr int kCellPad = 0;     // float4s of padding after each staged cell
 constexpr bool kInterleave = false;
@@ -578,9 +590,10 @@ struct ForceFold {
                                              float*) {}
 };
 
-// K8 folded: x y z mask rho press ct0..2 in; each candidate staged as x y z
-// pq ct0..2 (pq rounded as ForceFold's), and the own slot's raw rho and
-// press read from their planes for the drho and dpress terms.
+// K8 and K7 at mu = 0, folded: x y z mask rho press ct0..2 in; each
+// candidate staged as x y z pq ct0..2 (pq rounded as ForceFold's), and the
+// own slot's raw rho and press read from their planes for the drho and
+// dpress terms.
 struct PressBwdFold {
   static constexpr int kIn = 9, kMask = 3, kVals = 7, kOwn = 2;
   static __device__ __forceinline__ void fold(const float* raw, float* v) {
@@ -600,6 +613,47 @@ struct PressBwdFold {
   }
 };
 
+// K9 folded: x y z vx vy vz mask rho ct0..2 in; each candidate staged as x
+// y z vx vy vz iv ct0..2 (iv rounded as ForceFold's), and the own slot's raw
+// rho read from its plane for the drho term.
+struct ViscBwdFold {
+  static constexpr int kIn = 11, kMask = 6, kVals = 10, kOwn = 1;
+  static __device__ __forceinline__ void fold(const float* raw, float* v) {
+#pragma unroll
+    for (int i = 0; i < 6; ++i) v[i] = raw[i];
+    v[6] = 1.0f / fmaxf(raw[6], kEps);
+    v[7] = raw[7];
+    v[8] = raw[8];
+    v[9] = raw[9];
+  }
+  static __device__ __forceinline__ void own(const float* const* in,
+                                             long long idx, float* e) {
+    e[0] = in[7][idx];
+  }
+};
+
+// K7 folded: x y z vx vy vz mask rho press ct0..2 in; each candidate staged
+// as x y z vx vy vz pq iv ct0..2 (both rounded as ForceFold's), and the own
+// slot's raw rho and press read from their planes.
+struct ForceBwdFold {
+  static constexpr int kIn = 12, kMask = 6, kVals = 11, kOwn = 2;
+  static __device__ __forceinline__ void fold(const float* raw, float* v) {
+#pragma unroll
+    for (int i = 0; i < 6; ++i) v[i] = raw[i];
+    const float r = fmaxf(raw[6], kEps);
+    v[6] = raw[7] / (r * r);
+    v[7] = 1.0f / r;
+    v[8] = raw[8];
+    v[9] = raw[9];
+    v[10] = raw[10];
+  }
+  static __device__ __forceinline__ void own(const float* const* in,
+                                             long long idx, float* e) {
+    e[0] = in[7][idx];
+    e[1] = in[8][idx];
+  }
+};
+
 struct CompactGeom {
   long long n_items;   // nx * ny * (sub - 2) own blocks
   unsigned n_fetch;    // ceil(n_items / kBatch)
@@ -609,11 +663,12 @@ struct CompactGeom {
   int w4;              // float4 chunks per stencil row
 };
 
-// Float4s per staged candidate: one for up to 4 values, two for up to 8.
+// Float4s per staged candidate: one for up to 4 values, two for up to 8,
+// three for up to 12.
 template <class Stage>
 __host__ __device__ constexpr int n_vec() { return (Stage::kVals + 3) / 4; }
 
-// Shared-memory float4 index of half `k` of the candidate at `cell`, `rank`
+// Shared-memory float4 index of part `k` of the candidate at `cell`, `rank`
 // (cs = cap + kCellPad float4s per cell, n_cells = 9 * ncw).
 template <int NV>
 __device__ __forceinline__ int cand_at(int k, int cell, int rank, int cs,
@@ -778,7 +833,7 @@ compact_sweep_kernel(const Pair pair,
                      float scale, unsigned* work) {
   static_assert(Stage::kVals == Pair::kIn - 1,
                 "the staged values are the pair's channels but the mask");
-  static_assert(Stage::kVals <= 8, "candidates must fit two float4s");
+  static_assert(Stage::kVals <= 12, "candidates must fit three float4s");
   extern __shared__ float4 smem4[];
   __shared__ long long item_off[kBatch];
   __shared__ long long row_off[9];
@@ -922,13 +977,13 @@ int launch_compact_active(const Pair& pair, const float* const* in,
 
 // C interface, one launcher per sweep. `in` and `out` are host arrays of
 // device pointers to contiguous float32 planes of shape (rows, sub, 128), in
-// the channel order of each functor above (K2, K5: of its ForceFold; K8: x
-// y z mask rho press ct0..2); outputs must be zero-filled by the caller.
-// Returns the cudaError_t of the launch.
+// the channel order of each functor above, or of its staging policy where
+// it has one (K2, K5: ForceFold; K8 and K7 at mu = 0: PressBwdFold, x y z
+// mask rho press ct0..2; K9: ViscBwdFold; K7: ForceBwdFold); outputs must
+// be zero-filled by the caller. Returns the cudaError_t of the launch.
 //
-// The compacted sweeps (density, fused force in both forms, viscosity,
-// prefolded pressure, pressure, the pressure backward, and the gated
-// density, pressure and prefolded pressure) also take `scale`, applied to
+// The compacted sweeps (all but the density backward) also take `scale`,
+// applied to
 // every output as (acc * own_m) * scale, and
 // `work`, a device pointer to this launch's own counter: two uint32 words,
 // zero when the launch is enqueued, which the kernel leaves zero again. So
@@ -1023,19 +1078,25 @@ int dft_press_bwd_sweep(DFT_SWEEP_ARGS, float h, float h2, float b,
 }
 
 int dft_visc_bwd_sweep(DFT_SWEEP_ARGS, float h, float h2, float cw,
-                       void* stream) {
-  return launch(ViscBwdPair{{h, h2, cw}}, DFT_SWEEP_PASS);
+                       float scale, unsigned* work, void* stream) {
+  return launch_compact<ViscBwdFoldPair, false, ViscBwdFold>(
+      ViscBwdFoldPair{{h, h2, cw}}, DFT_COMPACT_PASS, kNoGate, stream);
 }
 
 int dft_force_bwd_sweep(DFT_SWEEP_ARGS, float h, float h2, float b, float cw,
-                        float mass2, float mu_mass, void* stream) {
-  return launch(ForceBwdPair<true>{{h, h2, b}, {h, h2, cw}, mass2, mu_mass},
-                DFT_SWEEP_PASS);
+                        float mass2, float mu_mass, float scale,
+                        unsigned* work, void* stream) {
+  return launch_compact<ForceBwdFoldPair<true>, false, ForceBwdFold>(
+      ForceBwdFoldPair<true>{{h, h2, b}, {h, h2, cw}, mass2, mu_mass},
+      DFT_COMPACT_PASS, kNoGate, stream);
 }
 
 int dft_force_p_bwd_sweep(DFT_SWEEP_ARGS, float h, float h2, float b,
-                          float mass2, void* stream) {
-  return launch(ForceBwdPair<false>{{h, h2, b}, mass2}, DFT_SWEEP_PASS);
+                          float mass2, float scale, unsigned* work,
+                          void* stream) {
+  return launch_compact<ForceBwdFoldPair<false>, false, PressBwdFold>(
+      ForceBwdFoldPair<false>{{h, h2, b}, mass2}, DFT_COMPACT_PASS, kNoGate,
+      stream);
 }
 
 }  // extern "C"

@@ -58,27 +58,31 @@ holds each kernel against them on the card). Each CUDA launch adds one to its
 sweep's `launches` count (`SWEEPS`). Scales the JAX package applies outside
 its kernel (mass, mu*mass, mass^2) are applied here outside the kernel too
 when they are 0-d tensors, so Materials gradients flow through plain torch
-(the compact sweeps fold Python numbers, below). Cotangents are masked
-before a sweep_block backward sweep and every output after a sweep_block
-sweep with `torch.where(mask > 0, out, 0)` as the JAX `_mask_where` does;
-slots the kernel does not compute, ghost rows included, read 0.
+(the compact sweeps fold Python numbers, below). The density backward
+K6, the one sweep left on the sweep_block body, has its cotangent masked
+before it and every output masked after it with
+`torch.where(mask > 0, out, 0)` as the JAX `_mask_where` does; slots the
+kernel does not compute, ghost rows included, read 0.
 
-The compact sweeps (K1 density, K2 fused force in both forms, K3
-viscosity, K4 prefolded pressure, K5 pressure, the pressure backward K8,
-and K1/K4/K5 gated) run the compacted kernel body, and on the CUDA route
-leave passes out of torch:
+The compact sweeps (all others: K1 density, K2 fused force in both forms,
+K3 viscosity, K4 prefolded pressure, K5 pressure, the backward sweeps K7
+in both forms, K8 and K9, and K1/K4/K5 gated) run the compacted kernel
+body, and on the CUDA route leave passes out of torch:
   * the `_mask_where` per output: the kernel writes only slots whose mask
     is > 0 and the rest keep the zeros the wrapper allocates, ghost rows
     and blocks included, so the where would return its input bit for bit;
-  * K8's `_mask_where` per cotangent: the kernel reads no input at an
-    empty slot, so a cotangent's value there cannot reach a gradient;
+  * the backward sweeps' `_mask_where` per cotangent: the kernel reads
+    no input at an empty slot, so a cotangent's value there cannot reach
+    a gradient;
   * the scale per output, when its factors are Python numbers: the kernel
     writes (acc * own_m) * mass (K1), * mass^2 (K4, K5) or * mu * mass
     (K3), the same two float32 roundings as the multiply after the sweep.
     The backward scales the cotangents as that multiply's backward did, so
     gradients are unchanged. A 0-d tensor factor (traced Materials) keeps
     the scale in torch;
-  * K2's folds of pq and iv (K5's of pq), plane-sized passes and planes.
+  * K2's folds of pq and iv (K5's of pq), plane-sized passes and planes;
+    the backward sweeps fold pq and iv as they stage too, for the pair on
+    raw rho and press (the plain adjoint pairs read those).
 The plain version applies all of them as torch passes. The compacted
 kernel needs a mask of 0 and 1 whose occupied slots are each cell's first
 ranks, which is what `build_planes` writes. Each compacted launch gets its
@@ -404,12 +408,11 @@ DENSITY_BWD = Sweep("density_bwd", "dft_density_bwd_sweep",
 PRESS_BWD = Sweep("pressure_bwd", "dft_press_bwd_sweep",
                   PRESS.in_names + _CT3, 5, f"{_PALLAS}:699", compact=True)
 VISC_BWD = Sweep("viscosity_bwd", "dft_visc_bwd_sweep",
-                 VISC.in_names + _CT3, 7, f"{_PALLAS}:765")
+                 VISC.in_names + _CT3, 7, f"{_PALLAS}:765", compact=True)
 FORCE_BWD = Sweep("force_bwd", "dft_force_bwd_sweep",
-                  ("x", "y", "z", "vx", "vy", "vz", "mask", "rho", "press")
-                  + _CT3, 8, f"{_PALLAS}:624")
+                  FORCE.in_names + _CT3, 8, f"{_PALLAS}:624", compact=True)
 FORCE_P_BWD = Sweep("force_p_bwd", "dft_force_p_bwd_sweep",
-                    PRESS.in_names + _CT3, 5, f"{_PALLAS}:624")
+                    PRESS.in_names + _CT3, 5, f"{_PALLAS}:624", compact=True)
 # K10: the gated forms (the gate is `_sweep`'s `active=`, :216-251).
 DENSITY_ACTIVE = Sweep("density_active", "dft_density_active_sweep",
                        DENSITY.in_names, 1, f"{_PALLAS}:855", gated=True,
@@ -735,7 +738,7 @@ def _visc_ops(k: KernelCoeffs, scale: float = 1.0) -> Tuple[Op, Op]:
     h = float(k.h)
     c = (h, h * h, float(k.c))
     return ((VISC, _visc_pair(k), c + (scale,)),
-            (VISC_BWD, _visc_bwd_pair(k), c))
+            (VISC_BWD, _visc_bwd_pair(k), c + (1.0,)))
 
 
 # ---------------------------------------------------------------------------
@@ -757,16 +760,16 @@ def _density(run, planes: Planes, spec: DenseCellSpec, k: KernelCoeffs,
 
 def _force_ops(k: KernelCoeffs, mass: float, mu: float) -> Tuple[Op, Op]:
     """The folded forward sweep and the adjoint of the unfolded pair; mass
-    and mu are baked into both kernels (mu == 0: the pressure-only forms),
-    so the forward's epilogue scale is 1."""
+    and mu are baked into both pairs (mu == 0: the pressure-only forms),
+    so both epilogue scales are 1."""
     h, b = float(k.h), float(k.b)
-    consts = (h, h * h, b, float(k.c), mass * mass, mu * mass)
+    consts = (h, h * h, b, float(k.c), mass * mass, mu * mass, 1.0)
+    fwd, bwd = FORCE, FORCE_BWD
     if mu == 0.0:
-        consts = (h, h * h, b, mass * mass)
-        return ((FORCE_P, _force_fold_pair(k, mass, mu), consts + (1.0,)),
-                (FORCE_P_BWD, _force_bwd_pair(k, mass, mu), consts))
-    return ((FORCE, _force_fold_pair(k, mass, mu), consts + (1.0,)),
-            (FORCE_BWD, _force_bwd_pair(k, mass, mu), consts))
+        consts = (h, h * h, b, mass * mass, 1.0)
+        fwd, bwd = FORCE_P, FORCE_P_BWD
+    return ((fwd, _force_fold_pair(k, mass, mu), consts),
+            (bwd, _force_bwd_pair(k, mass, mu), consts))
 
 
 def _force(run, planes: Planes, rho_plane: torch.Tensor,

@@ -116,6 +116,7 @@ inline unsigned atomicOr(unsigned* p, unsigned v) {
 }
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 inline float fmaxf(float a, float b) { return std::fmax(a, b); }
+inline float __fmul_rn(float a, float b) { return a * b; }
 
 // kernel<<<grid, block, smem, stream>>>(...) becomes emu_launch(grid,
 // block, smem, [=] { kernel(...); }): every CTA in turn, its dynamic shared

@@ -294,12 +294,13 @@ def test_gated_kernel_matches_plain_and_ungated(planes, name, kind):
 
 
 # --------------------------------------------------------------------------
-# The compacted body (K1, K2 in both forms, K3, K4, K5, K8 and the gated
-# K1/K4/K5) on edge cases, and on two streams at once
+# The compacted body (K1, K2 in both forms, K3, K4, K5, K7 in both forms,
+# K8, K9 and the gated K1/K4/K5) on edge cases, and on two streams at once
 # --------------------------------------------------------------------------
 
 COMPACT = ("density", "pressure_pq", "force", "force_p", "viscosity",
-           "pressure", "pressure_bwd", "density_active", "pressure_pq_active",
+           "pressure", "pressure_bwd", "viscosity_bwd", "force_bwd",
+           "force_p_bwd", "density_active", "pressure_pq_active",
            "pressure_active")
 
 
@@ -359,10 +360,16 @@ def _compact_call(name, params, spec, p, plain, active=None):
     if name == "pressure":
         return fns.pressure_force_planes(p, p["rho"], p["press"], spec, k,
                                          params.mass)
+    cts = tuple(p[f"ct_{i}"] for i in range(3))
     if name == "pressure_bwd":
-        return fns.press_sum_bwd(p, p["rho"], p["press"],
-                                 tuple(p[f"ct_{i}"] for i in range(3)), spec,
-                                 k)
+        return fns.press_sum_bwd(p, p["rho"], p["press"], cts, spec, k)
+    if name == "viscosity_bwd":
+        return fns.visc_sum_bwd(p, p["rho"], cts, spec, k)
+    if name in ("force_bwd", "force_p_bwd"):
+        return fns.force_sum_bwd(p, p["rho"], p["press"], cts, spec, k,
+                                 params.mass,
+                                 float(params.mu) if name == "force_bwd"
+                                 else 0.0)
     if name == "pressure_active":
         return fns.pressure_force_planes_active(p, p["rho"], p["press"], spec,
                                                 k, params.mass, active)
@@ -395,10 +402,10 @@ def _check_compact(name, params, spec, p, active=None):
 @pytest.mark.parametrize("cap", [16, 32])
 @pytest.mark.parametrize("kind", ["full", "lone", "empty"])
 def test_compact_kernels_on_edge_planes(cuda, kind, cap):
-    """The ten compacted launchers against their plain versions on cells
-    full to capacity, a lone particle and an all-empty plane (all 0), at
-    the bench's and the CLI's capacities; the gated forms under an all-ones
-    grid."""
+    """The thirteen compacted launchers against their plain versions on
+    cells full to capacity, a lone particle and an all-empty plane (all
+    0), at the bench's and the CLI's capacities; the gated forms under an
+    all-ones grid."""
     params, spec, p = _edge_planes(kind, cap, cuda)
     occ = p["mask"].view(-1, cap).sum(-1)
     if kind == "full":
@@ -431,7 +438,9 @@ def test_compact_gated_kernels_on_odd_patches(cuda, ny_cells, kind):
 
 
 @pytest.mark.parametrize("name", ["density", "force", "viscosity",
-                                  "pressure_pq", "pressure_bwd"])
+                                  "pressure_pq", "pressure_bwd",
+                                  "viscosity_bwd", "force_bwd",
+                                  "force_p_bwd"])
 def test_compact_launches_on_two_streams_at_once(cuda, name):
     """Each compacted launch has its own work counter: one compacted sweep
     on two plane sets, each on its own non-default stream, both streams

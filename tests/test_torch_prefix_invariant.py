@@ -1,22 +1,24 @@
-"""The mask invariant the compacted sweep kernel (K1, K2 in both forms,
-K3, K4, K5, the pressure backward K8 and the gated K1/K4/K5) relies on:
-every mask plane a main path hands a sweep holds only 0 and 1, and in
-every cell its occupied slots are ranks 0..n-1. The kernel counts a cell's
-occupied slots and visits only that many of them. And, for K5 and K8 on
-the training path (planes from _pos_vel_planes, rho from density_planes or
-to_plane, press from a where or to_plane), rho and press are 0 at every
-empty slot: there the old sweep_block body read them (K8's role swap), so
-the compacted body, which skips empty slots, equals it only then.
+"""The mask invariant the compacted sweep kernel (every sweep but the
+density backward K6) relies on: every mask plane a main path hands a sweep
+holds only 0 and 1, and in every cell its occupied slots are ranks 0..n-1.
+The kernel counts a cell's occupied slots and visits only that many of
+them. And, for K5 and the backward sweeps K7 (both forms), K8 and K9 on the
+training and sim -> render paths (planes from _pos_vel_planes, rho from
+density_planes or to_plane, press from a where or to_plane), the
+positions, velocities, rho and press are 0 at every empty slot: there the
+old sweep_block body read them (the adjoints' role swap), so the compacted
+body, which skips empty slots, equals it only then.
 
 Checked on the plane producers directly (build_planes after dense_indices,
 on a dam break and with cells forced to overflow; the boundary-extended
 binning) and, through a spy on the sweeps' dispatch, on every mask the
-solvers pass to a compact sweep: the per-step WCSPH steps (static params,
-mu = 0, and Materials, which runs the factored pressure and viscosity,
-backward included) and PCISPH steps (the correction loop's predicted
-planes, the column_skip loop's, the unrolled loop's scatter of predicted
-positions, backward included), and the resident WCSPH and PCISPH states
-over several skin > 0 steps between rebuilds.
+solvers pass to a compact sweep: the per-step WCSPH steps (static params
+with and without mu, backward to the positions included, as the sim ->
+render path runs them; and Materials, which runs the factored pressure
+and viscosity, backward included) and PCISPH steps (the correction loop's
+predicted planes, the column_skip loop's, the unrolled loop's scatter of
+predicted positions, backward included), and the resident WCSPH and PCISPH
+states over several skin > 0 steps between rebuilds.
 """
 
 import numpy as np
@@ -131,22 +133,35 @@ def spy(monkeypatch):
     return calls
 
 
+# The sweeps whose old sweep_block body read these planes at an empty
+# candidate, and the planes it read there.
+EMPTY_READS = {
+    "pressure": ("rho", "press"),
+    "pressure_bwd": ("x", "y", "z", "rho", "press"),
+    "viscosity_bwd": ("x", "y", "z", "vx", "vy", "vz", "rho"),
+    "force_bwd": ("x", "y", "z", "vx", "vy", "vz", "rho", "press"),
+    "force_p_bwd": ("x", "y", "z", "rho", "press"),
+}
+
+
 def _check(calls, spec, names):
     assert {n for n, _ in calls} == set(names)
     for name, ins in calls:
         m = ins["mask"]
         assert prefix_violations(m, spec.capacity) == 0, name
-        if name in ("pressure", "pressure_bwd"):
-            for c in ("rho", "press"):
-                assert not bool(ins[c][m <= 0].any()), (name, c)
+        for c in EMPTY_READS.get(name, ()):
+            assert not bool(ins[c][m <= 0].any()), (name, c)
 
 
 def test_per_step_solvers_hand_prefix_masks(spy):
     params, s, spec = _setup()
     delta = compute_pci_delta(params, DX)
     mats = Materials.from_params(params, CPU, requires_grad=True)
-    tds.dense_wcsph_step(s, params, spec)
-    tds.dense_wcsph_step(s, params.replace(mu=0.0), spec)
+    for mu in (params.mu, 0.0):
+        pos = s.pos.clone().requires_grad_()
+        nxt, _ = tds.dense_wcsph_step(s._replace(pos=pos),
+                                      params.replace(mu=mu), spec)
+        torch.autograd.grad((nxt.pos ** 2).sum(), pos)
     nxt, _ = tds.dense_wcsph_step(s, params, spec, materials=mats)
     torch.autograd.grad((nxt.pos ** 2).sum(), mats.mass)
     tds.dense_pcisph_step(s, params, spec, delta, warm_start=True)
@@ -156,8 +171,11 @@ def test_per_step_solvers_hand_prefix_masks(spy):
     n_wcsph = sum(n == "pressure_bwd" for n, _ in spy)
     torch.autograd.grad((nxt.pos ** 2).sum(), mats.mass)
     assert n_wcsph == 1 and sum(n == "pressure_bwd" for n, _ in spy) == 3
+    assert [sum(n == b for n, _ in spy) for b in (
+        "force_bwd", "force_p_bwd", "viscosity_bwd")] == [1, 1, 2]
     _check(spy, spec, ("density", "force", "force_p", "viscosity",
                        "pressure_pq", "pressure", "pressure_bwd",
+                       "viscosity_bwd", "force_bwd", "force_p_bwd",
                        "density_active", "pressure_pq_active"))
 
 

@@ -6,14 +6,15 @@ emulated SMs).
 
 This runs the kernel's bookkeeping on the CPU: the work fetches and their
 per-launch, self-resetting counter, the gate, the ballot ranking of own
-slots onto threads, the float4 staging walk (one or two float4s a
-candidate, K2's folds of pq and iv) and the per-cell counts. For K1 and K4,
+slots onto threads, the float4 staging walk (one, two or three float4s a
+candidate, the folds of pq and iv) and the per-cell counts. For K1 and K4,
 ungated and gated, here, for K2 in both forms and K3 in
-test_torch_sweep_emulated_wide.py, and for K5 (ungated and gated) and K8
-in test_torch_sweep_emulated_press.py, on capacities 2 to 32, cells full to
+test_torch_sweep_emulated_wide.py, for K5 (ungated and gated) and K8 in
+test_torch_sweep_emulated_press.py, and for K7 in both forms and K9 in
+test_torch_sweep_emulated_bwd.py, on capacities 2 to 32, cells full to
 capacity, a lone particle, an empty plane and odd patch grids, the
-compacted launchers must give bit for bit what sweep_block (the body the
-other sweeps run, the one these ran before) gives with the folds before it
+compacted launchers must give bit for bit what sweep_block (the body K6
+still runs, the one these ran before) gives with the folds before it
 and the mask and the scale applied after it, must stay within
 KERNEL_REL_TOL of the plain torch version, and must give the same again on
 a second launch with the same counter and leave the counter zero. The
@@ -43,14 +44,19 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parent.parent
 DX = 0.125
 
-# sweep_block's launchers for K1-K5, K8 and the gated K1/K4/K5, which the
-# library no longer exports, with the old pressure and pressure backward
-# pairs and the old gated kernel (sweep_block behind a per-CTA read of the
-# activity grid) they ran,
-# and the emulator's controls, appended to the source so that its templates
-# are in scope.
+# sweep_block's launchers for K1-K5, K7-K9 and the gated K1/K4/K5, which
+# the library no longer exports, with the old pressure pair, the old
+# adjoint pairs on raw rho and press (K7 in both forms, K8, K9) and the old
+# gated kernel (sweep_block behind a per-CTA read of the activity grid)
+# they ran, and the emulator's controls, appended to the source so that its
+# templates are in scope.
 SHIM = """
 namespace {
+// p_i / max(rho_i, eps)^2 + p_j / max(rho_j, eps)^2 from raw rho and press.
+__device__ __forceinline__ float press_coeff(float rho_i, float p_i,
+                                             float rho_j, float p_j) {
+  return p_i / (rho_i * rho_i) + p_j / (rho_j * rho_j);
+}
 struct PressPair {  // x y z mask rho press -> 3 (mass^2 applied outside)
   static constexpr int kIn = 6, kOut = 3, kMask = 3, kRho = 4, kPress = 5;
   float h, h2, b;
@@ -70,11 +76,109 @@ struct PressPair {  // x y z mask rho press -> 3 (mass^2 applied outside)
     acc[2] += s_p * dz;
   }
 };
+// The adjoint terms on raw rho and press planes, read at both slots, as
+// sweep_block ran K7, K8 and K9 (the library's terms read folded pq and iv).
+template <int kMask, int kRho, int kPress, int kCt, int kOutRho,
+          int kOutPress>
+struct RawPressBwdTerms {
+  float h, h2, b;
+  void operator()(const float* o, const float* c, float s, float* acc) const {
+    const float dx = c[0] - o[0], dy = c[1] - o[1], dz = c[2] - o[2];
+    const float d2 = dx * dx + dy * dy + dz * dz;
+    const bool near = (d2 > kEps) && (d2 < h2);
+    const bool a = near && (c[kMask] > 0.0f);
+    const bool bb = near && (o[kMask] > 0.0f);
+    const float inv_d = rsqrtf(near ? d2 : 1.0f);
+    const float dist = d2 * inv_d;
+    const float q1 = 1.0f - dist / h;
+    const float o1d = b * q1 * q1;
+    const float phi = o1d * inv_d;
+    const float inv_d2 = inv_d * inv_d;
+    const float dphi = -(b / h) * q1 * inv_d2 - 0.5f * o1d * inv_d2 * inv_d;
+    const float rho_i = fmaxf(o[kRho], kEps);
+    const float coeff =
+        press_coeff(rho_i, o[kPress], fmaxf(c[kRho], kEps), c[kPress]);
+    const float ex = (bb ? c[kCt] : 0.0f) - (a ? o[kCt] : 0.0f);
+    const float ey = (bb ? c[kCt + 1] : 0.0f) - (a ? o[kCt + 1] : 0.0f);
+    const float ez = (bb ? c[kCt + 2] : 0.0f) - (a ? o[kCt + 2] : 0.0f);
+    const float ed = ex * dx + ey * dy + ez * dz;
+    const float g = 2.0f * coeff * dphi * ed;
+    const float sp = coeff * phi;
+    const float t = phi * ed;
+    const float inv_r2 = 1.0f / (rho_i * rho_i);
+    acc[0] += s * (g * dx + sp * ex);
+    acc[1] += s * (g * dy + sp * ey);
+    acc[2] += s * (g * dz + sp * ez);
+    acc[kOutRho] +=
+        s * max_eps_grad(o[kRho], 2.0f * t * o[kPress] * inv_r2 / rho_i);
+    acc[kOutPress] += s * (-t * inv_r2);
+  }
+};
+template <int kMask, int kRho, int kCt, int kOutRho>
+struct RawViscBwdTerms {
+  float h, h2, cw;
+  void operator()(const float* o, const float* c, float s, float* acc) const {
+    const float dx = c[0] - o[0], dy = c[1] - o[1], dz = c[2] - o[2];
+    const float d2 = dx * dx + dy * dy + dz * dz;
+    const bool near = (d2 > kEps) && (d2 < h2);
+    const bool a = near && (c[kMask] > 0.0f);
+    const bool bb = near && (o[kMask] > 0.0f);
+    const float inv_d = rsqrtf(near ? d2 : 1.0f);
+    const float dist = d2 * inv_d;
+    const float o2d = cw * (1.0f - dist / h);
+    const float do2d = -0.5f * (cw / h) * inv_d;
+    const float inv_ri = 1.0f / fmaxf(o[kRho], kEps);
+    const float inv_rj = 1.0f / fmaxf(c[kRho], kEps);
+    const float ex =
+        (bb ? c[kCt] * inv_ri : 0.0f) - (a ? o[kCt] * inv_rj : 0.0f);
+    const float ey =
+        (bb ? c[kCt + 1] * inv_ri : 0.0f) - (a ? o[kCt + 1] * inv_rj : 0.0f);
+    const float ez =
+        (bb ? c[kCt + 2] * inv_ri : 0.0f) - (a ? o[kCt + 2] * inv_rj : 0.0f);
+    const float dvx = c[3] - o[3], dvy = c[4] - o[4], dvz = c[5] - o[5];
+    const float g = 2.0f * do2d * (ex * dvx + ey * dvy + ez * dvz);
+    const float wdv =
+        bb ? (c[kCt] * dvx + c[kCt + 1] * dvy + c[kCt + 2] * dvz) * inv_ri
+           : 0.0f;
+    acc[0] += s * (g * dx);
+    acc[1] += s * (g * dy);
+    acc[2] += s * (g * dz);
+    acc[3] += s * (o2d * ex);
+    acc[4] += s * (o2d * ey);
+    acc[5] += s * (o2d * ez);
+    acc[kOutRho] += s * max_eps_grad(o[kRho], o2d * wdv * inv_ri);
+  }
+};
 struct PressBwdPair {  // x y z mask rho press ct0..2 -> dx dy dz drho dpress
   static constexpr int kIn = 9, kOut = 5, kMask = 3;
-  PressBwdTerms<3, 4, 5, 6, 3, 4> terms;
+  RawPressBwdTerms<3, 4, 5, 6, 3, 4> terms;
   void operator()(const float* o, const float* c, float* acc) const {
     terms(o, c, 1.0f, acc);
+  }
+};
+struct ViscBwdPair {  // x y z vx vy vz mask rho ct0..2 -> 7
+  static constexpr int kIn = 11, kOut = 7, kMask = 6;
+  RawViscBwdTerms<6, 7, 8, 6> terms;
+  void operator()(const float* o, const float* c, float* acc) const {
+    terms(o, c, 1.0f, acc);
+  }
+};
+struct ForceBwdPair {  // x y z vx vy vz mask rho press ct0..2 -> 8
+  static constexpr int kIn = 12, kOut = 8, kMask = 6;
+  RawPressBwdTerms<6, 7, 8, 9, 6, 7> press;
+  RawViscBwdTerms<6, 7, 9, 6> visc;
+  float mass2, mu_mass;
+  void operator()(const float* o, const float* c, float* acc) const {
+    press(o, c, mass2, acc);
+    visc(o, c, mu_mass, acc);
+  }
+};
+struct ForceBwdPPair {  // x y z mask rho press ct0..2 -> 5 (mu == 0)
+  static constexpr int kIn = 9, kOut = 5, kMask = 3;
+  RawPressBwdTerms<3, 4, 5, 6, 3, 4> press;
+  float mass2;
+  void operator()(const float* o, const float* c, float* acc) const {
+    press(o, c, mass2, acc);
   }
 };
 template <class Pair>
@@ -142,6 +246,19 @@ int emu_block_press_active(DFT_SWEEP_ARGS, float h, float h2, float b,
 int emu_block_press_bwd(DFT_SWEEP_ARGS, float h, float h2, float b,
                         void* stream) {
   return launch(PressBwdPair{{h, h2, b}}, DFT_SWEEP_PASS);
+}
+int emu_block_visc_bwd(DFT_SWEEP_ARGS, float h, float h2, float cw,
+                       void* stream) {
+  return launch(ViscBwdPair{{h, h2, cw}}, DFT_SWEEP_PASS);
+}
+int emu_block_force_bwd(DFT_SWEEP_ARGS, float h, float h2, float b, float cw,
+                        float mass2, float mu_mass, void* stream) {
+  return launch(ForceBwdPair{{h, h2, b}, {h, h2, cw}, mass2, mu_mass},
+                DFT_SWEEP_PASS);
+}
+int emu_block_force_p_bwd(DFT_SWEEP_ARGS, float h, float h2, float b,
+                          float mass2, void* stream) {
+  return launch(ForceBwdPPair{{h, h2, b}, mass2}, DFT_SWEEP_PASS);
 }
 }
 """

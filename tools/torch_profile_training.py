@@ -21,8 +21,8 @@ launches by name, peak memory, the loss and gradient summary
 (chip_smoke.grad_summary, to compare two checkouts' results), and device
 ms by group: each sweep kernel by its K number (K5 is PressPair on
 sweep_block or ForceFoldPair<false> on the compacted body; K8
-PressBwdPair or PressBwdFoldPair), sort/scan/index, memset/copy, and the
-rest (elementwise and reductions).
+PressBwdPair or PressBwdFoldPair; K9 ViscBwdPair or ViscBwdFoldPair),
+sort/scan/index, memset/copy, and the rest (elementwise and reductions).
 
 A/B (second form): runs the first form on each checkout in a fresh
 process from its root, in the order A B B A per pair, prints every run's
@@ -47,7 +47,7 @@ _SORT = ("sort", "Sort", "scan", "index", "gather", "scatter", "Radix", "cub")
 _KERNEL_OF = {"DensityPair": "K1", "ViscPair": "K3", "PressPair": "K5",
               "ForceFoldPair<false>": "K5", "DensityBwdPair": "K6",
               "PressBwdPair": "K8", "PressBwdFoldPair": "K8",
-              "ViscBwdPair": "K9"}
+              "ViscBwdPair": "K9", "ViscBwdFoldPair": "K9"}
 
 
 def group(key: str) -> str:

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""The compacted sweeps of two checkouts of the port, on the same seeded 1M
-planes, in turns, on one card: K1 (density), K4 (prefolded pressure), K2
-(the fused force, with mu and at mu = 0), K3 (viscosity), K5 (pressure)
-and K8 (its backward, on seeded cotangents), with the fused force's
-backward K7 (both forms), which shares K8's adjoint terms.
+"""The sweeps of two checkouts of the port, on the same seeded 1M planes,
+in turns, on one card: K1 (density), K4 (prefolded pressure), K2 (the fused
+force, with mu and at mu = 0), K3 (viscosity), K5 (pressure), and the
+backward sweeps on seeded cotangents: K6 (density), K8 (pressure), K9
+(viscosity) and K7 (the fused force's, both forms).
 
     python3 tools/torch_sweep_ab.py ROOT_A ROOT_B [--pairs N]
 
@@ -16,8 +16,9 @@ that root's cellops, and three N(0, 1) cotangent planes over every slot
 density_planes, pressure_force_pq_planes and pressure_force_planes,
 ungated and gated (the all-ones and chip_smoke's seeded 25.5% activity
 grid), force_planes (the bench's mu and 0), viscosity_force_planes,
-press_sum_bwd and force_sum_bwd (mu and 0): the call (CUDA events, median
-of 20 after 2 warm-ups) and, under torch.profiler over 10 calls, the
+density_sum_bwd, press_sum_bwd, visc_sum_bwd and force_sum_bwd (mu and 0):
+the call (CUDA events, median of 20 after 2 warm-ups) and, under
+torch.profiler over 10 calls, the
 device time of the sweep kernels alone and of everything else the call
 runs (memsets, the wrapper's torch passes). The order is A B B A per pair.
 The first run of each side saves the outputs of the SAVED calls under
@@ -39,8 +40,8 @@ import numpy as np
 OUT_DIR = "build/sweep_ab"
 # The calls whose outputs the two sides must share.
 SAVED = ("density", "pressure_pq", "force", "force_p", "viscosity",
-         "pressure", "pressure_bwd", "force_bwd", "force_p_bwd",
-         "pressure_active.quarter")
+         "pressure", "density_bwd", "pressure_bwd", "viscosity_bwd",
+         "force_bwd", "force_p_bwd", "pressure_active.quarter")
 
 
 def seeded_planes(dev):
@@ -101,8 +102,10 @@ def worker(root: str, save: str) -> int:
                                                        mass, mu),
         "pressure": lambda: sw.pressure_force_planes(planes, rho, press,
                                                      spec, k, mass),
+        "density_bwd": lambda: sw.density_sum_bwd(planes, cts[0], spec, k),
         "pressure_bwd": lambda: sw.press_sum_bwd(planes, rho, press, cts,
                                                  spec, k),
+        "viscosity_bwd": lambda: sw.visc_sum_bwd(planes, rho, cts, spec, k),
         "force_bwd": lambda: sw.force_sum_bwd(planes, rho, press, cts, spec,
                                               k, mass, mu),
         "force_p_bwd": lambda: sw.force_sum_bwd(planes, rho, press, cts,

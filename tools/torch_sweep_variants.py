@@ -1,27 +1,30 @@
 #!/usr/bin/env python3
 """Variants of the compacted sweep body (K1, K4, K2 in both forms, K3, K5,
-K8) against each other, in one process on one card.
+and the backward sweeps K7 in both forms, K8 and K9) against each other, in
+one process on one card.
 
     python3 tools/torch_sweep_variants.py [--reps 20] [--rounds 2]
 
 Builds csrc/sph_sweep.cu once per variant, with its tuning choices set
-(kInterleave: a two-float4 candidate's halves side by side instead of in
-two arrays; kBatch: the own blocks per work fetch; unroll: the `#pragma
+(kInterleave: a candidate's float4s side by side instead of in one array
+each; kBatch: the own blocks per work fetch; unroll: the `#pragma
 unroll` factor of the candidate loop, which lets the compiler overlap
 independent pairs), each with its own nvcc, all started together, into
 build/variants/, each with an appended query of its compacted kernels'
 CTAs per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the dynamic
 shared memory its launcher asks for) at capacities 16 and 32. Then, on
-torch_sweep_ab.py's seeded 1M planes (K8 on chip_smoke's seeded
-cotangents), times each variant's compacted launchers alone (CUDA events
-around `reps` launches into preallocated
-zeroed planes, one zeroed work counter each), the variants in turns
+torch_sweep_ab.py's seeded 1M planes (the backward sweeps on chip_smoke's
+seeded cotangents), times each variant's compacted launchers alone (CUDA
+events around `reps` launches into preallocated zeroed planes, one zeroed
+work counter each), the variants in turns
 (forward then backward order, `rounds` times), and checks that every
 variant writes the committed source's outputs bit for bit. Also times the
 passes the wrapper does or no longer does around a launch: the zero-filled
 allocation of one plane (its memset), and a where and a scale over one
-plane. Prints one JSON line; with --sass DIR, also writes each variant's
-cuobjdump -sass listing there.
+plane; and the fused force's backward against its split into the mu = 0
+form plus K9 (two launches and four plane adds), timed in turns, with the
+largest difference per output. Prints one JSON line; with --sass DIR,
+also writes each variant's cuobjdump -sass listing there.
 """
 
 from __future__ import annotations
@@ -53,7 +56,8 @@ CAND_UNROLL = re.compile(r"^#pragma unroll 4\n( *for \(int j = 0; j < n; "
 # The compacted instantiations, in the order of OCCUPANCY's switch.
 COMPACT = ("density", "pressure_pq", "force", "force_p", "viscosity",
            "density_active", "pressure_pq_active", "pressure",
-           "pressure_bwd", "pressure_active")
+           "pressure_bwd", "pressure_active", "viscosity_bwd", "force_bwd",
+           "force_p_bwd")
 OCCUPANCY = """
 extern "C" int tool_ctas_per_sm(int which, int cap, int* smem) {
   int per_sm = -1;
@@ -82,6 +86,14 @@ extern "C" int tool_ctas_per_sm(int which, int cap, int* smem) {
         cap, smem, &per_sm); break;
     case 9: err = compact_occupancy<ForceFoldPair<false>, true,
                                     ForceFold<false>>(cap, smem, &per_sm);
+      break;
+    case 10: err = compact_occupancy<ViscBwdFoldPair, false, ViscBwdFold>(
+        cap, smem, &per_sm); break;
+    case 11: err = compact_occupancy<ForceBwdFoldPair<true>, false,
+                                     ForceBwdFold>(cap, smem, &per_sm);
+      break;
+    case 12: err = compact_occupancy<ForceBwdFoldPair<false>, false,
+                                     PressBwdFold>(cap, smem, &per_sm);
       break;
   }
   return err == cudaSuccess ? per_sm : -static_cast<int>(err);
@@ -162,6 +174,7 @@ def main() -> int:
         cs.seeded_cotangents(spec, dev, 3))})
     h, mass, mu = float(k.h), float(params.mass), float(params.mu)
     vel = ("x", "y", "z", "vx", "vy", "vz", "mask")
+    cts = ("ct_0", "ct_1", "ct_2")
     sweeps = {
         "density": ("dft_density_sweep", ("x", "y", "z", "mask"), 1,
                     (h * h, float(k.a), mass)),
@@ -179,12 +192,22 @@ def main() -> int:
                      ("x", "y", "z", "mask", "rho", "press"), 3,
                      (h, h * h, float(k.b), mass * mass)),
         "pressure_bwd": ("dft_press_bwd_sweep",
-                         ("x", "y", "z", "mask", "rho", "press", "ct_0",
-                          "ct_1", "ct_2"), 5, (h, h * h, float(k.b), 1.0))}
+                         ("x", "y", "z", "mask", "rho", "press") + cts, 5,
+                         (h, h * h, float(k.b), 1.0)),
+        "viscosity_bwd": ("dft_visc_bwd_sweep", vel + ("rho",) + cts, 7,
+                          (h, h * h, float(k.c), 1.0)),
+        "force_bwd": ("dft_force_bwd_sweep", vel + ("rho", "press") + cts, 8,
+                      (h, h * h, float(k.b), float(k.c), mass * mass,
+                       mu * mass, 1.0)),
+        "force_p_bwd": ("dft_force_p_bwd_sweep",
+                        ("x", "y", "z", "mask", "rho", "press") + cts, 5,
+                        (h, h * h, float(k.b), mass * mass, 1.0))}
     stream = torch.cuda.current_stream().cuda_stream
 
-    def launcher(lib, sweep):
+    def launcher(lib, sweep, scale=None):
         sym, names, n_out, consts = sweeps[sweep]
+        if scale is not None:
+            consts = consts[:-1] + (scale,)
         fn = getattr(lib, sym)
         fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
                        + [ctypes.c_float] * len(consts)
@@ -238,6 +261,30 @@ def main() -> int:
     same = {f"{v}.{s}": all(torch.equal(a, b) for a, b in zip(
         calls[(v, s)][1], calls[("committed", s)][1]))
         for v, s in calls}
+    # The fused force's backward split in two launches, its mu = 0 form
+    # (mass^2 in the pair, two float4s a candidate) and K9 (mu * mass as the
+    # epilogue's scale, three float4s), and four plane adds, against the
+    # fused launch in turns: not bit for bit (it sums s * sum t, the fused
+    # pair sum s * t).
+    lib = libs["committed"]
+    (p_go, p_out), (v_go, v_out) = (
+        launcher(lib, "force_p_bwd"),
+        launcher(lib, "viscosity_bwd", scale=mu * mass))
+
+    def split():
+        p_go()
+        v_go()
+        return ([a + b for a, b in zip(p_out[:3], v_out[:3])] + v_out[3:6]
+                + [p_out[3] + v_out[6], p_out[4]])
+
+    fused = calls[("committed", "force_bwd")]
+    split_ms = {"fused": [], "split": []}
+    for _ in range(args.rounds):
+        for name, go in (("fused", fused[0]), ("split", split),
+                         ("split", split), ("fused", fused[0])):
+            split_ms[name].append(timed(go))
+    split_rel = [float((a - b).abs().max() / b.abs().max())
+                 for a, b in zip(split(), fused[1])]
     plane = planes["x"]
     passes = {
         "zeros_plane_ms": cs.cuda_ms(
@@ -252,7 +299,10 @@ def main() -> int:
         "kernel_ms": {f"{v}.{s}": {"median": float(np.median(t)),
                                    "min": min(t), "max": max(t)}
                       for (v, s), t in times.items()},
-        "bitwise_equal_to_committed": same, "wrapper_passes": passes}),
+        "bitwise_equal_to_committed": same, "wrapper_passes": passes,
+        "force_bwd_split": {
+            "ms": {k: float(np.median(v)) for k, v in split_ms.items()},
+            "max_rel_diff_per_output": split_rel}}),
         flush=True)
     return 0
 
