@@ -15,9 +15,9 @@ Phases, each of which raises (and so exits nonzero) on failure:
      gated sweeps of K10 under three seeded activity grids (all ones,
      about a quarter of the patches, all zeros, whose outputs must be all
      0), each also bitwise equal to its ungated kernel on the active
-     occupied rows; and K1, K2, K7 (both forms), K8 and K9 on two streams
-     at once, over that state and the next step's, each bit for bit its
-     call alone (every compacted launch has its own work counter);
+     occupied rows; and K1, K2, K6, K7 (both forms), K8 and K9 on two
+     streams at once, over that state and the next step's, each bit for bit
+     its call alone (every compacted launch has its own work counter);
   4. the tile rasterizer kernels K11 and K12, 6 and 9 outputs, against
      their plain versions on a 256x144 frame (RASTER_REL_TOL,
      RASTER_BWD_REL_TOL per output);
@@ -85,7 +85,9 @@ Phases, each of which raises (and so exits nonzero) on failure:
      they did before the slice that added them.
 
 The line before the last is a JSON object with one entry per kernel (`ms` the
-public call, `kernel_ms` its launch alone); the last line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+public call, `kernel_ms` its launch alone, `body` the kernel body it runs
+with its CTAs per SM on this card); the last line is {"ok": true, "device":
+{"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device, or without the package beside it, the script exits
 nonzero and prints no result.
 """
@@ -434,8 +436,8 @@ def check_kernels_small(device) -> dict:
 
 
 def check_two_streams(sets, spec, params, reps: int = 5):
-    """Each compacted launch has its own work counter: K1's, K2's, K7's
-    (both forms), K8's and K9's public calls (the backward sweeps with
+    """Each compacted launch has its own work counter: K1's, K2's, K6's,
+    K7's (both forms), K8's and K9's public calls (the backward sweeps with
     seeded cotangents) on two plane sets, each set on its own non-default
     stream, both streams held behind one device sleep so that the two
     calls start together, `reps` times; each result must equal its set's
@@ -445,8 +447,8 @@ def check_two_streams(sets, spec, params, reps: int = 5):
     cts = seeded_cotangents(spec, sets[0]["x"].device, 5)
     calls = [sweep_calls(p, spec, params, False, cts) for p in sets]
     streams = [torch.cuda.Stream() for _ in sets]
-    for name in ("density", "force", "pressure_bwd", "viscosity_bwd",
-                 "force_bwd", "force_p_bwd"):
+    for name in ("density", "force", "density_bwd", "pressure_bwd",
+                 "viscosity_bwd", "force_bwd", "force_p_bwd"):
         want = [c[name]() for c in calls]
         torch.cuda.synchronize()
         same = 0
@@ -1482,6 +1484,31 @@ def run_simulation(device) -> dict:
             "max_v": float(vmax.max()), "iters": int(diag.iters)}
 
 
+def kernel_body(kern) -> str:
+    """The kernel body a kernels-line row's launches run, with its CTAs per
+    SM on this card (a sweep at the bench's capacity), from the libraries'
+    occupancy queries."""
+    import ctypes
+
+    from dieselfluid_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    if hasattr(kern, "symbols"):          # a rasterizer kernel
+        fn, threads = lib.dft_splat_ctas_per_sm, ctypes.c_int(0)
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        per_sm = fn(kern.symbols[0].encode(), ctypes.byref(threads))
+        extra = f", {threads.value} threads"
+    else:
+        fn, smem = lib.dft_sweep_ctas_per_sm, ctypes.c_int(0)
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        per_sm = fn(kern.symbol.encode(), CAPACITY, ctypes.byref(smem))
+        extra = f", {smem.value} B shared at cap {CAPACITY}"
+    check(per_sm > 0, f"occupancy query for {kern.name} failed: {per_sm}")
+    return f"{kern.body}{extra}, {per_sm} CTAs/SM"
+
+
 def jax_package_modules():
     """Loaded modules of JAX or of the JAX package (none may be)."""
     return sorted(m for m in sys.modules
@@ -1619,7 +1646,7 @@ def main() -> int:
                         "launches": sum(p.get(kern.name, 0)
                                         for p in main_paths),
                         "max_abs_err": errs[kern.name][0], "ms": ms,
-                        "kernel_ms": kms,
+                        "kernel_ms": kms, "body": kernel_body(kern),
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": None})
     log(f"chip_smoke: {time.perf_counter() - t_start!r} s in all")

@@ -48,29 +48,18 @@
 // bound on the H100 is its bytes (the outputs written in full, the inputs
 // read over occupied blocks: 0.057 ms for density, 0.11 ms for the
 // prefolded pressure) for the forward sweeps, and its pair arithmetic
-// (0.13-0.48 ms) for the fused force and the larger adjoints. Both bodies
-// below sit far above that (PERF.md has the measured times).
+// (0.13-0.48 ms) for the fused force and the larger adjoints. The body
+// below sits far above that (PERF.md has the measured times).
 //
-// Two bodies. Outputs of slots a body does not write stay at the zeros the
-// caller allocated. No fast-math: rsqrtf where the JAX pair uses
-// lax.rsqrt, IEEE divides elsewhere. Every masked branch is a select, never
-// a multiply by a mask, so no 0 * inf reaches an output.
-//
-// sweep_block (the density backward K6 alone): one 128-thread CTA per
-// 128-slot own block of one row, launched for every interior block of every
-// column; a CTA with no occupied own slot exits after reading its mask.
-// Otherwise it stages the (128 + 2*cap)-slot window of the 9 stencil rows
-// for every input channel in dynamic shared memory ([C][9][W] words), and
-// each thread sums the pair function over all its 9 x 3*cap candidate
-// slots, occupied or not, masked by the candidate's mask channel. What
-// holds it back (measured on the sweeps that left it, PERF.md): the grid of
-// mostly empty CTAs, which reserve their shared memory; the 432 (cap 16) or
-// 864 (cap 32) candidate iterations per thread whatever the occupancy; half
-// of each warp idle on empty own slots; scalar staging.
+// One body, compact_sweep_kernel, runs every sweep. Outputs of slots it does
+// not write stay at the zeros the caller allocated. No fast-math: rsqrtf
+// where the JAX pair uses lax.rsqrt, IEEE divides elsewhere. Every masked
+// branch is a select, never a multiply by a mask, so no 0 * inf reaches an
+// output.
 //
 // compact_sweep_kernel (K1 density, K2 fused force in both forms, K3
-// viscosity, K4 prefolded pressure, K5 pressure, the backward sweeps K7 in
-// both forms, K8 and K9, and K10: K1, K4 and K5 gated): a persistent grid
+// viscosity, K4 prefolded pressure, K5 pressure, the backward sweeps K6, K7
+// in both forms, K8 and K9, and K10: K1, K4 and K5 gated): a persistent grid
 // of as many 128-thread CTAs as fit on the SMs. Each fetches kBatch own
 // blocks at a time from its launch's work counter (blocks fetch, fetch +
 // n_fetch, ..., so one fetch spans the domain and the tail balances) and
@@ -82,30 +71,32 @@
 //   * stages the 9-row window with one float4 load per input plane, and
 //     stores each occupied candidate as one, two or three float4s (the
 //     pair's channels but the mask: x y z [pq] for K1, K4, K5 and K2 at mu
-//     = 0; x y z vx vy vz rho for K3, x y z vx vy vz pq iv for K2; x y z pq
-//     ct0..2 for K8 and K7 at mu = 0; x y z vx vy vz iv ct0..2 for K9; x y
-//     z vx vy vz pq iv ct0..2 for K7) at [part][cell][rank], counting the
-//     cell's occupied slots. K2, K5, K7, K8 and K9 read rho (and press) and
-//     fold pq and iv as they stage (ForceFold, PressBwdFold, ViscBwdFold,
-//     ForceBwdFold);
+//     = 0; x y z ct for K6; x y z vx vy vz rho for K3, x y z vx vy vz pq iv
+//     for K2; x y z pq ct0..2 for K8 and K7 at mu = 0; x y z vx vy vz iv
+//     ct0..2 for K9; x y z vx vy vz pq iv ct0..2 for K7) at
+//     [part][cell][rank], counting the cell's occupied slots. K2, K5, K7,
+//     K8 and K9 read rho (and press) and fold pq and iv as they stage
+//     (ForceFold, PressBwdFold, ViscBwdFold, ForceBwdFold);
 //   * sums each own slot's pair over only the occupied candidates: a
 //     cell's occupied slots are its first ranks (dense_indices ranks by a
 //     stable sort, build_planes writes exactly those slots, the solvers
 //     keep the mask frozen), so the cell's count bounds the loop.
-// Candidates are visited in sweep_block's order (stencil rows 0..8, then
-// slots ascending) with the empty ones skipped. A skipped term adds +-0 to
-// an accumulator that starts at +0, so each sum is bit for bit
-// sweep_block's. The epilogue writes (acc * own_m) * scale: the mass (K1),
-// mass^2 (K4, K5) or mu * mass (K3) the caller would apply, with the same
-// two float32 roundings (K2 and K7 keep mass^2 and mu * mass in their
-// pairs, K8 and K9 have none: scale 1). It writes only occupied own slots,
-// so every slot whose mask is not > 0 keeps the caller's 0. Shared memory
-// per CTA is 9 * ncw * cap * 16 bytes per float4 of a candidate (ncw = 128
-// / cap + 2) plus 9 * ncw counts: 23,400 B for one float4 at cap 16,
-// 46,440 B for two, 69,480 B for three (83,160 B at cap 32). Each launch
-// has its own work counter in memory the caller allocates zeroed; the last
-// CTA to leave zeroes it again, so launches on different streams never
-// share a walk.
+// Candidates are visited in stencil order (rows 0..8, then slots
+// ascending) with the empty ones skipped. A skipped term adds +-0 to an
+// accumulator that starts at +0, so each sum is bit for bit that of a body
+// that visits every candidate slot of the 27 cells (sweep_block, which the
+// sweeps ran before and which tests/cuda_emu/sweep_block.h keeps as the
+// emulated tests' oracle). The epilogue writes (acc * own_m) * scale: the
+// mass (K1), mass^2 (K4, K5) or mu * mass (K3) the caller would apply, with
+// the same two float32 roundings (K2 and K7 keep mass^2 and mu * mass in
+// their pairs, K6, K8 and K9 have none: scale 1). It writes only occupied
+// own slots, so every slot whose mask is not > 0 keeps the caller's 0.
+// Shared memory per CTA is 9 * ncw * cap * 16 bytes per float4 of a
+// candidate (ncw = 128 / cap + 2) plus 9 * ncw counts: 23,400 B for one
+// float4 at cap 16, 46,440 B for two, 69,480 B for three (83,160 B at cap
+// 32). Each launch has its own work counter in memory the caller allocates
+// zeroed; the last CTA to leave zeroes it again, so launches on different
+// streams never share a walk.
 //
 // K5 on the fused force's pair: JAX's `_press_pair` sums (p_i / r_i^2 +
 // p_j / r_j^2) * B q1^2 / d * d, r = max(rho, eps), which is term for term
@@ -115,15 +106,16 @@
 // contract). mass2 * coeff with mass2 = 1 is exact, so the pair's terms are
 // the old pressure pair's bit for bit; mass^2 is the epilogue's scale.
 //
-// The adjoints (K7, K8, K9) and the role swap. An adjoint pair reads the
-// candidate's cotangents, press and velocities when the own slot is the
-// source (bb = near && own_mask > 0), whatever the candidate's mask.
-// sweep_block visited empty candidates too; the compacted body skips them,
-// which is exact because every such term is +-0 when, at every empty slot,
+// The adjoints (K6, K7, K8, K9) and the role swap. An adjoint pair reads
+// the candidate's cotangents, press and velocities when the own slot is the
+// source (bb = near && own_mask > 0), whatever the candidate's mask. A body
+// that visits empty candidates too (sweep_block) sums the same terms plus
+// terms at empty slots; the compacted body skips those, which is exact
+// because every such term is +-0 when, at every empty slot,
 //   * the cotangents are 0: sweep_block's wrapper masked them (as JAX's
-//     `_press_sum_bwd` and `_visc_sum_bwd` do), and the compacted body
-//     reads none at an empty slot, so its wrapper masks neither them nor
-//     the outputs;
+//     `_density_sum_bwd`, `_press_sum_bwd` and `_visc_sum_bwd` do), and the
+//     compacted body reads none at an empty slot, so its wrapper masks
+//     neither them nor the outputs;
 //   * press is 0 and rho finite (density_planes writes only occupied
 //     slots, to_plane scatters into zeros, dense_step.py's where(mask > 0,
 //     ., 0)): a non-zero press there makes coeff = p_i / r_i^2 + p_j / eps^2
@@ -135,10 +127,16 @@
 //   * the positions and the velocities are finite (0 from the same
 //     scatters): d and v_j - v_i multiply the zero cotangent terms.
 // Then e = 0, and every term is a product with e, e.d, e.dv or ct_j.dv.
+// K6's pair reads ct_i m_j + ct_j m_i: both masks read 1 on the compacted
+// body, so it sums ct_i + ct_j (x * 1 is exact, and an FMA of o_ct * 1 with
+// c_ct * 1 rounds once as the add does), and at an empty candidate
+// sweep_block's term was ct_i * 0 + 0 * 1 = +-0 times finite factors.
 // tests/test_torch_prefix_invariant.py checks the planes the solvers hand
 // these sweeps.
 
 #include <cuda_runtime.h>
+
+#include <cstring>
 
 namespace {
 
@@ -250,7 +248,8 @@ __device__ __forceinline__ float max_eps_grad(float x, float value) {
 // mask), `bb` with own as source (own's mask: the role swap).
 
 // For W(d2) m_j both roles give W'(d2) (-2 d) (ct_i m_j + ct_j m_i) with
-// W' = -2 A q / h^2; the self pair has d = 0.
+// W' = -2 A q / h^2; the self pair has d = 0. K6 on AsIs: x y z ct staged
+// (one float4), both masks 1 (the header's role swap).
 struct DensityBwdPair {  // x y z mask ct -> dx dy dz
   static constexpr int kIn = 5, kOut = 3, kMask = 3, kCt = 4;
   float h2, a;
@@ -372,7 +371,7 @@ struct ViscBwdTerms {
 // the staged values with the mask at kMask, then the own slot's raw values
 // (Stage::own). Each sums, bit for bit, what the same terms on raw rho and
 // press planes summed on sweep_block (the pairs K7, K8 and K9 ran there,
-// which tests/test_torch_sweep_emulated.py keeps): the folds round as those
+// which tests/cuda_emu/sweep_block.h keeps): the folds round as those
 // terms did, and nvcc hoists the own slot's p_i / r_i^2 and 1 / r_i^2 out
 // of the candidate loop.
 
@@ -431,68 +430,6 @@ struct ForceBwdFoldPair<false> {  // PressBwdFold's 7 values -> 5
   }
 };
 
-// The body of one CTA: the 128-slot own block blockIdx.y + 1 of the cell
-// column blockIdx.x.
-template <class Pair>
-__device__ __forceinline__ void sweep_block(
-    const Pair pair, const SweepArgs<Pair::kIn, Pair::kOut> args) {
-  constexpr int C = Pair::kIn;
-  extern __shared__ float smem[];  // [C][9][W]
-
-  const int cap = args.cap;
-  const int W = kBlock + 2 * cap;
-  const int col = blockIdx.x;
-  const int row = (col / args.ny + 1) * args.py + (col % args.ny + 1);
-  const long long row_len = static_cast<long long>(args.sub) * kBlock;
-  const int lo = kBlock * (blockIdx.y + 1);      // first own slot in the row
-  const int t = threadIdx.x;
-  const long long own_idx = row * row_len + lo + t;
-
-  const float own_m = args.in[Pair::kMask][own_idx];
-  if (!__syncthreads_or(own_m > 0.0f)) return;
-
-  // Stage the 9 stencil rows' window [lo - cap, lo + 128 + cap).
-  for (int e = t; e < 9 * W; e += kBlock) {
-    const int s = e / W;
-    const int w = e - s * W;
-    const int nrow = row + (s / 3 - 1) * args.py + (s % 3 - 1);
-    const long long g = nrow * row_len + (lo - cap) + w;
-#pragma unroll
-    for (int ch = 0; ch < C; ++ch) smem[(ch * 9 + s) * W + w] = args.in[ch][g];
-  }
-  __syncthreads();
-  if (!(own_m > 0.0f)) return;
-
-  float own[C];
-#pragma unroll
-  for (int ch = 0; ch < C; ++ch) own[ch] = smem[(ch * 9 + 4) * W + cap + t];
-
-  float acc[Pair::kOut];
-#pragma unroll
-  for (int o = 0; o < Pair::kOut; ++o) acc[o] = 0.0f;
-
-  // Window offset of the first slot of cell k-1 for own cell k.
-  const int base = (t / cap) * cap;
-  const int span = 3 * cap;
-  for (int s = 0; s < 9; ++s) {
-    for (int w = base; w < base + span; ++w) {
-      float cand[C];
-#pragma unroll
-      for (int ch = 0; ch < C; ++ch) cand[ch] = smem[(ch * 9 + s) * W + w];
-      pair(own, cand, acc);
-    }
-  }
-#pragma unroll
-  for (int o = 0; o < Pair::kOut; ++o) args.out[o][own_idx] = acc[o] * own_m;
-}
-
-// grid = (nx * ny interior columns, sub - 2 interior blocks), block = 128.
-template <class Pair>
-__global__ void __launch_bounds__(kBlock)
-sweep_kernel(const Pair pair, const SweepArgs<Pair::kIn, Pair::kOut> args) {
-  sweep_block(pair, args);
-}
-
 // K10, the active-gated sweeps (JAX `_sweep(..., active=)`, pallas_sph.py:107,
 // gate at :216-251): the PCISPH convergence-gated loop re-sweeps only the
 // (x, y-patch) cells of an int32 grid, one entry per patch of `patch` =
@@ -507,39 +444,8 @@ struct ActiveGate {
   int patch;
 };
 
-template <class Pair, class Kernel, class... Extra>
-int launch_kernel(Kernel kernel, const Pair& pair, const float* const* in,
-                  float* const* out, int nx, int ny, int sub, int cap,
-                  void* stream, Extra... extra) {
-  SweepArgs<Pair::kIn, Pair::kOut> args{};
-  for (int i = 0; i < Pair::kIn; ++i) args.in[i] = in[i];
-  for (int o = 0; o < Pair::kOut; ++o) args.out[o] = out[o];
-  args.ny = ny;
-  args.py = ny + 2;
-  args.sub = sub;
-  args.cap = cap;
-  const int smem = Pair::kIn * 9 * (kBlock + 2 * cap) *
-                   static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(nx * ny),
-                  static_cast<unsigned>(sub - 2));
-  kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
-      pair, args, extra...);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <class Pair>
-int launch(const Pair& pair, const float* const* in, float* const* out,
-           int nx, int ny, int sub, int cap, void* stream) {
-  return launch_kernel(sweep_kernel<Pair>, pair, in, out, nx, ny, sub, cap,
-                       stream);
-}
-
 // ---------------------------------------------------------------------------
-// The compacted body: K1-K5, K7-K9 and the gated K1/K4/K5 (see the
-// header).
+// The compacted body: K1-K9 and the gated K1/K4/K5 (see the header).
 // ---------------------------------------------------------------------------
 
 // Tuning, each the faster of the variants tools/torch_sweep_variants.py
@@ -973,6 +879,42 @@ int launch_compact_active(const Pair& pair, const float* const* in,
                                            scale, work, gate, stream);
 }
 
+// Each launcher's compacted instantiation, by its C symbol, for
+// dft_sweep_ctas_per_sm.
+struct Occupancy {
+  const char* symbol;
+  cudaError_t (*query)(int cap, int* smem, int* per_sm);
+};
+constexpr Occupancy kOccupancy[] = {
+    {"dft_density_sweep",
+     compact_occupancy<DensityPair, false, AsIs<DensityPair>>},
+    {"dft_force_sweep",
+     compact_occupancy<ForceFoldPair<true>, false, ForceFold<true>>},
+    {"dft_force_p_sweep",
+     compact_occupancy<ForceFoldPair<false>, false, ForceFold<false>>},
+    {"dft_visc_sweep", compact_occupancy<ViscPair, false, AsIs<ViscPair>>},
+    {"dft_press_pq_sweep",
+     compact_occupancy<PressPqPair, false, AsIs<PressPqPair>>},
+    {"dft_press_sweep",
+     compact_occupancy<ForceFoldPair<false>, false, ForceFold<false>>},
+    {"dft_density_bwd_sweep",
+     compact_occupancy<DensityBwdPair, false, AsIs<DensityBwdPair>>},
+    {"dft_press_bwd_sweep",
+     compact_occupancy<PressBwdFoldPair, false, PressBwdFold>},
+    {"dft_visc_bwd_sweep",
+     compact_occupancy<ViscBwdFoldPair, false, ViscBwdFold>},
+    {"dft_force_bwd_sweep",
+     compact_occupancy<ForceBwdFoldPair<true>, false, ForceBwdFold>},
+    {"dft_force_p_bwd_sweep",
+     compact_occupancy<ForceBwdFoldPair<false>, false, PressBwdFold>},
+    {"dft_density_active_sweep",
+     compact_occupancy<DensityPair, true, AsIs<DensityPair>>},
+    {"dft_press_active_sweep",
+     compact_occupancy<ForceFoldPair<false>, true, ForceFold<false>>},
+    {"dft_press_pq_active_sweep",
+     compact_occupancy<PressPqPair, true, AsIs<PressPqPair>>},
+};
+
 }  // namespace
 
 // C interface, one launcher per sweep. `in` and `out` are host arrays of
@@ -982,19 +924,16 @@ int launch_compact_active(const Pair& pair, const float* const* in,
 // mask rho press ct0..2; K9: ViscBwdFold; K7: ForceBwdFold); outputs must
 // be zero-filled by the caller. Returns the cudaError_t of the launch.
 //
-// The compacted sweeps (all but the density backward) also take `scale`,
-// applied to
-// every output as (acc * own_m) * scale, and
-// `work`, a device pointer to this launch's own counter: two uint32 words,
-// zero when the launch is enqueued, which the kernel leaves zero again. So
-// a counter may serve the launches of one stream in turn, and launches
-// with counters of their own may run at once on any streams. They need a
-// mask plane of 0 and 1 in which each cell's occupied slots are its first
-// ranks (as build_planes writes it).
+// Each also takes `scale`, applied to every output as (acc * own_m) *
+// scale, and `work`, a device pointer to this launch's own counter: two
+// uint32 words, zero when the launch is enqueued, which the kernel leaves
+// zero again. So a counter may serve the launches of one stream in turn,
+// and launches with counters of their own may run at once on any streams.
+// They need a mask plane of 0 and 1 in which each cell's occupied slots are
+// its first ranks (as build_planes writes it).
 #define DFT_SWEEP_ARGS                                                    \
   const float* const* in, float* const* out, int nx, int ny, int sub, \
       int cap
-#define DFT_SWEEP_PASS in, out, nx, ny, sub, cap, stream
 #define DFT_COMPACT_PASS in, out, nx, ny, sub, cap, scale, work
 
 extern "C" {
@@ -1067,8 +1006,10 @@ int dft_press_pq_active_sweep(DFT_SWEEP_ARGS, float h2, float inv_h, float b,
                                active, stream);
 }
 
-int dft_density_bwd_sweep(DFT_SWEEP_ARGS, float h2, float a, void* stream) {
-  return launch(DensityBwdPair{h2, a}, DFT_SWEEP_PASS);
+int dft_density_bwd_sweep(DFT_SWEEP_ARGS, float h2, float a, float scale,
+                          unsigned* work, void* stream) {
+  return launch_compact<DensityBwdPair, false>(
+      DensityBwdPair{h2, a}, DFT_COMPACT_PASS, kNoGate, stream);
 }
 
 int dft_press_bwd_sweep(DFT_SWEEP_ARGS, float h, float h2, float b,
@@ -1097,6 +1038,19 @@ int dft_force_p_bwd_sweep(DFT_SWEEP_ARGS, float h, float h2, float b,
   return launch_compact<ForceBwdFoldPair<false>, false, PressBwdFold>(
       ForceBwdFoldPair<false>{{h, h2, b}, mass2}, DFT_COMPACT_PASS, kNoGate,
       stream);
+}
+
+// CTAs per SM of the compacted kernel the launcher `symbol` runs, at
+// capacity `cap` (its dynamic shared memory in *smem), for reports; a
+// negative cudaError_t on failure, -1 for an unknown symbol.
+int dft_sweep_ctas_per_sm(const char* symbol, int cap, int* smem) {
+  for (const Occupancy& o : kOccupancy) {
+    if (std::strcmp(o.symbol, symbol) != 0) continue;
+    int per_sm = 0;
+    const cudaError_t err = o.query(cap, smem, &per_sm);
+    return err == cudaSuccess ? per_sm : -static_cast<int>(err);
+  }
+  return -1;
 }
 
 }  // extern "C"

@@ -58,36 +58,34 @@ holds each kernel against them on the card). Each CUDA launch adds one to its
 sweep's `launches` count (`SWEEPS`). Scales the JAX package applies outside
 its kernel (mass, mu*mass, mass^2) are applied here outside the kernel too
 when they are 0-d tensors, so Materials gradients flow through plain torch
-(the compact sweeps fold Python numbers, below). The density backward
-K6, the one sweep left on the sweep_block body, has its cotangent masked
-before it and every output masked after it with
-`torch.where(mask > 0, out, 0)` as the JAX `_mask_where` does; slots the
-kernel does not compute, ghost rows included, read 0.
+(the kernel folds Python numbers, below).
 
-The compact sweeps (all others: K1 density, K2 fused force in both forms,
-K3 viscosity, K4 prefolded pressure, K5 pressure, the backward sweeps K7
-in both forms, K8 and K9, and K1/K4/K5 gated) run the compacted kernel
-body, and on the CUDA route leave passes out of torch:
-  * the `_mask_where` per output: the kernel writes only slots whose mask
-    is > 0 and the rest keep the zeros the wrapper allocates, ghost rows
-    and blocks included, so the where would return its input bit for bit;
+Every sweep (K1 density, K2 fused force in both forms, K3 viscosity, K4
+prefolded pressure, K5 pressure, the backward sweeps K6, K7 in both forms,
+K8 and K9, and K1/K4/K5 gated) runs the compacted kernel body, and on the
+CUDA route leaves passes out of torch that the JAX package applies around
+its kernel:
+  * the `_mask_where` per output (JAX `_mask_where`): the kernel writes
+    only slots whose mask is > 0 and the rest keep the zeros the wrapper
+    allocates, ghost rows and blocks included, so the where would return
+    its input bit for bit;
   * the backward sweeps' `_mask_where` per cotangent: the kernel reads
     no input at an empty slot, so a cotangent's value there cannot reach
     a gradient;
   * the scale per output, when its factors are Python numbers: the kernel
     writes (acc * own_m) * mass (K1), * mass^2 (K4, K5) or * mu * mass
-    (K3), the same two float32 roundings as the multiply after the sweep.
+    (K3), the same two float32 roundings as the multiply after the sweep
+    (1 for K2, K6-K9).
     The backward scales the cotangents as that multiply's backward did, so
     gradients are unchanged. A 0-d tensor factor (traced Materials) keeps
     the scale in torch;
   * K2's folds of pq and iv (K5's of pq), plane-sized passes and planes;
     the backward sweeps fold pq and iv as they stage too, for the pair on
     raw rho and press (the plain adjoint pairs read those).
-The plain version applies all of them as torch passes. The compacted
-kernel needs a mask of 0 and 1 whose occupied slots are each cell's first
-ranks, which is what `build_planes` writes. Each compacted launch gets its
-own zeroed two-word work counter, so launches on different streams may run
-at once.
+The plain version applies all of them as torch passes. The kernel needs a
+mask of 0 and 1 whose occupied slots are each cell's first ranks, which is
+what `build_planes` writes. Each launch gets its own zeroed two-word work
+counter, so launches on different streams may run at once.
 """
 
 from __future__ import annotations
@@ -361,22 +359,22 @@ def _fold_force(ins: Planes, with_iv: bool) -> Planes:
 @dataclasses.dataclass
 class Sweep:
     """One instantiation of the stencil sweep: its input channels, its C
-    launcher and its launch count (CUDA launches only). A `gated` sweep
-    takes the int32 activity grid as well (K10). A `compact` sweep runs the
-    compacted kernel body: its last constant is the scale the kernel's
-    epilogue applies, its outputs are final (0 wherever the mask is not
-    > 0, the scale applied), so nothing is applied around the kernel, and
-    it reads no input at a slot whose mask is not > 0.
-    `fold`, when given, builds the pair's channels from the input planes
-    for the plain version; the kernel folds as it stages."""
+    launcher, the kernel body it runs, and its launch count (CUDA launches
+    only). A `gated` sweep takes the int32 activity grid as well (K10).
+    Its last constant is the scale the kernel's epilogue applies; its
+    outputs are final (0 wherever the mask is not > 0, the scale applied),
+    so nothing is applied around the kernel, and it reads no input at a
+    slot whose mask is not > 0. `fold`, when given, builds the pair's
+    channels from the input planes for the plain version; the kernel folds
+    as it stages."""
 
     name: str
     symbol: str
     in_names: Tuple[str, ...]
     n_out: int
     replaces: str
+    body: str
     gated: bool = False
-    compact: bool = False
     fold: Optional[Callable[[Planes], Planes]] = None
     launches: int = 0
 
@@ -384,45 +382,61 @@ class Sweep:
 _PALLAS = "dieselfluid_tpu/ops/pallas_sph.py"
 _CT3 = ("ct_0", "ct_1", "ct_2")
 
+
+def _body(pair: str, stage: str = "", gated: bool = False) -> str:
+    """The compacted kernel a launcher runs, as csrc/sph_sweep.cu names it."""
+    args = ", true" if gated else ""
+    return f"compact_sweep_kernel<{pair}{args}>" + (f" + {stage}" if stage
+                                                    else "")
+
+
+_FORCE_P_BODY = _body("ForceFoldPair<false>", "ForceFold<false>")
+
 DENSITY = Sweep("density", "dft_density_sweep", ("x", "y", "z", "mask"), 1,
-                f"{_PALLAS}:473", compact=True)
+                f"{_PALLAS}:473", _body("DensityPair"))
 FORCE = Sweep("force", "dft_force_sweep",
               ("x", "y", "z", "vx", "vy", "vz", "mask", "rho", "press"), 3,
-              f"{_PALLAS}:593", compact=True,
+              f"{_PALLAS}:593", _body("ForceFoldPair<true>", "ForceFold<true>"),
               fold=functools.partial(_fold_force, with_iv=True))
 FORCE_P = Sweep("force_p", "dft_force_p_sweep",
                 ("x", "y", "z", "mask", "rho", "press"), 3, f"{_PALLAS}:593",
-                compact=True,
+                _FORCE_P_BODY,
                 fold=functools.partial(_fold_force, with_iv=False))
 VISC = Sweep("viscosity", "dft_visc_sweep",
              ("x", "y", "z", "vx", "vy", "vz", "mask", "rho"), 3,
-             f"{_PALLAS}:752", compact=True)
+             f"{_PALLAS}:752", _body("ViscPair"))
 PRESS_PQ = Sweep("pressure_pq", "dft_press_pq_sweep",
                  ("x", "y", "z", "mask", "pq"), 3, f"{_PALLAS}:825",
-                 compact=True)
+                 _body("PressPqPair"))
 PRESS = Sweep("pressure", "dft_press_sweep",
               ("x", "y", "z", "mask", "rho", "press"), 3, f"{_PALLAS}:684",
-              compact=True)
+              _FORCE_P_BODY)
 DENSITY_BWD = Sweep("density_bwd", "dft_density_bwd_sweep",
-                    DENSITY.in_names + ("ct_0",), 3, f"{_PALLAS}:484")
+                    DENSITY.in_names + ("ct_0",), 3, f"{_PALLAS}:484",
+                    _body("DensityBwdPair"))
 PRESS_BWD = Sweep("pressure_bwd", "dft_press_bwd_sweep",
-                  PRESS.in_names + _CT3, 5, f"{_PALLAS}:699", compact=True)
+                  PRESS.in_names + _CT3, 5, f"{_PALLAS}:699",
+                  _body("PressBwdFoldPair", "PressBwdFold"))
 VISC_BWD = Sweep("viscosity_bwd", "dft_visc_bwd_sweep",
-                 VISC.in_names + _CT3, 7, f"{_PALLAS}:765", compact=True)
+                 VISC.in_names + _CT3, 7, f"{_PALLAS}:765",
+                 _body("ViscBwdFoldPair", "ViscBwdFold"))
 FORCE_BWD = Sweep("force_bwd", "dft_force_bwd_sweep",
-                  FORCE.in_names + _CT3, 8, f"{_PALLAS}:624", compact=True)
+                  FORCE.in_names + _CT3, 8, f"{_PALLAS}:624",
+                  _body("ForceBwdFoldPair<true>", "ForceBwdFold"))
 FORCE_P_BWD = Sweep("force_p_bwd", "dft_force_p_bwd_sweep",
-                    PRESS.in_names + _CT3, 5, f"{_PALLAS}:624", compact=True)
+                    PRESS.in_names + _CT3, 5, f"{_PALLAS}:624",
+                    _body("ForceBwdFoldPair<false>", "PressBwdFold"))
 # K10: the gated forms (the gate is `_sweep`'s `active=`, :216-251).
 DENSITY_ACTIVE = Sweep("density_active", "dft_density_active_sweep",
-                       DENSITY.in_names, 1, f"{_PALLAS}:855", gated=True,
-                       compact=True)
+                       DENSITY.in_names, 1, f"{_PALLAS}:855",
+                       _body("DensityPair", gated=True), gated=True)
 PRESS_ACTIVE = Sweep("pressure_active", "dft_press_active_sweep",
-                     PRESS.in_names, 3, f"{_PALLAS}:862", gated=True,
-                     compact=True)
+                     PRESS.in_names, 3, f"{_PALLAS}:862",
+                     _body("ForceFoldPair<false>", "ForceFold<false>", True),
+                     gated=True)
 PRESS_PQ_ACTIVE = Sweep("pressure_pq_active", "dft_press_pq_active_sweep",
-                        PRESS_PQ.in_names, 3, f"{_PALLAS}:825", gated=True,
-                        compact=True)
+                        PRESS_PQ.in_names, 3, f"{_PALLAS}:825",
+                        _body("PressPqPair", gated=True), gated=True)
 
 #: The sweeps of the dense paths (FORCE_P is force_planes at mu == 0, and
 #: FORCE_P_BWD its backward; the *_ACTIVE ones are K10).
@@ -524,19 +538,17 @@ def _check_planes(ins: Sequence[torch.Tensor], spec: DenseCellSpec):
 def launch_kernel(sweep: Sweep, ins: Sequence[torch.Tensor],
                   outs: Sequence[torch.Tensor], spec: DenseCellSpec,
                   consts: Sequence[float],
-                  active: Optional[torch.Tensor] = None,
-                  work: Optional[torch.Tensor] = None):
+                  active: Optional[torch.Tensor], work: torch.Tensor):
     """Launch `sweep`'s kernel on checked CUDA input planes (in its channel
     order) into the zero-filled output planes `outs`, on the current
-    stream, and count the launch. A compact sweep takes `work`, its
-    launch's counter (two int32 words, zero, left zero by the kernel).
-    _sweep_cuda's launch; chip_smoke.py times it alone."""
+    stream, with `work`, its launch's counter (two int32 words, zero, left
+    zero by the kernel), and count the launch. _sweep_cuda's launch;
+    chip_smoke.py times it alone."""
     from dieselfluid_tpu_torch.ops._build import load_library
 
     if spec.nx * spec.ny >= 2 ** 31 or spec.sub - 2 > 65535:
         raise ValueError(f"domain too large for the sweep grid: {spec}")
-    ptrs = ([active.data_ptr()] if sweep.gated else []) + (
-        [work.data_ptr()] if sweep.compact else [])
+    ptrs = ([active.data_ptr()] if sweep.gated else []) + [work.data_ptr()]
     fn = getattr(load_library(), sweep.symbol)
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
                    + [ctypes.c_float] * len(consts)
@@ -561,8 +573,7 @@ def _sweep_cuda(sweep: Sweep, ins: Sequence[torch.Tensor],
     with torch.cuda.device(dev):
         outs = [torch.zeros(spec.plane_shape, dtype=torch.float32,
                             device=dev) for _ in range(sweep.n_out)]
-        work = (torch.zeros(2, dtype=torch.int32, device=dev)
-                if sweep.compact else None)
+        work = torch.zeros(2, dtype=torch.int32, device=dev)
     launch_kernel(sweep, ins, outs, spec, consts, active, work)
     return outs
 
@@ -572,18 +583,16 @@ def _run_plain(sweep: Sweep, pair: Callable, ins: Planes,
                active: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
     """The plain version on any device, on the planes of `sweep.fold` when
     it has one. A gated sweep runs the ungated one and zeroes the rows
-    whose canonical patch is inactive, as the kernel leaves them. A compact
-    sweep's outputs then get what its kernel's epilogue gives: 0 wherever
-    the mask is not > 0, then the scale (its last constant), each as the
-    torch pass the caller applied before; a compact adjoint's cotangents
-    are masked first (its kernel reads none at an empty slot, the plain
-    adjoint pair reads a candidate's whatever its mask)."""
+    whose canonical patch is inactive, as the kernel leaves them. The
+    outputs then get what the kernel's epilogue gives: 0 wherever the mask
+    is not > 0, then the scale (the last constant), each as the torch pass
+    the JAX package applies; an adjoint's cotangents are masked first (the
+    kernel reads none at an empty slot, the plain adjoint pair reads a
+    candidate's whatever its mask)."""
     arrs = [ins[n] for n in sweep.in_names]
     _check_planes(arrs, spec)
-    named = dict(zip(sweep.in_names, arrs))
-    if sweep.compact:
-        named = {n: _mask_where(named["mask"], v) if n.startswith("ct_")
-                 else v for n, v in named.items()}
+    named = {n: _mask_where(ins["mask"], v) if n.startswith("ct_") else v
+             for n, v in zip(sweep.in_names, arrs)}
     if sweep.fold is not None:
         named = sweep.fold(named)
     outs = _sweep_plain(pair, named, sweep.n_out, spec)
@@ -591,11 +600,10 @@ def _run_plain(sweep: Sweep, pair: Callable, ins: Planes,
         _check_active(active, spec, arrs[0].device)
         rows = act_rows_of(active, spec)
         outs = [torch.where(rows, o, 0.0) for o in outs]
-    if sweep.compact:
-        scale = consts[-1]
-        outs = [_mask_where(ins["mask"], o) for o in outs]
-        if scale != 1.0:
-            outs = [scale * o for o in outs]
+    outs = [_mask_where(ins["mask"], o) for o in outs]
+    scale = consts[-1]
+    if scale != 1.0:
+        outs = [scale * o for o in outs]
     return outs
 
 
@@ -632,32 +640,25 @@ def _backward_sweep(run, spec: DenseCellSpec, adjoint: Op, ins: Planes,
                     cts: Sequence[Optional[torch.Tensor]]
                     ) -> List[torch.Tensor]:
     """The adjoint sweep on the forward's input planes and the output
-    cotangents (None reads 0; expanded or strided ones are copied): masked
-    cotangents in, masked gradients out, one per forward input but the
-    mask, in order. A compact adjoint takes its cotangents as they are and
-    gives final gradients (`run` masks on the plain route)."""
+    cotangents (None reads 0; expanded or strided ones are copied): the
+    gradients, one per forward input but the mask, in order, 0 at every
+    empty slot. The cotangents go in as they are (`run` masks them on the
+    plain route; the kernel reads none at an empty slot)."""
     sweep, pair, consts = adjoint
-    m = ins["mask"]
     ins = dict(ins)
     for o, ct in enumerate(cts):
-        if ct is None:
-            ct = torch.zeros_like(m)
-        elif not sweep.compact:
-            ct = _mask_where(m, ct)
+        ct = torch.zeros_like(ins["mask"]) if ct is None else ct
         ins[f"ct_{o}"] = ct.contiguous()
-    grads = run(sweep, pair, ins, spec, consts)
-    if sweep.compact:
-        return grads
-    return [_mask_where(m, g) for g in grads]
+    return run(sweep, pair, ins, spec, consts)
 
 
 class _SweepFunction(torch.autograd.Function):
     """A masked forward sweep whose backward is its adjoint sweep, run by
     the same `run` (kernel on CUDA, plain on the CPU; plain anywhere for
     `plain`). The autograd inputs are the sweep's input channels, which are
-    its adjoint's but the cotangents. A compact sweep's outputs come masked
-    and scaled from `run`; its backward scales the cotangents by that
-    scale first. A sweep without an adjoint raises in backward."""
+    its adjoint's but the cotangents. The outputs come masked and scaled
+    from `run`; the backward scales the cotangents by that scale first. A
+    sweep without an adjoint raises in backward."""
 
     @staticmethod
     def forward(ctx, run, spec, fwd: Op, adjoint: Optional[Op], *arrs):
@@ -666,10 +667,7 @@ class _SweepFunction(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         ctx.run, ctx.spec, ctx.fwd, ctx.adjoint = run, spec, fwd, adjoint
         ctx.save_for_backward(*arrs)
-        outs = run(sweep, pair, ins, spec, consts)
-        if sweep.compact:
-            return tuple(outs)
-        return tuple(_mask_where(ins["mask"], o) for o in outs)
+        return tuple(run(sweep, pair, ins, spec, consts))
 
     @staticmethod
     def backward(ctx, *cts):
@@ -683,7 +681,7 @@ class _SweepFunction(torch.autograd.Function):
                 "which use the factored ungated sweeps")
         names = sweep.in_names
         ins = dict(zip(names, ctx.saved_tensors))
-        scale = ctx.fwd[2][-1] if sweep.compact else 1.0
+        scale = ctx.fwd[2][-1]
         if scale != 1.0:
             # The forward's folded scale, as the multiply it replaced would
             # have scaled the cotangent (MulBackward).
@@ -703,11 +701,11 @@ def _apply(run, spec: DenseCellSpec, fwd: Op, adjoint: Optional[Op],
 def _density_ops(k: KernelCoeffs, scale: float = 1.0) -> Tuple[Op, Op]:
     c = (float(k.h) ** 2, float(k.a))
     return ((DENSITY, _density_pair(k), c + (scale,)),
-            (DENSITY_BWD, _density_bwd_pair(k), c))
+            (DENSITY_BWD, _density_bwd_pair(k), c + (1.0,)))
 
 
 def _kernel_scale(*factors) -> float:
-    """The scale a compact sweep's epilogue applies: the product of
+    """The scale a sweep's epilogue applies: the product of
     `factors` when all are Python numbers (the float32 multiply the caller
     did after the sweep; the product itself in double, as Python formed
     it), 1.0 when one is a 0-d tensor: the caller still applies the
@@ -718,7 +716,7 @@ def _kernel_scale(*factors) -> float:
 
 
 def _torch_scale(outs, *factors):
-    """A compact sweep's outputs times the product of `factors` when one
+    """A sweep's outputs times the product of `factors` when one
     is a 0-d tensor (the kernel's scale was 1, `_kernel_scale`); as they
     are when all are Python numbers (the kernel applied the product)."""
     if not any(isinstance(f, torch.Tensor) for f in factors):

@@ -15,7 +15,11 @@ one tile at a time:
     r < 0.5.
 
 There is no mask channel: live slots carry r >= 0.75 (the projection clip)
-and empty or trash slots r = 0, so occupancy is r >= 0.5 everywhere.
+and empty or trash slots r = 0, so occupancy is r >= 0.5 everywhere. A
+tile's occupied slots are its first ranks (bin_tile_entries writes each
+valid entry at its rank in the tile): K11 walks each tile's slots only up
+to the first 128-slot chunk whose first slot is empty, so slot planes from
+anywhere else must keep that order too.
 
 Dispatch is by the device of the slot planes, forward and backward alike:
   * CUDA tensors launch the hand-written sm_90a kernels in
@@ -125,19 +129,24 @@ class TileSpec:
 
 @dataclasses.dataclass
 class RasterKernel:
-    """One rasterizer kernel: its C launchers (6 and 9 outputs) and its
-    launch count (CUDA launches only)."""
+    """One rasterizer kernel: its C launchers (6 and 9 outputs), the kernel
+    body they run, and its launch count (CUDA launches only)."""
 
     name: str
     symbols: Tuple[str, str]
     replaces: str
+    body: str
     launches: int = 0
 
 
 SPLAT_FWD = RasterKernel("splat_fwd", ("dft_splat_fwd6", "dft_splat_fwd9"),
-                         f"{_PALLAS}:348")
+                         f"{_PALLAS}:348",
+                         "splat_fwd_kernel<kNormals>: tiles split by pixel "
+                         "column, per-warp slot lists")
 SPLAT_BWD = RasterKernel("splat_bwd", ("dft_splat_bwd6", "dft_splat_bwd9"),
-                         f"{_PALLAS}:372")
+                         f"{_PALLAS}:372",
+                         "splat_bwd_kernel<kNormals>: a CTA per tile, a "
+                         "thread per slot")
 KERNELS = (SPLAT_FWD, SPLAT_BWD)
 
 

@@ -1,5 +1,6 @@
-// A CPU emulation of the CUDA features csrc/sph_sweep.cu uses, for
-// tests/test_torch_sweep_emulated.py: one std::thread per CUDA thread, a
+// A CPU emulation of the CUDA features csrc/sph_sweep.cu and
+// csrc/splat_raster.cu use, for tests/test_torch_sweep_emulated*.py and
+// tests/test_torch_raster_emulated.py: one std::thread per CUDA thread, a
 // std::barrier for __syncthreads and per warp for the warp collectives,
 // shared memory as static storage, CTAs run one at a time, `emu_sms`
 // streaming multiprocessors of one resident CTA each. Arithmetic is the
@@ -117,6 +118,10 @@ inline unsigned atomicOr(unsigned* p, unsigned v) {
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 inline float fmaxf(float a, float b) { return std::fmax(a, b); }
 inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+using std::max;
+using std::min;
 
 // kernel<<<grid, block, smem, stream>>>(...) becomes emu_launch(grid,
 // block, smem, [=] { kernel(...); }): every CTA in turn, its dynamic shared

@@ -294,14 +294,14 @@ def test_gated_kernel_matches_plain_and_ungated(planes, name, kind):
 
 
 # --------------------------------------------------------------------------
-# The compacted body (K1, K2 in both forms, K3, K4, K5, K7 in both forms,
-# K8, K9 and the gated K1/K4/K5) on edge cases, and on two streams at once
+# The compacted body (K1, K2 in both forms, K3-K6, K7 in both forms, K8,
+# K9 and the gated K1/K4/K5) on edge cases, and on two streams at once
 # --------------------------------------------------------------------------
 
 COMPACT = ("density", "pressure_pq", "force", "force_p", "viscosity",
-           "pressure", "pressure_bwd", "viscosity_bwd", "force_bwd",
-           "force_p_bwd", "density_active", "pressure_pq_active",
-           "pressure_active")
+           "pressure", "density_bwd", "pressure_bwd", "viscosity_bwd",
+           "force_bwd", "force_p_bwd", "density_active",
+           "pressure_pq_active", "pressure_active")
 
 
 def _edge_planes(kind, cap, device, ny_cells=None):
@@ -361,6 +361,8 @@ def _compact_call(name, params, spec, p, plain, active=None):
         return fns.pressure_force_planes(p, p["rho"], p["press"], spec, k,
                                          params.mass)
     cts = tuple(p[f"ct_{i}"] for i in range(3))
+    if name == "density_bwd":
+        return fns.density_sum_bwd(p, cts[0], spec, k)
     if name == "pressure_bwd":
         return fns.press_sum_bwd(p, p["rho"], p["press"], cts, spec, k)
     if name == "viscosity_bwd":
@@ -402,7 +404,7 @@ def _check_compact(name, params, spec, p, active=None):
 @pytest.mark.parametrize("cap", [16, 32])
 @pytest.mark.parametrize("kind", ["full", "lone", "empty"])
 def test_compact_kernels_on_edge_planes(cuda, kind, cap):
-    """The thirteen compacted launchers against their plain versions on
+    """The fourteen compacted launchers against their plain versions on
     cells full to capacity, a lone particle and an all-empty plane (all
     0), at the bench's and the CLI's capacities; the gated forms under an
     all-ones grid."""
@@ -438,9 +440,9 @@ def test_compact_gated_kernels_on_odd_patches(cuda, ny_cells, kind):
 
 
 @pytest.mark.parametrize("name", ["density", "force", "viscosity",
-                                  "pressure_pq", "pressure_bwd",
-                                  "viscosity_bwd", "force_bwd",
-                                  "force_p_bwd"])
+                                  "pressure_pq", "density_bwd",
+                                  "pressure_bwd", "viscosity_bwd",
+                                  "force_bwd", "force_p_bwd"])
 def test_compact_launches_on_two_streams_at_once(cuda, name):
     """Each compacted launch has its own work counter: one compacted sweep
     on two plane sets, each on its own non-default stream, both streams

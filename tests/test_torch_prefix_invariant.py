@@ -1,13 +1,13 @@
-"""The mask invariant the compacted sweep kernel (every sweep but the
-density backward K6) relies on: every mask plane a main path hands a sweep
-holds only 0 and 1, and in every cell its occupied slots are ranks 0..n-1.
-The kernel counts a cell's occupied slots and visits only that many of
-them. And, for K5 and the backward sweeps K7 (both forms), K8 and K9 on the
-training and sim -> render paths (planes from _pos_vel_planes, rho from
-density_planes or to_plane, press from a where or to_plane), the
-positions, velocities, rho and press are 0 at every empty slot: there the
-old sweep_block body read them (the adjoints' role swap), so the compacted
-body, which skips empty slots, equals it only then.
+"""The mask invariant the compacted sweep kernel (every sweep) relies on:
+every mask plane a main path hands a sweep holds only 0 and 1, and in every
+cell its occupied slots are ranks 0..n-1. The kernel counts a cell's
+occupied slots and visits only that many of them. And, for K5 and the
+backward sweeps K6, K7 (both forms), K8 and K9 on the training and sim ->
+render paths (planes from _pos_vel_planes, rho from density_planes or
+to_plane, press from a where or to_plane), the positions, velocities, rho
+and press are 0 at every empty slot: there the old sweep_block body read
+them (the adjoints' role swap), so the compacted body, which skips empty
+slots, equals it only then.
 
 Checked on the plane producers directly (build_planes after dense_indices,
 on a dam break and with cells forced to overflow; the boundary-extended
@@ -19,6 +19,11 @@ and viscosity, backward included) and PCISPH steps (the correction loop's
 predicted planes, the column_skip loop's, the unrolled loop's scatter of
 predicted positions, backward included), and the resident WCSPH and PCISPH
 states over several skin > 0 steps between rebuilds.
+
+And the rasterizer's invariant (K11 walks each tile's slots only up to the
+first 128-slot chunk whose first slot is empty): in the slot planes
+bin_tile_entries writes, each tile's occupied slots (r >= 0.5) are its first
+ranks, with entries that overflow k and entries off the screen.
 """
 
 import numpy as np
@@ -118,15 +123,13 @@ def test_boundary_extended_binning():
 
 @pytest.fixture
 def spy(monkeypatch):
-    """The input planes of every compact sweep call through the sweeps'
-    dispatch (the backward sweeps' too: autograd keeps the forward's
-    dispatch)."""
+    """The input planes of every sweep call through the sweeps' dispatch
+    (the backward sweeps' too: autograd keeps the forward's dispatch)."""
     calls = []
     real = sw._run
 
     def run(sweep, pair, ins, spec, consts, active=None):
-        if sweep.compact:
-            calls.append((sweep.name, dict(ins)))
+        calls.append((sweep.name, dict(ins)))
         return real(sweep, pair, ins, spec, consts, active)
 
     monkeypatch.setattr(sw, "_run", run)
@@ -137,6 +140,7 @@ def spy(monkeypatch):
 # candidate, and the planes it read there.
 EMPTY_READS = {
     "pressure": ("rho", "press"),
+    "density_bwd": ("x", "y", "z"),
     "pressure_bwd": ("x", "y", "z", "rho", "press"),
     "viscosity_bwd": ("x", "y", "z", "vx", "vy", "vz", "rho"),
     "force_bwd": ("x", "y", "z", "vx", "vy", "vz", "rho", "press"),
@@ -174,9 +178,9 @@ def test_per_step_solvers_hand_prefix_masks(spy):
     assert [sum(n == b for n, _ in spy) for b in (
         "force_bwd", "force_p_bwd", "viscosity_bwd")] == [1, 1, 2]
     _check(spy, spec, ("density", "force", "force_p", "viscosity",
-                       "pressure_pq", "pressure", "pressure_bwd",
-                       "viscosity_bwd", "force_bwd", "force_p_bwd",
-                       "density_active", "pressure_pq_active"))
+                       "pressure_pq", "pressure", "density_bwd",
+                       "pressure_bwd", "viscosity_bwd", "force_bwd",
+                       "force_p_bwd", "density_active", "pressure_pq_active"))
 
 
 def test_resident_states_between_rebuilds_hand_prefix_masks(spy):
@@ -199,3 +203,35 @@ def test_resident_states_between_rebuilds_hand_prefix_masks(spy):
             assert prefix_violations(ps.planes["mask"], spec.capacity) == 0
         assert 0 < ages[-1] < 6, ages
     _check(spy, spec, ("density", "force", "viscosity", "pressure_pq"))
+
+
+@pytest.mark.parametrize("case", ["overflow", "off_screen"])
+def test_tile_planes_hold_occupied_slots_as_first_ranks(case):
+    """bin_tile_entries on a 256x144 frame (k = 128): seeded splats packed
+    into a few tiles so that some overflow k, or spread over and past the
+    screen (off to every side and behind the camera). Every tile's occupied
+    slots (r >= 0.5) are its first ranks, and live slots have r >= 0.75,
+    empty ones r = 0."""
+    from dieselfluid_tpu_torch.render import splat_tiled as st
+
+    spec = st.TileSpec(256, 144, k=128)
+    rng = np.random.default_rng(11)
+    n = 3000
+    if case == "overflow":
+        u = rng.uniform(20.0, 70.0, n)
+        v = rng.uniform(2.0, 30.0, n)
+    else:
+        u = rng.uniform(-60.0, 320.0, n)
+        v = rng.uniform(-40.0, 190.0, n)
+    t = {c: torch.from_numpy(a.astype(np.float32)) for c, a in (
+        ("u", u), ("v", v), ("z", rng.uniform(0.0, 1.0, n)),
+        ("r", rng.uniform(0.75, 4.5, n)))}
+    in_front = torch.from_numpy(rng.uniform(size=n) < 0.9)
+    planes, _, overflow = st.bin_tile_entries(t["u"], t["v"], t["z"],
+                                              t["r"], in_front, spec)
+    r = planes["r"].reshape(spec.n_tiles, spec.k)
+    occ = r >= 0.5
+    assert (int(overflow) > 0) == (case == "overflow")
+    assert int(occ.sum()) > 0
+    assert prefix_violations(occ.float(), spec.k) == 0
+    assert bool((r[occ] >= 0.75).all()) and not bool(r[~occ].any())

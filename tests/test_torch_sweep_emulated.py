@@ -2,20 +2,22 @@
 the CPU by g++ against an emulation of the CUDA features it uses
 (tests/cuda_emu/cuda_runtime.h: a thread per CUDA thread, barriers for
 __syncthreads and the warp collectives, CTAs one at a time on `emu_sms`
-emulated SMs).
+emulated SMs), with the old sweep body appended as the oracle
+(tests/cuda_emu/sweep_block.h: sweep_block, the body every sweep ran
+before the compacted one, which the library no longer has).
 
 This runs the kernel's bookkeeping on the CPU: the work fetches and their
 per-launch, self-resetting counter, the gate, the ballot ranking of own
 slots onto threads, the float4 staging walk (one, two or three float4s a
-candidate, the folds of pq and iv) and the per-cell counts. For K1 and K4,
-ungated and gated, here, for K2 in both forms and K3 in
+candidate, the folds of pq and iv) and the per-cell counts. For K1, K4
+(ungated and gated) and K6 here, for K2 in both forms and K3 in
 test_torch_sweep_emulated_wide.py, for K5 (ungated and gated) and K8 in
 test_torch_sweep_emulated_press.py, and for K7 in both forms and K9 in
 test_torch_sweep_emulated_bwd.py, on capacities 2 to 32, cells full to
 capacity, a lone particle, an empty plane and odd patch grids, the
-compacted launchers must give bit for bit what sweep_block (the body K6
-still runs, the one these ran before) gives with the folds before it
-and the mask and the scale applied after it, must stay within
+compacted launchers must give bit for bit what sweep_block gives with the
+passes the wrapper applied around it (the folds and the cotangents' mask
+before it, the mask and the scale after it), must stay within
 KERNEL_REL_TOL of the plain torch version, and must give the same again on
 a second launch with the same counter and leave the counter zero. The
 arithmetic is the host's (rsqrtf is 1 / sqrtf here), so the rounding on
@@ -44,260 +46,55 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parent.parent
 DX = 0.125
 
-# sweep_block's launchers for K1-K5, K7-K9 and the gated K1/K4/K5, which
-# the library no longer exports, with the old pressure pair, the old
-# adjoint pairs on raw rho and press (K7 in both forms, K8, K9) and the old
-# gated kernel (sweep_block behind a per-CTA read of the activity grid)
-# they ran, and the emulator's controls, appended to the source so that its
-# templates are in scope.
-SHIM = """
-namespace {
-// p_i / max(rho_i, eps)^2 + p_j / max(rho_j, eps)^2 from raw rho and press.
-__device__ __forceinline__ float press_coeff(float rho_i, float p_i,
-                                             float rho_j, float p_j) {
-  return p_i / (rho_i * rho_i) + p_j / (rho_j * rho_j);
-}
-struct PressPair {  // x y z mask rho press -> 3 (mass^2 applied outside)
-  static constexpr int kIn = 6, kOut = 3, kMask = 3, kRho = 4, kPress = 5;
-  float h, h2, b;
-  void operator()(const float* o, const float* c, float* acc) const {
-    const float dx = c[0] - o[0], dy = c[1] - o[1], dz = c[2] - o[2];
-    const float d2 = dx * dx + dy * dy + dz * dz;
-    const bool live = (d2 > kEps) && (d2 < h2) && (c[kMask] > 0.0f);
-    const float inv_d = rsqrtf(live ? d2 : 1.0f);
-    const float dist = d2 * inv_d;
-    const float q1 = 1.0f - dist / h;
-    const float o1d = b * q1 * q1;
-    const float coeff = press_coeff(fmaxf(o[kRho], kEps), o[kPress],
-                                    fmaxf(c[kRho], kEps), c[kPress]);
-    const float s_p = live ? coeff * o1d * inv_d : 0.0f;
-    acc[0] += s_p * dx;
-    acc[1] += s_p * dy;
-    acc[2] += s_p * dz;
-  }
-};
-// The adjoint terms on raw rho and press planes, read at both slots, as
-// sweep_block ran K7, K8 and K9 (the library's terms read folded pq and iv).
-template <int kMask, int kRho, int kPress, int kCt, int kOutRho,
-          int kOutPress>
-struct RawPressBwdTerms {
-  float h, h2, b;
-  void operator()(const float* o, const float* c, float s, float* acc) const {
-    const float dx = c[0] - o[0], dy = c[1] - o[1], dz = c[2] - o[2];
-    const float d2 = dx * dx + dy * dy + dz * dz;
-    const bool near = (d2 > kEps) && (d2 < h2);
-    const bool a = near && (c[kMask] > 0.0f);
-    const bool bb = near && (o[kMask] > 0.0f);
-    const float inv_d = rsqrtf(near ? d2 : 1.0f);
-    const float dist = d2 * inv_d;
-    const float q1 = 1.0f - dist / h;
-    const float o1d = b * q1 * q1;
-    const float phi = o1d * inv_d;
-    const float inv_d2 = inv_d * inv_d;
-    const float dphi = -(b / h) * q1 * inv_d2 - 0.5f * o1d * inv_d2 * inv_d;
-    const float rho_i = fmaxf(o[kRho], kEps);
-    const float coeff =
-        press_coeff(rho_i, o[kPress], fmaxf(c[kRho], kEps), c[kPress]);
-    const float ex = (bb ? c[kCt] : 0.0f) - (a ? o[kCt] : 0.0f);
-    const float ey = (bb ? c[kCt + 1] : 0.0f) - (a ? o[kCt + 1] : 0.0f);
-    const float ez = (bb ? c[kCt + 2] : 0.0f) - (a ? o[kCt + 2] : 0.0f);
-    const float ed = ex * dx + ey * dy + ez * dz;
-    const float g = 2.0f * coeff * dphi * ed;
-    const float sp = coeff * phi;
-    const float t = phi * ed;
-    const float inv_r2 = 1.0f / (rho_i * rho_i);
-    acc[0] += s * (g * dx + sp * ex);
-    acc[1] += s * (g * dy + sp * ey);
-    acc[2] += s * (g * dz + sp * ez);
-    acc[kOutRho] +=
-        s * max_eps_grad(o[kRho], 2.0f * t * o[kPress] * inv_r2 / rho_i);
-    acc[kOutPress] += s * (-t * inv_r2);
-  }
-};
-template <int kMask, int kRho, int kCt, int kOutRho>
-struct RawViscBwdTerms {
-  float h, h2, cw;
-  void operator()(const float* o, const float* c, float s, float* acc) const {
-    const float dx = c[0] - o[0], dy = c[1] - o[1], dz = c[2] - o[2];
-    const float d2 = dx * dx + dy * dy + dz * dz;
-    const bool near = (d2 > kEps) && (d2 < h2);
-    const bool a = near && (c[kMask] > 0.0f);
-    const bool bb = near && (o[kMask] > 0.0f);
-    const float inv_d = rsqrtf(near ? d2 : 1.0f);
-    const float dist = d2 * inv_d;
-    const float o2d = cw * (1.0f - dist / h);
-    const float do2d = -0.5f * (cw / h) * inv_d;
-    const float inv_ri = 1.0f / fmaxf(o[kRho], kEps);
-    const float inv_rj = 1.0f / fmaxf(c[kRho], kEps);
-    const float ex =
-        (bb ? c[kCt] * inv_ri : 0.0f) - (a ? o[kCt] * inv_rj : 0.0f);
-    const float ey =
-        (bb ? c[kCt + 1] * inv_ri : 0.0f) - (a ? o[kCt + 1] * inv_rj : 0.0f);
-    const float ez =
-        (bb ? c[kCt + 2] * inv_ri : 0.0f) - (a ? o[kCt + 2] * inv_rj : 0.0f);
-    const float dvx = c[3] - o[3], dvy = c[4] - o[4], dvz = c[5] - o[5];
-    const float g = 2.0f * do2d * (ex * dvx + ey * dvy + ez * dvz);
-    const float wdv =
-        bb ? (c[kCt] * dvx + c[kCt + 1] * dvy + c[kCt + 2] * dvz) * inv_ri
-           : 0.0f;
-    acc[0] += s * (g * dx);
-    acc[1] += s * (g * dy);
-    acc[2] += s * (g * dz);
-    acc[3] += s * (o2d * ex);
-    acc[4] += s * (o2d * ey);
-    acc[5] += s * (o2d * ez);
-    acc[kOutRho] += s * max_eps_grad(o[kRho], o2d * wdv * inv_ri);
-  }
-};
-struct PressBwdPair {  // x y z mask rho press ct0..2 -> dx dy dz drho dpress
-  static constexpr int kIn = 9, kOut = 5, kMask = 3;
-  RawPressBwdTerms<3, 4, 5, 6, 3, 4> terms;
-  void operator()(const float* o, const float* c, float* acc) const {
-    terms(o, c, 1.0f, acc);
-  }
-};
-struct ViscBwdPair {  // x y z vx vy vz mask rho ct0..2 -> 7
-  static constexpr int kIn = 11, kOut = 7, kMask = 6;
-  RawViscBwdTerms<6, 7, 8, 6> terms;
-  void operator()(const float* o, const float* c, float* acc) const {
-    terms(o, c, 1.0f, acc);
-  }
-};
-struct ForceBwdPair {  // x y z vx vy vz mask rho press ct0..2 -> 8
-  static constexpr int kIn = 12, kOut = 8, kMask = 6;
-  RawPressBwdTerms<6, 7, 8, 9, 6, 7> press;
-  RawViscBwdTerms<6, 7, 9, 6> visc;
-  float mass2, mu_mass;
-  void operator()(const float* o, const float* c, float* acc) const {
-    press(o, c, mass2, acc);
-    visc(o, c, mu_mass, acc);
-  }
-};
-struct ForceBwdPPair {  // x y z mask rho press ct0..2 -> 5 (mu == 0)
-  static constexpr int kIn = 9, kOut = 5, kMask = 3;
-  RawPressBwdTerms<3, 4, 5, 6, 3, 4> press;
-  float mass2;
-  void operator()(const float* o, const float* c, float* acc) const {
-    press(o, c, mass2, acc);
-  }
-};
-template <class Pair>
-void sweep_active_kernel(const Pair pair,
-                         const SweepArgs<Pair::kIn, Pair::kOut> args,
-                         const ActiveGate gate) {
-  const int col = blockIdx.x;
-  if (gate.active[(col / args.ny) * gate.nyp + (col % args.ny) / gate.patch]
-      == 0)
-    return;
-  sweep_block(pair, args);
-}
-template <class Pair>
-int launch_active(const Pair& pair, const float* const* in,
-                  float* const* out, int nx, int ny, int sub, int cap,
-                  const int* active, void* stream) {
-  const int patch = ny < 8 ? ny : 8;
-  const ActiveGate gate{active, (ny + patch - 1) / patch, patch};
-  return launch_kernel(sweep_active_kernel<Pair>, pair, in, out, nx, ny, sub,
-                       cap, stream, gate);
-}
-}  // namespace
-#define DFT_ACTIVE_PASS in, out, nx, ny, sub, cap, active, stream
-extern "C" {
-void emu_set_sms(int n) { emu_sms = n; }
-void emu_defer(int on) { emu_deferred = on != 0; }
-void emu_run_deferred() { emu_flush(); }
-int emu_block_force(DFT_SWEEP_ARGS, float h, float h2, float b, float cw,
-                    float mass2, float mu_mass, void* stream) {
-  return launch(ForceFoldPair<true>{h, h2, b, cw, mass2, mu_mass},
-                DFT_SWEEP_PASS);
-}
-int emu_block_force_p(DFT_SWEEP_ARGS, float h, float h2, float b,
-                      float mass2, void* stream) {
-  return launch(ForceFoldPair<false>{h, h2, b, 0.0f, mass2, 0.0f},
-                DFT_SWEEP_PASS);
-}
-int emu_block_visc(DFT_SWEEP_ARGS, float h, float h2, float cw,
-                   void* stream) {
-  return launch(ViscPair{h, h2, cw}, DFT_SWEEP_PASS);
-}
-int emu_block_density(DFT_SWEEP_ARGS, float h2, float a, void* stream) {
-  return launch(DensityPair{h2, a}, DFT_SWEEP_PASS);
-}
-int emu_block_press_pq(DFT_SWEEP_ARGS, float h2, float inv_h, float b,
-                       void* stream) {
-  return launch(PressPqPair{h2, inv_h, b}, DFT_SWEEP_PASS);
-}
-int emu_block_density_active(DFT_SWEEP_ARGS, float h2, float a,
-                             const int* active, void* stream) {
-  return launch_active(DensityPair{h2, a}, DFT_ACTIVE_PASS);
-}
-int emu_block_press_pq_active(DFT_SWEEP_ARGS, float h2, float inv_h,
-                              float b, const int* active, void* stream) {
-  return launch_active(PressPqPair{h2, inv_h, b}, DFT_ACTIVE_PASS);
-}
-int emu_block_press(DFT_SWEEP_ARGS, float h, float h2, float b,
-                    void* stream) {
-  return launch(PressPair{h, h2, b}, DFT_SWEEP_PASS);
-}
-int emu_block_press_active(DFT_SWEEP_ARGS, float h, float h2, float b,
-                           const int* active, void* stream) {
-  return launch_active(PressPair{h, h2, b}, DFT_ACTIVE_PASS);
-}
-int emu_block_press_bwd(DFT_SWEEP_ARGS, float h, float h2, float b,
-                        void* stream) {
-  return launch(PressBwdPair{{h, h2, b}}, DFT_SWEEP_PASS);
-}
-int emu_block_visc_bwd(DFT_SWEEP_ARGS, float h, float h2, float cw,
-                       void* stream) {
-  return launch(ViscBwdPair{{h, h2, cw}}, DFT_SWEEP_PASS);
-}
-int emu_block_force_bwd(DFT_SWEEP_ARGS, float h, float h2, float b, float cw,
-                        float mass2, float mu_mass, void* stream) {
-  return launch(ForceBwdPair{{h, h2, b}, {h, h2, cw}, mass2, mu_mass},
-                DFT_SWEEP_PASS);
-}
-int emu_block_force_p_bwd(DFT_SWEEP_ARGS, float h, float h2, float b,
-                          float mass2, void* stream) {
-  return launch(ForceBwdPPair{{h, h2, b}, mass2}, DFT_SWEEP_PASS);
-}
-}
-"""
+SHIM = ROOT / "tests" / "cuda_emu" / "sweep_block.h"
 
 
-def emulated_source(src: str) -> str:
-    """The .cu source with each kernel launch turned into an emu_launch and
-    the dynamic shared memory into the emulator's buffer."""
+def emulated_source(src: str, shim: str, n_launches: int,
+                    smem=(("float4", "smem4"), ("float", "smem"))) -> str:
+    """The .cu source with `shim` appended, each kernel launch turned into
+    an emu_launch and the dynamic shared memory arrays `smem` ((type, name)
+    pairs) into the emulator's buffer."""
     def launch(m):
-        grid, block, smem = m.group(2).split(",")[:3]
-        return (f"emu_launch(dim3({grid}), dim3({block}), {smem}, "
+        grid, block, smem_bytes = m.group(2).split(",")[:3]
+        return (f"emu_launch(dim3({grid}), dim3({block}), {smem_bytes}, "
                 f"[=] {{ {m.group(1)}({m.group(3)}); }});")
 
-    out, n = re.subn(r"(\w+)<<<(.*?)>>>\((.*?)\);", launch, src, flags=re.S)
-    assert n == 2, n
-    for t, name in (("float4", "smem4"), ("float", "smem")):
+    out, n = re.subn(r"(\w+(?:<\w+>)?)<<<(.*?)>>>\((.*?)\);", launch,
+                     src + shim, flags=re.S)
+    assert n == n_launches, n
+    for t, name in smem:
         decl = f"extern __shared__ {t} {name}[];"
         assert decl in out, decl
         out = out.replace(decl, f"{t}* {name} = reinterpret_cast<{t}*>"
                                 "(emu_dyn_smem);")
-    return out + SHIM
+    return out
 
 
-@pytest.fixture(scope="module")
-def lib(tmp_path_factory):
+def compile_emulated(src: str, d: Path, name: str) -> ctypes.CDLL:
+    """`src` compiled by g++ (C++20) against tests/cuda_emu/ into a shared
+    library under `d`, loaded."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ (C++20) to compile the emulated kernel")
-    d = tmp_path_factory.mktemp("sweep_emu")
-    src = (ROOT / "dieselfluid_tpu_torch" / "csrc" / "sph_sweep.cu")
-    cpp = d / "sph_sweep_emu.cpp"
-    cpp.write_text(emulated_source(src.read_text()))
-    so = d / "libsweep_emu.so"
+    cpp = d / f"{name}.cpp"
+    cpp.write_text(src)
+    so = d / f"lib{name}.so"
     proc = subprocess.run(
         [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-Wno-unknown-pragmas",
          "-I", str(ROOT / "tests" / "cuda_emu"), "-o", str(so), str(cpp),
          "-lpthread"], capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
     return ctypes.CDLL(str(so))
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    """The sweep library with sweep_block's launchers (tests/cuda_emu/
+    sweep_block.h): one kernel launch in each."""
+    src = (ROOT / "dieselfluid_tpu_torch" / "csrc" / "sph_sweep.cu")
+    return compile_emulated(emulated_source(src.read_text(),
+                                            SHIM.read_text(), 2),
+                            tmp_path_factory.mktemp("sweep_emu"), "sweep_emu")
 
 
 def _call(lib, sym, ins, n_out, spec, consts, active=None, work=None):
@@ -435,3 +232,43 @@ def test_gated_compact_body_equals_sweep_block_and_plain(lib, ny_cells,
     a = {"ones": np.ones(shape), "zeros": np.zeros(shape),
          "quarter": np.random.default_rng(4).uniform(size=shape) < 0.3}[kind]
     _compare(lib, params, spec, p, torch.from_numpy(a.astype(np.int32)))
+
+
+def seeded_cotangents(spec, seed, n=3):
+    """`n` N(0, 1) planes, every slot seeded (empty ones too)."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.normal(size=spec.plane_shape).astype(
+        np.float32)) for _ in range(n))
+
+
+def density_bwd_launch(params, spec, p, ct):
+    """(the compacted K6's inputs and constants with the scale 1;
+    sweep_block's inputs, the cotangent masked as the wrapper handed it to
+    sweep_block)."""
+    k = KernelCoeffs.build(params.h)
+    ins = [p[c] for c in ("x", "y", "z", "mask")]
+    consts = (float(k.h) ** 2, float(k.a))
+    return (ins + [ct], consts + (1.0,),
+            ins + [torch.where(p["mask"] > 0, ct, 0.0)], consts)
+
+
+@pytest.mark.parametrize("sms", [1, 3])
+@pytest.mark.parametrize("case", list(CASES))
+def test_density_bwd_equals_sweep_block_and_plain(lib, case, sms):
+    """K6 (one float4 a candidate: x y z ct, both masks 1) on a cotangent
+    seeded at every slot: sweep_block's sums with the cotangent masked
+    before it and the gradients after it, bit for bit."""
+    lib.emu_set_sms(sms)
+    params, spec, p = CASES[case]()
+    m = p["mask"] > 0
+    (ct,) = seeded_cotangents(spec, 61, 1)
+    ins, consts, bins, bconsts = density_bwd_launch(params, spec, p, ct)
+    work = _counter()
+    got = [_call(lib, "dft_density_bwd_sweep", ins, 3, spec, consts,
+                 work=work) for _ in range(2)]
+    assert not bool(work.any())
+    block = [torch.where(m, o, 0.0) for o in _call(
+        lib, "emu_block_density_bwd", bins, 3, spec, bconsts)]
+    plain = sw.plain.density_sum_bwd(p, ct, spec,
+                                     KernelCoeffs.build(params.h))
+    _check_runs({"density_bwd": (got, block, list(plain))}, m)

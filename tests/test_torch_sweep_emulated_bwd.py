@@ -1,8 +1,9 @@
 """K9 (the viscosity backward) and K7 (the fused force's backward, with and
 without viscosity) on the compacted sweep body, emulated on the CPU as
-tests/test_torch_sweep_emulated.py runs K1 and K4 (its compiled kernel,
-planes and launch helpers; its shim holds the old adjoint pairs on raw rho
-and press, which these sweeps ran on sweep_block).
+tests/test_torch_sweep_emulated.py runs K1, K4 and K6 (its compiled
+kernel, planes and launch helpers; tests/cuda_emu/sweep_block.h holds the
+old adjoint pairs on raw rho and press, which these sweeps ran on
+sweep_block).
 
 Each must give bit for bit what sweep_block gives with the passes the
 wrapper applied around it then: the mask on the cotangents before it and

@@ -1,8 +1,8 @@
 """K5 (pressure), its gated form (K10's pressure form) and K8 (the pressure
 backward) on the compacted sweep body, emulated on the CPU as
-tests/test_torch_sweep_emulated.py runs K1 and K4 (its compiled kernel,
-planes and launch helpers; its shim holds the old pressure pair and the old
-gated kernel).
+tests/test_torch_sweep_emulated.py runs K1, K4 and K6 (its compiled
+kernel, planes and launch helpers; tests/cuda_emu/sweep_block.h holds the
+old pressure pair and the old gated kernel).
 
 Each must give bit for bit what sweep_block (the body they ran before)
 gives with the passes the wrapper applied around it then: K5 and K10's

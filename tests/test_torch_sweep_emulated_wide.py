@@ -1,12 +1,13 @@
 """K2 (the fused force, both forms) and K3 (viscosity) on the compacted
 sweep body, emulated on the CPU as tests/test_torch_sweep_emulated.py runs
-K1 and K4 (its compiled kernel, planes and launch helpers): bit for bit
+K1, K4 and K6 (its compiled kernel, planes and launch helpers): bit for bit
 sweep_block (the body they ran before, with torch's folds of pq and iv
 before it and the mask and the scale after it), within KERNEL_REL_TOL of
 the plain torch version, the same again on a second launch with the same
 counter, over every plane case there. And the per-launch work counter: two
-launches of one compacted sweep with counters of their own, their CTAs run
-in turns as on two streams, each give their own result.
+launches of one compacted sweep (K1, K2 in both forms, K3, K4 or K6) with
+counters of their own, their CTAs run in turns as on two streams, each
+give their own result.
 """
 
 import pytest
@@ -15,7 +16,8 @@ import torch
 from dieselfluid_tpu_torch.ops import sph_sweep as sw
 from dieselfluid_tpu_torch.ops.smoothing import KernelCoeffs
 from test_torch_sweep_emulated import (CASES, _call, _check_runs,  # noqa: F401
-                                       _counter, lib)
+                                       _counter, density_bwd_launch, lib,
+                                       seeded_cotangents)
 
 torch.set_num_threads(1)
 
@@ -81,7 +83,8 @@ def test_wide_compact_sweeps_equal_sweep_block_and_plain(lib, case, sms):
 
 @pytest.mark.parametrize("sms", [2, 3])
 @pytest.mark.parametrize("sweep", ["density", "force", "force_p",
-                                   "viscosity", "pressure_pq"])
+                                   "viscosity", "pressure_pq",
+                                   "density_bwd"])
 def test_launches_with_own_counters_run_in_turns(lib, sweep, sms):
     """Two launches of one compacted sweep over two plane sets, each with
     its own counter, their CTAs run in turns (as on two streams): each
@@ -100,6 +103,10 @@ def test_launches_with_own_counters_run_in_turns(lib, sweep, sms):
             args.append(("dft_density_sweep",
                          [p[c] for c in ("x", "y", "z", "mask")], 1, spec,
                          (h * h, float(k.a), float(params.mass))))
+        elif sweep == "density_bwd":
+            (ct,) = seeded_cotangents(spec, 62, 1)
+            ins, consts, *_ = density_bwd_launch(params, spec, p, ct)
+            args.append(("dft_density_bwd_sweep", ins, 3, spec, consts))
         elif sweep == "pressure_pq":
             args.append(("dft_press_pq_sweep",
                          [p[c] for c in ("x", "y", "z", "mask", "pq")], 3,

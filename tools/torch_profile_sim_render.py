@@ -11,11 +11,11 @@ positions) and reports, per forward+backward:
   * host-clock phases, each ending in torch.cuda.synchronize(): the step's
     forward, the render's forward (binning, K11, compositing, loss), and
     the backward of both;
-  * torch.profiler CUDA kernel self time, grouped: the stencil sweep
-    kernels (K1, K2, K6, K7), the rasterizer kernels (K11, K12), sort and
-    scan (binning), index/scatter/gather, the rest (elementwise and
-    reductions), memset/memcpy; and the device's busy time against the
-    profiled wall time (its idle share).
+  * torch.profiler CUDA kernel self time, grouped: the density backward
+    sweep K6, the other stencil sweep kernels (K1, K2, K7), the rasterizer
+    kernels (K11, K12), sort and scan (binning), index/scatter/gather, the
+    rest (elementwise and reductions), memset/memcpy; and the device's
+    busy time against the profiled wall time (its idle share).
 
 Prints one JSON object. Needs a CUDA device.
 """
@@ -33,7 +33,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 import numpy as np  # noqa: E402
 
-GROUPS = (("sweep kernels (K1 K2 K6 K7)", ("sweep_kernel",)),
+GROUPS = (("density_bwd sweep (K6)", ("DensityBwdPair",)),
+          ("sweep kernels (K1 K2 K7)", ("sweep_kernel",)),
           ("splat_fwd kernel (K11)", ("splat_fwd_kernel",)),
           ("splat_bwd kernel (K12)", ("splat_bwd_kernel",)),
           ("sort / scan", ("sort", "scan", "radix", "cub::")),

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""The sweeps of two checkouts of the port, on the same seeded 1M planes,
-in turns, on one card: K1 (density), K4 (prefolded pressure), K2 (the fused
-force, with mu and at mu = 0), K3 (viscosity), K5 (pressure), and the
-backward sweeps on seeded cotangents: K6 (density), K8 (pressure), K9
-(viscosity) and K7 (the fused force's, both forms).
+"""The sweeps and the rasterizer's forward of two checkouts of the port, on
+the same seeded inputs, in turns, on one card: on seeded 1M planes K1
+(density), K4 (prefolded pressure), K2 (the fused force, with mu and at mu
+= 0), K3 (viscosity), K5 (pressure), and the backward sweeps on seeded
+cotangents: K6 (density), K8 (pressure), K9 (viscosity) and K7 (the fused
+force's, both forms); on the sim -> render path's 1080p frame K11 in both
+output forms.
 
     python3 tools/torch_sweep_ab.py ROOT_A ROOT_B [--pairs N]
 
@@ -16,15 +18,20 @@ that root's cellops, and three N(0, 1) cotangent planes over every slot
 density_planes, pressure_force_pq_planes and pressure_force_planes,
 ungated and gated (the all-ones and chip_smoke's seeded 25.5% activity
 grid), force_planes (the bench's mu and 0), viscosity_force_planes,
-density_sum_bwd, press_sum_bwd, visc_sum_bwd and force_sum_bwd (mu and 0):
-the call (CUDA events, median of 20 after 2 warm-ups) and, under
-torch.profiler over 10 calls, the
-device time of the sweep kernels alone and of everything else the call
-runs (memsets, the wrapper's torch passes). The order is A B B A per pair.
-The first run of each side saves the outputs of the SAVED calls under
-ROOT_B/build/; at the end they are compared: bit for bit, else the largest
-difference and the number of differing slots. Prints one JSON line per run
-and a summary line.
+density_sum_bwd, press_sum_bwd, visc_sum_bwd and force_sum_bwd (mu and 0),
+and rasterize_fwd (6 and 9 outputs) on the slot planes of chip_smoke's
+sim -> render frame (the 512k dam break after one static-params WCSPH
+step, the bench camera, 1920x1080, k = 8192): the call (CUDA events,
+median of 20 after 2 warm-ups) and, under torch.profiler over 10 calls,
+the device time of the sweep or rasterizer kernels alone and of everything
+else the call runs (memsets, the wrapper's torch passes). The order is A B
+B A per pair. The first run of each side saves the outputs of the SAVED
+calls under ROOT_B/build/, and the sim -> render path's results (untimed):
+chip_smoke's config-3 loss and its gradient to the pre-step positions,
+with the bench's mu, at mu = 0, and lit by chip_smoke's seeded cubemap
+(its gradient to the texels too); at the end they are compared: bit for
+bit, else the largest difference and the number of differing slots.
+Prints one JSON line per run and a summary line.
 """
 
 from __future__ import annotations
@@ -41,7 +48,10 @@ OUT_DIR = "build/sweep_ab"
 # The calls whose outputs the two sides must share.
 SAVED = ("density", "pressure_pq", "force", "force_p", "viscosity",
          "pressure", "density_bwd", "pressure_bwd", "viscosity_bwd",
-         "force_bwd", "force_p_bwd", "pressure_active.quarter")
+         "force_bwd", "force_p_bwd", "pressure_active.quarter",
+         "splat_fwd6", "splat_fwd9")
+# The sim -> render results, saved and compared, not timed.
+SIM_RENDER = ("sim_render", "sim_render.inviscid", "sim_render.env_lit")
 
 
 def seeded_planes(dev):
@@ -75,6 +85,46 @@ def seeded_planes(dev):
     return params, spec, planes, KernelCoeffs.build(params.h)
 
 
+def raster_frame(dev):
+    """(TileSpec, slot planes) of chip_smoke's sim -> render frame: the 512k
+    dam break (sr_setup) after one static-params WCSPH step, binned for the
+    bench camera at 1920x1080, k = 8192, by the imported package."""
+    import torch
+
+    import chip_smoke as cs
+    from dieselfluid_tpu_torch.render import splat_tiled as st
+    from dieselfluid_tpu_torch.solvers.dense_step import dense_wcsph_step
+
+    params, state, spec, cam, radius = cs.sr_setup(cs.SR_N3, dev)
+    with torch.no_grad():
+        nxt, _ = dense_wcsph_step(state, params, spec)
+    tspec = st.TileSpec(cs.SR_WIDTH, cs.SR_HEIGHT, k=cs.SR_K)
+    planes, _, _, _ = st.tile_entries(nxt.pos, radius, cam, tspec)
+    return tspec, planes
+
+
+def sim_render_results(dev) -> dict:
+    """name -> [loss, gradients] of chip_smoke's sim -> render path
+    (sr_loss_grad): the bench's mu, mu = 0, and the seeded (6, 48, 48, 3)
+    cubemap of run_env_lit."""
+    import torch
+
+    import chip_smoke as cs
+
+    params, state, spec, cam, radius = cs.sr_setup(cs.SR_N3, dev)
+    args = (spec, cam, radius, cs.SR_WIDTH, cs.SR_HEIGHT, cs.SR_K)
+    cube = torch.from_numpy(np.random.default_rng(6).uniform(
+        size=(6, 48, 48, 3)).astype(np.float32)).to(dev).requires_grad_()
+    out = {}
+    for name, p, env in (("sim_render", params, None),
+                         ("sim_render.inviscid", params.replace(mu=0.0),
+                          None),
+                         ("sim_render.env_lit", params, cube)):
+        loss, grads, _, _ = cs.sr_loss_grad(p, state, *args, env_cube=env)
+        out[name] = [loss.cpu()] + [g.cpu() for g in grads]
+    return out
+
+
 def worker(root: str, save: str) -> int:
     sys.path.insert(0, root)
     import torch
@@ -83,6 +133,7 @@ def worker(root: str, save: str) -> int:
 
     import chip_smoke as cs
     from dieselfluid_tpu_torch.ops import sph_sweep as sw
+    from dieselfluid_tpu_torch.render import splat_tiled as st
 
     dev = torch.device("cuda", 0)
     params, spec, planes, k = seeded_planes(dev)
@@ -120,6 +171,11 @@ def worker(root: str, save: str) -> int:
         calls[f"pressure_active.{g}"] = (
             lambda a=grids[g]: sw.pressure_force_planes_active(
                 planes, rho, press, spec, k, mass, a))
+    tspec, tplanes = raster_frame(dev)
+    for n_out in (6, 9):
+        calls[f"splat_fwd{n_out}"] = (
+            lambda e=n_out == 9: st.rasterize_fwd(tplanes, tspec, 12.0, 2.0,
+                                                  e))
     res = {"root": root, "card": cs.card_line(),
            "active_patches_quarter": int(grids["quarter"].sum())}
     for name, fn in calls.items():
@@ -133,15 +189,16 @@ def worker(root: str, save: str) -> int:
         for e in prof.key_averages():
             if e.device_type != DeviceType.CUDA:
                 continue
-            if "sweep" in e.key:
+            if "sweep" in e.key or "splat" in e.key:
                 kern += e.self_device_time_total
             else:
                 other += e.self_device_time_total
         res[name] = {"call_ms": call_ms, "kernel_ms": kern / 10 / 1e3,
                      "other_device_ms": other / 10 / 1e3}
     if save:
-        torch.save({name: [o.cpu() for o in calls[name]()]
-                    for name in SAVED}, save)
+        saved = {name: [o.cpu() for o in calls[name]()] for name in SAVED}
+        saved.update(sim_render_results(dev))
+        torch.save(saved, save)
     print(json.dumps(res), flush=True)
     return 0
 
@@ -164,7 +221,7 @@ def compare(path_a: str, path_b: str) -> dict:
 
     a, b = torch.load(path_a), torch.load(path_b)
     out = {}
-    for name in SAVED:
+    for name in SAVED + SIM_RENDER:
         for i, (x, y) in enumerate(zip(a[name], b[name])):
             d = (x - y).abs()
             out[f"{name}[{i}]"] = {"bitwise": bool(torch.equal(x, y)),

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Variants of the compacted sweep body (K1, K4, K2 in both forms, K3, K5,
-and the backward sweeps K7 in both forms, K8 and K9) against each other, in
-one process on one card.
+and the backward sweeps K6, K7 in both forms, K8 and K9) against each
+other, and of the rasterizer's forward K11 (its strip count), in one
+process on one card.
 
     python3 tools/torch_sweep_variants.py [--reps 20] [--rounds 2]
 
@@ -10,9 +11,15 @@ Builds csrc/sph_sweep.cu once per variant, with its tuning choices set
 each; kBatch: the own blocks per work fetch; unroll: the `#pragma
 unroll` factor of the candidate loop, which lets the compiler overlap
 independent pairs), each with its own nvcc, all started together, into
-build/variants/, each with an appended query of its compacted kernels'
-CTAs per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the dynamic
-shared memory its launcher asks for) at capacities 16 and 32. Then, on
+build/variants/, and reads each variant's compacted kernels' CTAs per SM
+(the library's dft_sweep_ctas_per_sm: the occupancy API at the dynamic
+shared memory its launcher asks for) at capacities 16 and 32. Likewise
+csrc/splat_raster.cu with kStrips (CTAs per tile; 4 pixel columns, one
+warp, a CTA at 32) at 8, 16 and 32, and at 32 with every pair skipped
+(staging, list building and the walk alone): each variant's K11 is timed
+on torch_sweep_ab.py's 1080p frame in both output forms, and on that
+frame's heaviest tile alone (the others emptied), in turns, with its CTAs
+per SM and threads. Then, on
 torch_sweep_ab.py's seeded 1M planes (the backward sweeps on chip_smoke's
 seeded cotangents), times each variant's compacted launchers alone (CUDA
 events around `reps` launches into preallocated zeroed planes, one zeroed
@@ -53,52 +60,14 @@ VARIANTS = {"committed": {},
             "batch16": {"kBatch": 16}}
 CAND_UNROLL = re.compile(r"^#pragma unroll 4\n( *for \(int j = 0; j < n; "
                          r"\+\+j\) \{)$", re.M)
-# The compacted instantiations, in the order of OCCUPANCY's switch.
-COMPACT = ("density", "pressure_pq", "force", "force_p", "viscosity",
-           "density_active", "pressure_pq_active", "pressure",
-           "pressure_bwd", "pressure_active", "viscosity_bwd", "force_bwd",
-           "force_p_bwd")
-OCCUPANCY = """
-extern "C" int tool_ctas_per_sm(int which, int cap, int* smem) {
-  int per_sm = -1;
-  cudaError_t err = cudaErrorInvalidValue;
-  switch (which) {
-    case 0: err = compact_occupancy<DensityPair, false, AsIs<DensityPair>>(
-        cap, smem, &per_sm); break;
-    case 1: err = compact_occupancy<PressPqPair, false, AsIs<PressPqPair>>(
-        cap, smem, &per_sm); break;
-    case 2: err = compact_occupancy<ForceFoldPair<true>, false,
-                                    ForceFold<true>>(cap, smem, &per_sm);
-      break;
-    case 3: err = compact_occupancy<ForceFoldPair<false>, false,
-                                    ForceFold<false>>(cap, smem, &per_sm);
-      break;
-    case 4: err = compact_occupancy<ViscPair, false, AsIs<ViscPair>>(
-        cap, smem, &per_sm); break;
-    case 5: err = compact_occupancy<DensityPair, true, AsIs<DensityPair>>(
-        cap, smem, &per_sm); break;
-    case 6: err = compact_occupancy<PressPqPair, true, AsIs<PressPqPair>>(
-        cap, smem, &per_sm); break;
-    case 7: err = compact_occupancy<ForceFoldPair<false>, false,
-                                    ForceFold<false>>(cap, smem, &per_sm);
-      break;
-    case 8: err = compact_occupancy<PressBwdFoldPair, false, PressBwdFold>(
-        cap, smem, &per_sm); break;
-    case 9: err = compact_occupancy<ForceFoldPair<false>, true,
-                                    ForceFold<false>>(cap, smem, &per_sm);
-      break;
-    case 10: err = compact_occupancy<ViscBwdFoldPair, false, ViscBwdFold>(
-        cap, smem, &per_sm); break;
-    case 11: err = compact_occupancy<ForceBwdFoldPair<true>, false,
-                                     ForceBwdFold>(cap, smem, &per_sm);
-      break;
-    case 12: err = compact_occupancy<ForceBwdFoldPair<false>, false,
-                                     PressBwdFold>(cap, smem, &per_sm);
-      break;
-  }
-  return err == cudaSuccess ? per_sm : -static_cast<int>(err);
-}
-"""
+# K11's variants: the committed source (kStrips 32), 8 and 16 CTAs a tile,
+# and, to split its time, the committed split with every pair skipped after
+# the list is built (staging, lists and the walk alone; not the same sums).
+SKIP_PAIRS = ("if (fabsf(px - s_fu[j]) > half || fabsf(py - s_fv[j]) > half)",
+              "if (true)")
+RASTER_VARIANTS = {"committed": {}, "strips8": {"kStrips": 8},
+                   "strips16": {"kStrips": 16},
+                   "skip_pairs": {"sub": SKIP_PAIRS}}
 
 
 def variant_source(src: str, settings: dict) -> str:
@@ -106,32 +75,42 @@ def variant_source(src: str, settings: dict) -> str:
         if c == "unroll":
             pragma = "" if v is None else f"#pragma unroll {v}\n"
             src, n = CAND_UNROLL.subn(lambda m: pragma + m.group(1), src)
+        elif c == "sub":
+            n = src.count(v[0])
+            src = src.replace(*v)
         else:
             src, n = re.subn(rf"constexpr (int|bool) {c} = [^;]+;",
                              rf"constexpr \g<1> {c} = {v};", src)
         if n != 1:
             raise RuntimeError(f"{c} not found once in the source")
-    return src + OCCUPANCY
+    return src
 
 
 def build_variants(sass_dir: str = "") -> dict:
+    """Every sweep variant and every K11 variant (names prefixed "raster.")
+    built at once, one nvcc each. -> (name -> loaded library, name ->
+    ptxas register and spill lines of its sweep or rasterizer kernels)."""
     from dieselfluid_tpu_torch.ops import _build
 
-    src = (ROOT / "dieselfluid_tpu_torch" / "csrc" / "sph_sweep.cu").read_text()
+    csrc = ROOT / "dieselfluid_tpu_torch" / "csrc"
+    sources = {"": (csrc / "sph_sweep.cu").read_text(),
+               "raster.": (csrc / "splat_raster.cu").read_text()}
     out_dir = ROOT / "build" / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _build.find_nvcc()
-    procs, libs = [], {}
-    for name, settings in VARIANTS.items():
-        cu = out_dir / f"{name}.cu"
-        cu.write_text(variant_source(src, settings))
-        libs[name] = out_dir / f"lib{name}.so"
-        procs.append(subprocess.Popen(
-            [nvcc] + _build.NVCC_FLAGS + ["-shared", "-o", str(libs[name]),
-                                          str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    procs, libs = {}, {}
+    for prefix, variants in (("", VARIANTS), ("raster.", RASTER_VARIANTS)):
+        for name, settings in variants.items():
+            name = prefix + name
+            cu = out_dir / f"{name}.cu"
+            cu.write_text(variant_source(sources[prefix], settings))
+            libs[name] = out_dir / f"lib{name}.so"
+            procs[name] = subprocess.Popen(
+                [nvcc] + _build.NVCC_FLAGS + ["-shared", "-o",
+                                              str(libs[name]), str(cu)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     ptxas = {}
-    for name, p in zip(VARIANTS, procs):
+    for name, p in procs.items():
         log = p.communicate()[0]
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed on {name}:\n{log}")
@@ -147,8 +126,8 @@ def build_variants(sass_dir: str = "") -> dict:
         for line in log.splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1]
-            elif ("registers" in line or "spill" in line) and \
-                    "compact_sweep_kernel" in entry:
+            elif ("registers" in line or "spill" in line) and (
+                    "compact_sweep_kernel" in entry or "splat_" in entry):
                 ptxas[name].append(f"{entry} {line.strip()}")
     return {n: ctypes.CDLL(str(p)) for n, p in libs.items()}, ptxas
 
@@ -157,7 +136,9 @@ def main() -> int:
     import torch
 
     import chip_smoke as cs
-    from torch_sweep_ab import seeded_planes
+    from torch_sweep_ab import raster_frame, seeded_planes
+
+    from dieselfluid_tpu_torch.ops import sph_sweep as sw
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=20)
@@ -191,6 +172,9 @@ def main() -> int:
         "pressure": ("dft_press_sweep",
                      ("x", "y", "z", "mask", "rho", "press"), 3,
                      (h, h * h, float(k.b), mass * mass)),
+        "density_bwd": ("dft_density_bwd_sweep",
+                        ("x", "y", "z", "mask", "ct_0"), 3,
+                        (h * h, float(k.a), 1.0)),
         "pressure_bwd": ("dft_press_bwd_sweep",
                          ("x", "y", "z", "mask", "rho", "press") + cts, 5,
                          (h, h * h, float(k.b), 1.0)),
@@ -229,15 +213,16 @@ def main() -> int:
 
     def occupancy(lib) -> dict:
         """name -> {cap: [CTAs per SM, dynamic shared bytes]}."""
-        fn = lib.tool_ctas_per_sm
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn = lib.dft_sweep_ctas_per_sm
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         out = {}
-        for i, name in enumerate(COMPACT):
+        for s in sw.SWEEPS:
             for cap in (16, 32):
                 smem = ctypes.c_int(0)
-                out.setdefault(name, {})[cap] = [
-                    fn(i, cap, ctypes.byref(smem)), smem.value]
+                out.setdefault(s.name, {})[cap] = [
+                    fn(s.symbol.encode(), cap, ctypes.byref(smem)),
+                    smem.value]
         return out
 
     def timed(go) -> float:
@@ -252,14 +237,71 @@ def main() -> int:
         end.synchronize()
         return start.elapsed_time(end) / args.reps
 
+    tspec, tplanes = raster_frame(dev)
+
+    # K11's warp-iterations: each live slot enters the list of every warp
+    # whose 4 pixel columns its patch box meets (in the tile).
+    live = tplanes["r"].reshape(-1) >= 0.5
+    fu = torch.floor(tplanes["u"].reshape(-1)[live])
+    half = tspec.patch // 2
+    lo = torch.clamp(fu - half, min=0)
+    hi = torch.clamp(fu + half, max=tspec.tw - 1)
+    list_entries = int(torch.clamp(torch.div(hi, 4, rounding_mode="floor")
+                                   - torch.div(lo, 4, rounding_mode="floor")
+                                   + 1, min=0).sum())
+    # The frame's heaviest tile alone (every other tile emptied): the
+    # critical path of one tile's strips, against the whole frame's time.
+    occ = (tplanes["r"] >= 0.5).view(tspec.n_tiles, -1).sum(-1)
+    heavy = int(occ.argmax())
+    lone = {c: torch.zeros_like(p) for c, p in tplanes.items()}
+    for c in lone:
+        lone[c][heavy] = tplanes[c][heavy]
+
+    def raster_launcher(lib, n_out, planes=tplanes):
+        fn = getattr(lib, f"dft_splat_fwd{n_out}")
+        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        outs = [torch.empty(tspec.tile_shape, device=dev)
+                for _ in range(n_out)]
+        ins = (ctypes.c_void_p * 4)(*[planes[c].data_ptr()
+                                      for c in ("u", "v", "z", "r")])
+        ptrs = (ctypes.c_void_p * n_out)(*[o.data_ptr() for o in outs])
+
+        def go():
+            err = fn(ins, ptrs, tspec.n_tiles, tspec.k, tspec.patch // 2,
+                     12.0, 2.0, stream)
+            if err != 0:
+                raise RuntimeError(f"dft_splat_fwd{n_out} failed: {err}")
+        return go, outs
+
+    def raster_occupancy(lib) -> dict:
+        """symbol -> [CTAs per SM, threads per CTA]."""
+        fn = lib.dft_splat_ctas_per_sm
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        out = {}
+        for sym in ("dft_splat_fwd6", "dft_splat_fwd9", "dft_splat_bwd6"):
+            threads = ctypes.c_int(0)
+            out[sym] = [fn(sym.encode(), ctypes.byref(threads)),
+                        threads.value]
+        return out
+
     calls = {(v, s): launcher(libs[v], s) for v in VARIANTS for s in sweeps}
+    calls.update({(f"raster.{v}", f"splat_fwd{n}"): raster_launcher(
+        libs[f"raster.{v}"], n) for v in RASTER_VARIANTS for n in (6, 9)})
+    calls.update({(f"raster.{v}", "splat_fwd6.heaviest_tile"):
+                  raster_launcher(libs[f"raster.{v}"], 6, lone)
+                  for v in RASTER_VARIANTS if v != "skip_pairs"})
     times = {key: [] for key in calls}
     order = list(calls)
     for _ in range(args.rounds):
         for key in order + order[::-1]:
             times[key].append(timed(calls[key][0]))
     same = {f"{v}.{s}": all(torch.equal(a, b) for a, b in zip(
-        calls[(v, s)][1], calls[("committed", s)][1]))
+        calls[(v, s)][1], calls[(v.split(".")[0] + ".committed"
+                                 if v.startswith("raster.") else "committed",
+                                 s)][1]))
         for v, s in calls}
     # The fused force's backward split in two launches, its mu = 0 form
     # (mass^2 in the pair, two float4s a candidate) and K9 (mu * mass as the
@@ -294,8 +336,14 @@ def main() -> int:
         "scale_plane_ms": cs.cuda_ms(lambda: 2.0 * plane, 20, 2)}
     print(json.dumps({
         "card": cs.card_line(), "reps": args.reps, "rounds": args.rounds,
-        "variants": VARIANTS, "ptxas": ptxas,
+        "variants": VARIANTS, "raster_variants": RASTER_VARIANTS,
+        "ptxas": ptxas,
         "ctas_per_sm": {v: occupancy(libs[v]) for v in VARIANTS},
+        "raster_ctas_per_sm": {v: raster_occupancy(libs[f"raster.{v}"])
+                               for v in RASTER_VARIANTS},
+        "heaviest_tile": {"tile": heavy, "entries": int(occ[heavy]),
+                          "tiles_over_4096": int((occ > 4096).sum())},
+        "k11_list_entries": list_entries, "k11_live_slots": int(live.sum()),
         "kernel_ms": {f"{v}.{s}": {"median": float(np.median(t)),
                                    "min": min(t), "max": max(t)}
                       for (v, s), t in times.items()},
