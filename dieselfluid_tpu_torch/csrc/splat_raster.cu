@@ -47,8 +47,10 @@
 // 64 chunks), each one warp walking its ~700 listed slots one dependent
 // pair chain after another (an IEEE divide, expf, sqrtf and rsqrtf each);
 // the frame's heaviest tile alone takes over half the frame's time, the
-// staging and the lists a tenth (PERF.md). K12's time is set by divergence
-// and the same imbalance.
+// staging and the lists a tenth (PERF.md). K12 as one CTA a tile had the
+// same tail (the heaviest tile's ~8k slots in one CTA, each thread ~31
+// slots' box loops one after another), walked every slot of every tile,
+// and let the lanes of a warp diverge over boxes of 1 to 72 pixels.
 //
 // Design (simple first).
 //  K11: each tile is split by pixel column into kStrips strips of kStripW
@@ -68,13 +70,21 @@
 //  integer test) and sums the pair. A 9-wide box thus lights most of a
 //  warp's 32 lanes, where one thread per pixel of a 128-wide row lit at
 //  most 9 of 32. The box tests come before any transcendental.
-//  K12: one 256-thread CTA per tile. The tile's 6 or 9 cotangent planes are
-//  staged in shared memory (24 or 36 KB); each thread owns slots t, t + 256,
-//  ... (each slot one owner, so no atomics), writes 0 for an empty slot and
-//  for a live one walks its patch box clipped to the tile (<= 9 x 8
-//  pixels), summing the four gradients. The per-slot factors of the chain
-//  (d/d inv_r and d/d exp(-falloff z)) are summed over the box and applied
-//  once.
+//  K12: one 128-thread CTA per 128-slot chunk of a tile (n_tiles * K / 128
+//  CTAs), so a heavy tile's occupied chunks run on as many SMs and the
+//  tail is one chunk's work. A CTA whose chunk begins with an empty slot
+//  lies past the tile's occupied prefix: it writes its 128 slots' four
+//  zeros as float4s and leaves. An occupied chunk's CTA stages the tile's
+//  6 or 9 cotangent planes in shared memory (24 or 36 KB) and the chunk's
+//  u, v, z, r, then ranks its slots onto threads by the pixel count of
+//  their clipped patch box (a counting sort by ballots, empty slots last),
+//  so the lanes of a warp run box loops of about one length. Each slot is
+//  summed by one thread, as before: its patch box clipped to the tile (<= 9
+//  x 8 pixels), rows outer, columns inner, the four gradients and the
+//  per-slot factors of the chain (d/d inv_r and d/d exp(-falloff z)) summed
+//  over the box and applied once. Only the owner of a slot changed, so the
+//  bits did not. The measured gain of the ranking, the variants that were
+//  no faster and the share of the zero chunks are in PERF.md section 6.
 // No fast-math: expf, sqrtf and IEEE divides; rsqrtf where the JAX pair
 // uses lax.rsqrt. Every masked branch is a select, never a multiply by a
 // mask.
@@ -88,8 +98,8 @@ namespace {
 constexpr int kTh = 8;            // tile rows
 constexpr int kTw = 128;          // tile columns
 constexpr int kPix = kTh * kTw;   // pixels per tile
-constexpr int kChunk = 128;       // slots staged per step of K11
-constexpr int kBwdThreads = 256;
+constexpr int kChunk = 128;       // slots staged per step of K11; K12's
+                                  // work item and threads per CTA
 // K11's split, the fastest of tools/torch_sweep_variants.py's strip counts
 // on an H100 (PERF.md).
 constexpr int kStrips = 32;                  // CTAs per tile
@@ -101,6 +111,14 @@ static_assert(kTh * kWarpW == 32, "a warp owns an 8 x 4 pixel block");
 constexpr int kStage = (kChunk + kFwdThreads - 1) / kFwdThreads;
 static_assert(kStage == 1 || kStage * kFwdThreads == kChunk,
               "the CTA stages a chunk in kStage steps");
+// K12 ranks a chunk's slots onto threads by the pixel count of their
+// clipped box, in kBuckets buckets of kBucketPix pixels, so a warp's lanes
+// run loops of about one length (tools/torch_sweep_variants.py, PERF.md).
+constexpr int kBuckets = 8;
+constexpr int kBucketPix = 12;
+static_assert(kChunk == kTw && kChunk / 32 == 4,
+              "K12: a thread per slot and per pixel column, a warp per "
+              "output plane for the zero chunks");
 
 struct RasterArgs {
   const float* in[13];  // u v z r, then K12's 6 or 9 cotangent planes
@@ -234,90 +252,161 @@ splat_fwd_kernel(const RasterArgs a) {
   for (int o = 0; o < kOut; ++o) a.out[o][pix] = acc[o];
 }
 
+// A slot's patch box clipped to its tile: pixel columns x0..x1, rows
+// y0..y1 (empty where x0 > x1 or y0 > y1).
+struct Box {
+  int x0, x1, y0, y1;
+};
+
+__device__ __forceinline__ Box patch_box(float u, float v, int half) {
+  const int fu = static_cast<int>(floorf(u));
+  const int fv = static_cast<int>(floorf(v));
+  return {max(0, fu - half), min(kTw - 1, fu + half), max(0, fv - half),
+          min(kTh - 1, fv + half)};
+}
+
+// K12: the tile's cotangent planes into shared memory, one pixel column a
+// thread.
+template <int kCt>
+__device__ __forceinline__ void stage_tile(float (*s_ct)[kPix],
+                                           const RasterArgs& a,
+                                           long long tile_pix) {
+  const int x = threadIdx.x;
+#pragma unroll
+  for (int c = 0; c < kCt; ++c) {
+#pragma unroll
+    for (int y = 0; y < kTh; ++y)
+      s_ct[c][y * kTw + x] = a.in[4 + c][tile_pix + y * kTw + x];
+  }
+}
+
+// CTA blockIdx.x: 128-slot chunk blockIdx.x % (k / 128) of tile
+// blockIdx.x / (k / 128); thread t stages the chunk's slot t.
 template <bool kNormals>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kChunk)
 splat_bwd_kernel(const RasterArgs a) {
   constexpr int kCt = kNormals ? 9 : 6;
+  constexpr int kWarps = kChunk / 32;
   __shared__ float s_ct[kCt][kPix];
+  __shared__ float s_u[kChunk], s_v[kChunk], s_z[kChunk], s_r[kChunk];
+  __shared__ int s_count[kWarps][kBuckets];  // slots of a bucket per warp
+  __shared__ int s_slot[kChunk];              // thread -> slot, ranked
 
-  const long long tile_pix = static_cast<long long>(blockIdx.x) * kPix;
-  for (int e = threadIdx.x; e < kCt * kPix; e += kBwdThreads)
-    s_ct[e / kPix][e % kPix] = a.in[4 + e / kPix][tile_pix + e % kPix];
-  __syncthreads();
-
-  const long long base = static_cast<long long>(blockIdx.x) * a.k;
-  for (int s = threadIdx.x; s < a.k; s += kBwdThreads) {
-    const long long idx = base + s;
-    const float r = a.in[3][idx];
-    float gu = 0.0f, gv = 0.0f, gz = 0.0f, gr = 0.0f;
-    if (r >= 0.5f) {
-      const float u = a.in[0][idx], v = a.in[1][idx], z = a.in[2][idx];
-      const float ir = 1.0f / fmaxf(r, 0.5f);
-      const float ez = expf(-a.falloff * z);
-      const int fu = static_cast<int>(floorf(u));
-      const int fv = static_cast<int>(floorf(v));
-      const int x0 = max(0, fu - a.half), x1 = min(kTw - 1, fu + a.half);
-      const int y0 = max(0, fv - a.half), y1 = min(kTh - 1, fv + a.half);
-      float g_ir = 0.0f, g_ez = 0.0f;
-      for (int py = y0; py <= y1; ++py) {
-        for (int px = x0; px <= x1; ++px) {
-          const int p = py * kTw + px;
-          // Forward, recomputed.
-          const float dxp = __fsub_rn(static_cast<float>(px) + 0.5f, u);
-          const float dyp = __fsub_rn(static_cast<float>(py) + 0.5f, v);
-          const float ox = __fmul_rn(dxp, ir), oy = __fmul_rn(dyp, ir);
-          const float r2 = disc_r2(ox, oy);
-          const float cov = sigmoid(a.sharpness * (1.0f - r2));
-          const bool inside = (1.0f - r2) > 1e-6f;
-          const float oz = inside ? sqrtf(1.0f - r2) : 0.0f;
-          const float len2 = ox * ox + oy * oy + oz * oz;
-          const float len2c = fmaxf(len2, 1e-12f);
-          const float inl = rsqrtf(len2c);
-          const float nx = ox * inl, ny = -(oy * inl), nz = oz * inl;
-          const float w = cov * ez;
-          // Outputs -> w, cov, z and the normal.
-          const float c0 = s_ct[0][p], c1 = s_ct[1][p], c2 = s_ct[2][p];
-          const float c5 = s_ct[5][p];
-          float g_w = c0 * (nx * 0.5f + 0.5f) + c1 * (ny * 0.5f + 0.5f) +
-                      c2 * (nz * 0.5f + 0.5f) + s_ct[3][p] + c5 * z;
-          float g_nx = 0.5f * (c0 * w), g_ny = 0.5f * (c1 * w);
-          float g_nz = 0.5f * (c2 * w);
-          if constexpr (kNormals) {
-            const float c6 = s_ct[6][p], c7 = s_ct[7][p], c8 = s_ct[8][p];
-            g_w += c6 * nx + c7 * ny + c8 * nz;
-            g_nx += c6 * w;
-            g_ny += c7 * w;
-            g_nz += c8 * w;
-          }
-          const float g_cov = g_w * ez + s_ct[4][p];
-          gz += c5 * w;
-          g_ez += g_w * cov;
-          // n = (ox, -oy, oz) * rsqrt(max(|.|^2, 1e-12)).
-          const float g_inl = g_nx * ox - g_ny * oy + g_nz * oz;
-          const float g_len = tie_grad(len2, 1e-12f,
-                                       g_inl * (-0.5f * inl / len2c));
-          float g_ox = g_nx * inl + 2.0f * ox * g_len;
-          float g_oy = -g_ny * inl + 2.0f * oy * g_len;
-          const float g_oz = g_nz * inl + 2.0f * oz * g_len;
-          // oz = sqrt(1 - r2) inside, 0 outside; cov = sigmoid(s (1 - r2)).
-          float g_r2 = inside ? -(g_oz * (0.5f / oz)) : 0.0f;
-          g_r2 -= a.sharpness * (g_cov * (cov * (1.0f - cov)));
-          g_ox += 2.0f * ox * g_r2;
-          g_oy += 2.0f * oy * g_r2;
-          // o = (pixel - center) * inv_r.
-          g_ir += g_ox * dxp + g_oy * dyp;
-          gu -= g_ox * ir;
-          gv -= g_oy * ir;
-        }
-      }
-      gz += g_ez * ez * (-a.falloff);
-      gr = tie_grad(r, 0.5f, -g_ir * ir * ir);
-    }
-    a.out[0][idx] = gu;
-    a.out[1][idx] = gv;
-    a.out[2][idx] = gz;
-    a.out[3][idx] = gr;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const long long tile_pix =
+      static_cast<long long>(blockIdx.x / (a.k / kChunk)) * kPix;
+  const long long base = static_cast<long long>(blockIdx.x) * kChunk;
+  // Past the tile's occupied prefix every slot is empty: four zero planes,
+  // one float4 a thread (the same address for every thread, so the whole
+  // CTA leaves together).
+  if (!(a.in[3][base] >= 0.5f)) {
+    reinterpret_cast<float4*>(a.out[warp] + base)[lane] =
+        make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    return;
   }
+  {
+    const float u = a.in[0][base + t], v = a.in[1][base + t];
+    const float r = a.in[3][base + t];
+    s_u[t] = u;
+    s_v[t] = v;
+    s_z[t] = a.in[2][base + t];
+    s_r[t] = r;
+    // The slot's pixel count ranks it (empty slots and empty boxes last).
+    const Box b = patch_box(u, v, a.half);
+    const bool meets = r >= 0.5f && b.x0 <= b.x1 && b.y0 <= b.y1;
+    const int pixels = meets ? (b.x1 - b.x0 + 1) * (b.y1 - b.y0 + 1) : 0;
+    stage_tile<kCt>(s_ct, a, tile_pix);
+    const int bucket =
+        pixels == 0
+            ? kBuckets - 1
+            : kBuckets - 2 - min((pixels - 1) / kBucketPix, kBuckets - 2);
+    int rank = 0;  // among the slots of its bucket in its warp
+#pragma unroll
+    for (int k = 0; k < kBuckets; ++k) {
+      const unsigned m = __ballot_sync(0xffffffffu, bucket == k);
+      if (bucket == k) rank = __popc(m & ((1u << lane) - 1u));
+      if (lane == 0) s_count[warp][k] = __popc(m);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kBuckets; ++k) {
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w)
+        rank += (k < bucket || (k == bucket && w < warp)) ? s_count[w][k] : 0;
+    }
+    s_slot[rank] = t;
+    __syncthreads();
+  }
+
+  // The pair loop of slot j, by one thread, in the old order.
+  const int j = s_slot[t];
+  const long long idx = base + j;
+  const float r = s_r[j];
+  float gu = 0.0f, gv = 0.0f, gz = 0.0f, gr = 0.0f;
+  if (r >= 0.5f) {
+    const float u = s_u[j], v = s_v[j], z = s_z[j];
+    const float ir = 1.0f / fmaxf(r, 0.5f);
+    const float ez = expf(-a.falloff * z);
+    const Box b = patch_box(u, v, a.half);
+    float g_ir = 0.0f, g_ez = 0.0f;
+    for (int py = b.y0; py <= b.y1; ++py) {
+      for (int px = b.x0; px <= b.x1; ++px) {
+        const int p = py * kTw + px;
+        // Forward, recomputed.
+        const float dxp = __fsub_rn(static_cast<float>(px) + 0.5f, u);
+        const float dyp = __fsub_rn(static_cast<float>(py) + 0.5f, v);
+        const float ox = __fmul_rn(dxp, ir), oy = __fmul_rn(dyp, ir);
+        const float r2 = disc_r2(ox, oy);
+        const float cov = sigmoid(a.sharpness * (1.0f - r2));
+        const bool inside = (1.0f - r2) > 1e-6f;
+        const float oz = inside ? sqrtf(1.0f - r2) : 0.0f;
+        const float len2 = ox * ox + oy * oy + oz * oz;
+        const float len2c = fmaxf(len2, 1e-12f);
+        const float inl = rsqrtf(len2c);
+        const float nx = ox * inl, ny = -(oy * inl), nz = oz * inl;
+        const float w = cov * ez;
+        // Outputs -> w, cov, z and the normal.
+        const float c0 = s_ct[0][p], c1 = s_ct[1][p], c2 = s_ct[2][p];
+        const float c5 = s_ct[5][p];
+        float g_w = c0 * (nx * 0.5f + 0.5f) + c1 * (ny * 0.5f + 0.5f) +
+                    c2 * (nz * 0.5f + 0.5f) + s_ct[3][p] + c5 * z;
+        float g_nx = 0.5f * (c0 * w), g_ny = 0.5f * (c1 * w);
+        float g_nz = 0.5f * (c2 * w);
+        if constexpr (kNormals) {
+          const float c6 = s_ct[6][p], c7 = s_ct[7][p], c8 = s_ct[8][p];
+          g_w += c6 * nx + c7 * ny + c8 * nz;
+          g_nx += c6 * w;
+          g_ny += c7 * w;
+          g_nz += c8 * w;
+        }
+        const float g_cov = g_w * ez + s_ct[4][p];
+        gz += c5 * w;
+        g_ez += g_w * cov;
+        // n = (ox, -oy, oz) * rsqrt(max(|.|^2, 1e-12)).
+        const float g_inl = g_nx * ox - g_ny * oy + g_nz * oz;
+        const float g_len = tie_grad(len2, 1e-12f,
+                                     g_inl * (-0.5f * inl / len2c));
+        float g_ox = g_nx * inl + 2.0f * ox * g_len;
+        float g_oy = -g_ny * inl + 2.0f * oy * g_len;
+        const float g_oz = g_nz * inl + 2.0f * oz * g_len;
+        // oz = sqrt(1 - r2) inside, 0 outside; cov = sigmoid(s (1 - r2)).
+        float g_r2 = inside ? -(g_oz * (0.5f / oz)) : 0.0f;
+        g_r2 -= a.sharpness * (g_cov * (cov * (1.0f - cov)));
+        g_ox += 2.0f * ox * g_r2;
+        g_oy += 2.0f * oy * g_r2;
+        // o = (pixel - center) * inv_r.
+        g_ir += g_ox * dxp + g_oy * dyp;
+        gu -= g_ox * ir;
+        gv -= g_oy * ir;
+      }
+    }
+    gz += g_ez * ez * (-a.falloff);
+    gr = tie_grad(r, 0.5f, -g_ir * ir * ir);
+  }
+  a.out[0][idx] = gu;
+  a.out[1][idx] = gv;
+  a.out[2][idx] = gz;
+  a.out[3][idx] = gr;
 }
 
 template <bool kNormals>
@@ -345,7 +434,7 @@ int launch_bwd(const float* const* in, float* const* out, int n_tiles, int k,
   a.half = half;
   a.sharpness = sharpness;
   a.falloff = falloff;
-  splat_bwd_kernel<kNormals><<<n_tiles, kBwdThreads, 0,
+  splat_bwd_kernel<kNormals><<<n_tiles * (k / kChunk), kChunk, 0,
                                static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -363,9 +452,9 @@ const Occupancy kOccupancy[] = {
     {"dft_splat_fwd9", reinterpret_cast<const void*>(splat_fwd_kernel<true>),
      kFwdThreads},
     {"dft_splat_bwd6", reinterpret_cast<const void*>(splat_bwd_kernel<false>),
-     kBwdThreads},
+     kChunk},
     {"dft_splat_bwd9", reinterpret_cast<const void*>(splat_bwd_kernel<true>),
-     kBwdThreads},
+     kChunk},
 };
 
 }  // namespace
@@ -374,7 +463,8 @@ const Occupancy kOccupancy[] = {
 // contiguous float32 planes: in = u v z r slot planes (n_tiles, k/128, 128)
 // [+ the 6 or 9 cotangent tile planes (n_tiles, 8, 128) for the backward];
 // out = the 6 or 9 accumulator tile planes (forward) or the d/du d/dv d/dz
-// d/dr slot planes (backward), every element written. Returns the
+// d/dr slot planes (backward, 16-byte aligned: the zero chunks are stored
+// as float4s), every element written. k is a multiple of 128. Returns the
 // cudaError_t of the launch.
 #define DFT_SPLAT_ARGS                                                    \
   const float* const* in, float* const* out, int n_tiles, int k, int half, \

@@ -18,8 +18,9 @@ There is no mask channel: live slots carry r >= 0.75 (the projection clip)
 and empty or trash slots r = 0, so occupancy is r >= 0.5 everywhere. A
 tile's occupied slots are its first ranks (bin_tile_entries writes each
 valid entry at its rank in the tile): K11 walks each tile's slots only up
-to the first 128-slot chunk whose first slot is empty, so slot planes from
-anywhere else must keep that order too.
+to the first 128-slot chunk whose first slot is empty, and K12 writes zeros
+for that chunk and every one after it without looking past their first
+slots, so slot planes from anywhere else must keep that order too.
 
 Dispatch is by the device of the slot planes, forward and backward alike:
   * CUDA tensors launch the hand-written sm_90a kernels in
@@ -145,8 +146,9 @@ SPLAT_FWD = RasterKernel("splat_fwd", ("dft_splat_fwd6", "dft_splat_fwd9"),
                          "column, per-warp slot lists")
 SPLAT_BWD = RasterKernel("splat_bwd", ("dft_splat_bwd6", "dft_splat_bwd9"),
                          f"{_PALLAS}:372",
-                         "splat_bwd_kernel<kNormals>: a CTA per tile, a "
-                         "thread per slot")
+                         "splat_bwd_kernel<kNormals>: a CTA per 128-slot "
+                         "chunk, zeros past the occupied prefix, slots "
+                         "ranked onto lanes by box size")
 KERNELS = (SPLAT_FWD, SPLAT_BWD)
 
 

@@ -560,6 +560,45 @@ def test_rasterizer_kernels_match_plain_and_count_launches(frame, n_out):
         assert bool(torch.isfinite(g).all()) and bool((g[dead] == 0).all())
         err = float((g - w).abs().max()) / float(w.abs().max())
         assert err <= st.RASTER_BWD_REL_TOL
+    # K12 on a frame with a tile filled past several chunks, one empty tile
+    # and two partly filled, into outputs that start as NaN: every element
+    # written, exact zeros at the empty slots.
+    cspec, cplanes = _chunk_frame(st, planes["r"].device)
+    ccts = _cts_of(cspec, n_out, planes["r"].device)
+    got = [torch.full(cspec.plane_shape, float("nan"), device=cplanes[
+        "r"].device) for _ in range(4)]
+    st._launch(st.SPLAT_BWD, emit, [cplanes[c] for c in st.CHANNELS] + ccts,
+               got, cspec, 12.0, 2.0)
+    want_g = st.plain.rasterize_bwd(cplanes, ccts, cspec, 12.0, 2.0, emit)
+    torch.cuda.synchronize()
+    dead = cplanes["r"] < 0.5
+    for g, w in zip(got, want_g):
+        assert bool(torch.isfinite(g).all()) and bool((g[dead] == 0).all())
+        err = float((g - w).abs().max()) / float(w.abs().max())
+        assert err <= st.RASTER_BWD_REL_TOL
+
+
+def _chunk_frame(st, dev):
+    """(TileSpec, slot planes) of a 256x16 frame, k = 512: tile 0 holds 450
+    seeded entries (four 128-slot chunks, the last partly), tile 1 none,
+    tiles 2 and 3 hold 129 and 40, each at the tile's first ranks."""
+    spec = st.TileSpec(256, 16, k=512)
+    rng = np.random.default_rng(21)
+    planes = {c: np.zeros((spec.n_tiles, spec.k), np.float32)
+              for c in st.CHANNELS}
+    for t, n in ((0, 450), (2, 129), (3, 40)):
+        planes["u"][t, :n] = rng.uniform(-4.5, 132.5, n)
+        planes["v"][t, :n] = rng.uniform(-4.0, 12.0, n)
+        planes["z"][t, :n] = rng.uniform(0.0, 1.0, n)
+        planes["r"][t, :n] = rng.uniform(0.75, 4.5, n)
+    return spec, {c: torch.from_numpy(p).view(spec.plane_shape).to(dev)
+                  for c, p in planes.items()}
+
+
+def _cts_of(spec, n_out, dev):
+    rng = np.random.default_rng(22)
+    return [torch.from_numpy(rng.normal(size=spec.tile_shape).astype(
+        np.float32)).to(dev) for _ in range(n_out)]
 
 
 def test_rasterizer_wrapper_rejects_bad_planes(frame):

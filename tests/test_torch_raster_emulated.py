@@ -1,20 +1,26 @@
-"""The tile rasterizer's forward kernel K11, csrc/splat_raster.cu, compiled
+"""The tile rasterizer's kernels K11 and K12, csrc/splat_raster.cu, compiled
 for the CPU by g++ against the CUDA emulation in tests/cuda_emu/ (as
 tests/test_torch_sweep_emulated.py compiles the sweeps), with the old
-forward body appended as the oracle (tests/cuda_emu/splat_fwd_tile.h:
-splat_fwd_tile_kernel, one 1024-thread CTA per tile testing every slot of
-every occupied chunk).
+bodies appended as the oracles: tests/cuda_emu/splat_fwd_tile.h
+(splat_fwd_tile_kernel, one 1024-thread CTA per tile testing every slot of
+every occupied chunk) and tests/cuda_emu/splat_bwd_tile.h
+(splat_bwd_tile_kernel, one 256-thread CTA per tile walking all its slots).
 
-This runs K11's bookkeeping on the CPU: the strip split of each tile across
-CTAs, the walk of the tile's occupied prefix that stops at the first chunk
-whose first slot is empty, the per-warp slot lists built by ballots over a
-chunk and walked in ascending slot order, and the per-lane box test. On an
-empty frame, one tile filled to k, boxes that straddle strip and tile edges
-(patch 3 and 9) and a seeded 256x144 frame binned by bin_tile_entries, in
-both output forms (6 and 9), K11 must write every pixel, give the oracle's
-sums bit for bit and stay within RASTER_REL_TOL of the plain torch version.
-The arithmetic is the host's (rsqrtf is 1 / sqrtf here), so the rounding on
-the card is the card-only tests' and chip_smoke.py's to check.
+This runs the kernels' bookkeeping on the CPU. K11: the strip split of each
+tile across CTAs, the walk of the tile's occupied prefix that stops at the
+first chunk whose first slot is empty, the per-warp slot lists built by
+ballots over a chunk and walked in ascending slot order, and the per-lane
+box test. K12: a CTA per 128-slot chunk, the zero chunks past each tile's
+prefix, the ranking of a chunk's slots onto threads by box size, and each
+slot's box loop. On an empty frame, one tile filled to k, boxes that
+straddle strip and tile edges (patch 3 and 9) and a seeded 256x144 frame
+binned by bin_tile_entries, in both output forms (6 and 9), each kernel
+must write every element (outputs start as NaN), give its oracle's results
+bit for bit (K12 with seeded cotangents, exact zeros at every empty slot)
+and stay within RASTER_REL_TOL (K11) or RASTER_BWD_REL_TOL (K12) of the
+plain torch version. The arithmetic is the host's (rsqrtf is 1 / sqrtf
+here), so the rounding on the card is the card-only tests' and
+chip_smoke.py's to check.
 """
 
 import ctypes
@@ -34,31 +40,50 @@ SHARPNESS, FALLOFF = 12.0, 2.0
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
-    """The rasterizer library with the oracle's launchers: K11, K12 and the
-    oracle, one kernel launch each."""
+    """The rasterizer library with the oracles' launchers: K11, K12 and the
+    two oracles, one kernel launch each."""
     src = ROOT / "dieselfluid_tpu_torch" / "csrc" / "splat_raster.cu"
-    shim = ROOT / "tests" / "cuda_emu" / "splat_fwd_tile.h"
-    return compile_emulated(emulated_source(src.read_text(), shim.read_text(),
-                                            3, smem=()),
+    shims = "".join((ROOT / "tests" / "cuda_emu" / f).read_text()
+                    for f in ("splat_fwd_tile.h", "splat_bwd_tile.h"))
+    return compile_emulated(emulated_source(src.read_text(), shims, 4,
+                                            smem=()),
                             tmp_path_factory.mktemp("raster_emu"),
                             "raster_emu")
 
 
-def _fwd(lib, sym, planes, spec):
-    """The 6 or 9 accumulator tile planes of launcher `sym`, allocated as
-    NaN (every element must be written)."""
+def _launch(lib, sym, ins, out_shape, n_out, spec):
+    """The `n_out` output planes of launcher `sym` on the input planes
+    `ins`, allocated as NaN (every element must be written)."""
     fn = getattr(lib, sym)
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
                    + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    n_out = 9 if sym.endswith("9") else 6
-    outs = [torch.full(spec.tile_shape, float("nan")) for _ in range(n_out)]
-    ins = [planes[c].contiguous() for c in st.CHANNELS]
-    in_ptrs = (ctypes.c_void_p * 4)(*[p.data_ptr() for p in ins])
+    outs = [torch.full(out_shape, float("nan")) for _ in range(n_out)]
+    ins = [p.contiguous() for p in ins]
+    in_ptrs = (ctypes.c_void_p * len(ins))(*[p.data_ptr() for p in ins])
     out_ptrs = (ctypes.c_void_p * n_out)(*[o.data_ptr() for o in outs])
     assert fn(in_ptrs, out_ptrs, spec.n_tiles, spec.k, spec.patch // 2,
               SHARPNESS, FALLOFF, None) == 0
     return outs
+
+
+def _fwd(lib, sym, planes, spec):
+    """The 6 or 9 accumulator tile planes of launcher `sym`."""
+    return _launch(lib, sym, [planes[c] for c in st.CHANNELS],
+                   spec.tile_shape, 9 if sym.endswith("9") else 6, spec)
+
+
+def _bwd(lib, sym, planes, cts, spec):
+    """The d/du d/dv d/dz d/dr slot planes of launcher `sym` against the
+    cotangent tile planes `cts` (6 or 9)."""
+    return _launch(lib, sym, [planes[c] for c in st.CHANNELS] + list(cts),
+                   spec.plane_shape, 4, spec)
+
+
+def _cotangents(spec, n_out, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=spec.tile_shape).astype(
+        np.float32)) for _ in range(n_out)]
 
 
 def _tile_planes(spec, tiles, seed, u_of):
@@ -133,3 +158,23 @@ def test_strip_split_k11_equals_tile_body_and_plain(lib, name, patch, n_out):
         assert float((g - p).abs().max()) <= st.RASTER_REL_TOL * max(
             scale, 1e-30), o
     assert bool(got[4].any()) == (name != "empty")
+
+
+@pytest.mark.parametrize("n_out", [6, 9])
+@pytest.mark.parametrize("name,patch", CASES)
+def test_chunked_k12_equals_tile_body_and_plain(lib, name, patch, n_out):
+    spec, planes = _case(name, patch)
+    cts = _cotangents(spec, n_out, 30 + patch)
+    got = _bwd(lib, f"dft_splat_bwd{n_out}", planes, cts, spec)
+    want = _bwd(lib, f"emu_tile_bwd{n_out}", planes, cts, spec)
+    plain = st.plain.rasterize_bwd(planes, cts, spec, SHARPNESS, FALLOFF,
+                                   n_out == 9)
+    empty = planes["r"] < 0.5
+    for o, (g, w, p) in enumerate(zip(got, want, plain)):
+        assert bool(torch.isfinite(g).all()), o
+        assert torch.equal(g, w), o
+        assert bool((g[empty] == 0).all()), o
+        scale = float(p.abs().max())
+        assert float((g - p).abs().max()) <= st.RASTER_BWD_REL_TOL * max(
+            scale, 1e-30), o
+    assert bool(got[3].any()) == (name != "empty")

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""The sweeps and the rasterizer's forward of two checkouts of the port, on
-the same seeded inputs, in turns, on one card: on seeded 1M planes K1
-(density), K4 (prefolded pressure), K2 (the fused force, with mu and at mu
-= 0), K3 (viscosity), K5 (pressure), and the backward sweeps on seeded
+"""The sweeps and the rasterizer of two checkouts of the port, on the same
+seeded inputs, in turns, on one card: on seeded 1M planes K1 (density), K4
+(prefolded pressure), K2 (the fused force, with mu and at mu = 0), K3
+(viscosity), K5 (pressure), and the backward sweeps on seeded
 cotangents: K6 (density), K8 (pressure), K9 (viscosity) and K7 (the fused
-force's, both forms); on the sim -> render path's 1080p frame K11 in both
-output forms.
+force's, both forms); on the sim -> render path's 1080p frame K11 and
+K12, each in both output forms.
 
     python3 tools/torch_sweep_ab.py ROOT_A ROOT_B [--pairs N]
 
@@ -19,19 +19,24 @@ density_planes, pressure_force_pq_planes and pressure_force_planes,
 ungated and gated (the all-ones and chip_smoke's seeded 25.5% activity
 grid), force_planes (the bench's mu and 0), viscosity_force_planes,
 density_sum_bwd, press_sum_bwd, visc_sum_bwd and force_sum_bwd (mu and 0),
-and rasterize_fwd (6 and 9 outputs) on the slot planes of chip_smoke's
-sim -> render frame (the 512k dam break after one static-params WCSPH
-step, the bench camera, 1920x1080, k = 8192): the call (CUDA events,
-median of 20 after 2 warm-ups) and, under torch.profiler over 10 calls,
-the device time of the sweep or rasterizer kernels alone and of everything
-else the call runs (memsets, the wrapper's torch passes). The order is A B
-B A per pair. The first run of each side saves the outputs of the SAVED
-calls under ROOT_B/build/, and the sim -> render path's results (untimed):
-chip_smoke's config-3 loss and its gradient to the pre-step positions,
-with the bench's mu, at mu = 0, and lit by chip_smoke's seeded cubemap
-(its gradient to the texels too); at the end they are compared: bit for
-bit, else the largest difference and the number of differing slots.
-Prints one JSON line per run and a summary line.
+and rasterize_fwd and rasterize_bwd (6 and 9 outputs; the backward
+against chip_smoke.seeded_tile_cotangents, seed 7) on the slot planes of
+chip_smoke's sim -> render frame (the 512k dam break after one
+static-params WCSPH step, the bench camera, 1920x1080, k = 8192): the call
+(CUDA events, median of 20 after 2 warm-ups) and, under torch.profiler
+over 10 calls, the device time of the sweep or rasterizer kernels alone
+and of everything else the call runs (memsets, the wrapper's torch
+passes). The order is A B B A per pair. The first run of each side saves
+the outputs of the SAVED calls under ROOT_B/build/, and the sim -> render
+path's results (untimed): chip_smoke's config-3 loss and its gradient to
+the pre-step positions, with the bench's mu, at mu = 0, and lit by
+chip_smoke's seeded cubemap (its gradient to the texels too); at the end
+they are compared: bit for bit, else the largest difference and the
+number of differing slots. The
+summary also lists, per kernel function of the two sides' built libraries
+(cuobjdump -sass), whether its SASS is the same, so a change can show
+which kernels it left alone. Prints one JSON line per run and a summary
+line.
 """
 
 from __future__ import annotations
@@ -39,6 +44,8 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 
@@ -49,7 +56,7 @@ OUT_DIR = "build/sweep_ab"
 SAVED = ("density", "pressure_pq", "force", "force_p", "viscosity",
          "pressure", "density_bwd", "pressure_bwd", "viscosity_bwd",
          "force_bwd", "force_p_bwd", "pressure_active.quarter",
-         "splat_fwd6", "splat_fwd9")
+         "splat_fwd6", "splat_fwd9", "splat_bwd6", "splat_bwd9")
 # The sim -> render results, saved and compared, not timed.
 SIM_RENDER = ("sim_render", "sim_render.inviscid", "sim_render.env_lit")
 
@@ -132,6 +139,7 @@ def worker(root: str, save: str) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke as cs
+    from dieselfluid_tpu_torch.ops import _build
     from dieselfluid_tpu_torch.ops import sph_sweep as sw
     from dieselfluid_tpu_torch.render import splat_tiled as st
 
@@ -172,11 +180,16 @@ def worker(root: str, save: str) -> int:
             lambda a=grids[g]: sw.pressure_force_planes_active(
                 planes, rho, press, spec, k, mass, a))
     tspec, tplanes = raster_frame(dev)
+    tcts = cs.seeded_tile_cotangents(tspec, dev, 7)
     for n_out in (6, 9):
         calls[f"splat_fwd{n_out}"] = (
             lambda e=n_out == 9: st.rasterize_fwd(tplanes, tspec, 12.0, 2.0,
                                                   e))
+        calls[f"splat_bwd{n_out}"] = (
+            lambda n=n_out: st.rasterize_bwd(tplanes, tcts[:n], tspec, 12.0,
+                                             2.0, n == 9))
     res = {"root": root, "card": cs.card_line(),
+           "library": str(_build.library_path()),
            "active_patches_quarter": int(grids["quarter"].sum())}
     for name, fn in calls.items():
         call_ms = cs.cuda_ms(fn, reps=20, warmup=2)
@@ -231,6 +244,42 @@ def compare(path_a: str, path_b: str) -> dict:
     return out
 
 
+def sass_functions(library: str) -> dict:
+    """Kernel function name -> its SASS listing (cuobjdump -sass), one
+    instruction or encoding a line with its runs of spaces collapsed
+    (cuobjdump pads the columns to the file's widest instruction). The
+    anonymous namespace's mangled name carries a hash that differs between
+    builds of the same source; it is cut out of the names."""
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", library], capture_output=True,
+                          text=True, check=True).stdout
+    text = re.sub(r"_ZN\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}",
+                  "_ZN_anon_", text)
+    parts = re.split(r"^\s*Function : (\S+)\s*$", text, flags=re.M)
+    return {name: "\n".join(" ".join(line.split())
+                            for line in body.splitlines())
+            for name, body in zip(parts[1::2], parts[2::2])}
+
+
+def compare_sass(lib_a: str, lib_b: str) -> dict:
+    """Kernel functions whose SASS is the same on both sides, those whose
+    SASS differs (with each side's instruction count and first differing
+    line), and those of one side only."""
+    a, b = sass_functions(lib_a), sass_functions(lib_b)
+    differs = {}
+    for f in sorted(f for f in a if f in b and a[f] != b[f]):
+        la, lb = a[f].splitlines(), b[f].splitlines()
+        first = next((i for i, (x, y) in enumerate(zip(la, lb)) if x != y),
+                     min(len(la), len(lb)))
+        differs[f] = {"lines": [len(la), len(lb)],
+                      "first": [x[first] if first < len(x) else ""
+                                for x in (la, lb)]}
+    return {"same": sorted(f for f in a if f in b and a[f] == b[f]),
+            "differs": differs, "only_a": sorted(set(a) - set(b)),
+            "only_b": sorted(set(b) - set(a))}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("root_a", nargs="?")
@@ -251,7 +300,9 @@ def main() -> int:
         for r in (roots[0], roots[1], roots[1], roots[0]):
             save = saves[r] if not runs[r] else ""
             runs[r].append(run_side(r, save))
-    summary = {"bitwise_a_vs_b": compare(saves[roots[0]], saves[roots[1]])}
+    summary = {"bitwise_a_vs_b": compare(saves[roots[0]], saves[roots[1]]),
+               "sass_a_vs_b": compare_sass(runs[roots[0]][0]["library"],
+                                           runs[roots[1]][0]["library"])}
     for r, rs in runs.items():
         keys = [k for k in rs[0] if isinstance(rs[0][k], dict)]
         summary[r] = {k: {m: [float(np.median(v)), min(v), max(v)]
