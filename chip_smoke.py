@@ -37,16 +37,24 @@ Phases, each of which raises (and so exits nonzero) on failure:
      bound (bytes and operations of this data);
      then K10 there as in phase 3, timed under the all-ones and the
      quarter grid, with its bounds over the active columns;
-  8. the training path at full size: the loss sum(next.pos * w) through
-     dense_pcisph_step(materials=m, unroll_for_grad=True, unroll_iters=3)
-     and through dense_wcsph_step(materials=m) on the 1M dam break with
-     seeded velocities, then backward to the Materials and the positions:
-     ms per forward+backward, peak memory, the gradients (finite), and the
-     launch counters (reset just before, read just after; every kernel of
-     the path launched);
-  9. a trainer's 3 steps of sign descent on mu on that PCISPH path;
- 10. whole-step gradients at n3=16: the kernel path on the card against the
-     plain path on the CPU from the same numpy state;
+  8a. the sky bake of config 4 and the composite: bake_sky_cubemap((0.3,
+     0.8, 0.5), size=48) on the card (ms) against the same call on the CPU
+     (SKY_FLIP_SHARE_TOL, SKY_SH_REL_TOL), each face's min, max and mean;
+  8. the training path at full size (bench.py config 4,
+     pcisph_materials_grad_1m): dense_pcisph_step(materials=m,
+     unroll_for_grad=True, unroll_iters=3) on the 1M dam break with seeded
+     velocities, then the sky-lit 1920x1080 tiled render of the next
+     positions at k = 8192, loss sum(color^2); and the stand-in loss
+     sum(next.pos * w) through dense_wcsph_step(materials=m); backward to
+     the Materials and the positions: ms per forward+backward, peak memory,
+     the gradients (finite, nonzero), config 4's tile overflow (reported:
+     the frame overflows at k = 8192, as in JAX) and peak occupancy, and
+     the launch counters (reset just before, read just after; every kernel
+     of the path launched, K11 and K12 in their 9-output form);
+  9. a trainer's 3 steps of sign descent on mu on config 4's loss;
+ 10. whole-step gradients at n3=16 through the stand-in loss: the kernel
+     path on the card against the plain path on the CPU from the same
+     numpy state;
  11. the sim -> render gradient path at full size (bench.py config 3): the
      512k-particle (n3=80) static-params WCSPH step, the 1920x1080 tiled
      splat render (k = 8192) of the next positions with the bench camera,
@@ -66,6 +74,15 @@ Phases, each of which raises (and so exits nonzero) on failure:
      card against the plain versions on the CPU, from the same numpy state,
      and its two halves from identical inputs: the render from the same
      slot planes, the step's pull-back of the same cotangent;
+ 14a. the composite cell at full size (bench.py composite_1080p_fwd_bwd):
+     the 512k dam break (n3 = 80, no step) over the procedural floor and
+     wall, lit by the baked sky, render_composite(tiled_splats_k=8192),
+     loss sum(color^2), its gradient to the positions: forward+backward ms
+     (median of 3 after a warm-up), peak memory, overflow (must be 0), peak
+     occupancy, launch counts (K11 and K12 in their 9-output form);
+ 14b. the composite at n3=16, 256x144, card against CPU from the same numpy
+     state, and its two witnesses from identical inputs: the scene pass,
+     and the render's gradient to the CPU's slot planes;
  15. a short Simulation.create(...) PCISPH run, the normal entry point;
  16. the column_skip path at full size: the 1M dam break with the serving
      parameters, 30 warm-started per-step PCISPH steps of burn-in, then
@@ -82,7 +99,10 @@ Phases, each of which raises (and so exits nonzero) on failure:
      0), the .dfc read back (2 frames), the checkpoints, the viewer, peak
      memory, the launch counts; then `--resume` from the last checkpoint
      for 5 steps. These two run last, so that the phases above run as
-     they did before the slice that added them.
+     they did before the slice that added them;
+ 17a. the CLI at 1M with `--render --sky --gltf SCENE` (10 steps, the scene
+     written by the port's make_gltf, untextured): summary, the npz read
+     back, peak memory, launch counts.
 
 The line before the last is a JSON object with one entry per kernel (`ms` the
 public call, `kernel_ms` its launch alone, `body` the kernel body it runs
@@ -168,6 +188,42 @@ SR_STEP_GRAD_REL_TOL = 1e-6
 # The sweeps of the sim -> render path (K1, K2 and K6, K7, both forms).
 SR_SWEEPS = ("density", "force", "force_p", "density_bwd", "force_bwd",
              "force_p_bwd")
+
+# The sky of config 4 and of the composite cell (bench.py:423, :500).
+SKY_SUN, SKY_SIZE = (0.3, 0.8, 0.5), 48
+# The sky bake on the card against the CPU (check_sky_bake). The
+# reference's radiance jumps with one ulp of a light path at texels whose
+# last view sample sits on the atmosphere's shell, and the card's exp and
+# pow round other ulps than the CPU's: such texels differ by up to ~10% of
+# themselves. (On the CPU alone, moving each direction by an ulp moves
+# 10.4% of the texels brighter than 1e-3 of the largest by more than 1% of
+# themselves, and 19% of all by more than 1e-5 of the largest radiance.)
+# Measured on an H100: 17% of the texels more than 1e-5 of the largest
+# radiance apart, the largest difference 2.2% of it, the SH9 projection
+# (what the renderers read) 5.8e-5 of its largest coefficient. Bounded:
+# the SH9 projection, about 10x; the share of texels brighter than 1e-3 of
+# the largest that differ by more than 1% of themselves, about twice the
+# CPU's own one-ulp share.
+SKY_FLIP_SHARE_TOL = 0.2
+SKY_SH_REL_TOL = 6e-4
+# The composite cell (bench.py:460-518, composite_1080p_fwd_bwd): the 512k
+# dam break, unstepped, at 1920x1080, k = 8192.
+COMP_N3 = 80
+# The composite at n3=16, 256x144 (check_composite_cpu), card against
+# CPU, measured on an H100: the render's gradient to the CPU's slot
+# planes, K11/K12 (9 outputs) on the card against the plain versions on
+# the CPU, through the SH sky, the scene and the soft depth test from
+# identical inputs, 2.2e-6 of the largest entry (bound about 9x); the
+# scene pass alone from identical inputs 2.4e-7 of the largest colour
+# (bound about 12x), no pixel given to another triangle (the edge slack
+# may: bound 8); the whole path's position gradient 1.7e-3 (largest
+# entry) and 4.3e-4 (norm), bounded as the sim -> render path's (an ulp
+# in the projection moves it near the disc's rim; check_sim_render_cpu).
+COMP_RENDER_GRAD_REL_TOL = 2e-5
+COMP_SCENE_REL_TOL = 3e-6
+COMP_SCENE_FLIPS = 8
+COMP_GRAD_REL_TOL = SR_GRAD_REL_TOL
+COMP_GRAD_NORM_TOL = SR_GRAD_NORM_TOL
 
 
 def log(msg: str):
@@ -725,18 +781,35 @@ def run_column_skip(params, state, spec, delta, sync) -> dict:
     return out
 
 
+def cli_main(argv, label):
+    """The port's CLI main(argv), its standard output captured and logged:
+    (summary, lines, wall seconds); fails on a nonzero exit."""
+    import contextlib
+    import io
+
+    from dieselfluid_tpu_torch.app import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"  cli {label}: {line}")
+    check(rc == 0, f"cli {label}: exit code {rc}")
+    return json.loads(lines[-1]), lines, wall
+
+
 def run_cli(device) -> dict:
     """The batch CLI at 1M as a user runs it (`--column-skip --warm-start
     --guard --checkpoint-every 10 --stream dfc --render --viewer`, 20
     steps), then `--resume` from its last checkpoint for 5 more. Launch
     counters reset just before the first run and read just after it."""
-    import contextlib
-    import io
     import shutil
     from pathlib import Path
 
     import torch
-    from dieselfluid_tpu_torch.app import cli
     from dieselfluid_tpu_torch.io.native import read_dfc
 
     out = Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
@@ -744,22 +817,10 @@ def run_cli(device) -> dict:
     base = ["--n3", str(CLI_N3), "--neighbors", "dense", "--solver",
             "pcisph", "--column-skip", "--warm-start"]
 
-    def run(argv, label):
-        buf = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            rc = cli.main(argv)
-        wall = time.perf_counter() - t0
-        lines = buf.getvalue().strip().splitlines()
-        for line in lines:
-            log(f"  cli {label}: {line}")
-        check(rc == 0, f"cli {label}: exit code {rc}")
-        return json.loads(lines[-1]), lines, wall
-
     try:
         torch.cuda.reset_peak_memory_stats()
         reset_all_launch_counts()
-        summary, _, wall = run(base + [
+        summary, _, wall = cli_main(base + [
             "--steps", "20", "--render", "--render-every", "10", "--size",
             "384", "--guard", "--checkpoint-every", "10", "--stream", "dfc",
             "--viewer", "--out", str(out / "run")], "run")
@@ -767,7 +828,7 @@ def run_cli(device) -> dict:
         peak = torch.cuda.max_memory_allocated()
         traj = read_dfc(str(out / "run" / f"pcisph_{CLI_N3}.dfc"))
         ckpts = sorted((out / "run" / "ckpt").iterdir())
-        resumed, lines, wall2 = run(base + [
+        resumed, lines, wall2 = cli_main(base + [
             "--steps", "5", "--resume", str(ckpts[-1]), "--out",
             str(out / "resume")], "resume")
         res = {"summary": summary, "process_wall_s": wall,
@@ -802,7 +863,9 @@ def launch_counts() -> dict:
     from dieselfluid_tpu_torch.ops import sph_sweep as sw
     from dieselfluid_tpu_torch.render import splat_tiled as st
 
-    return {k.name: k.launches for k in sw.SWEEPS + st.KERNELS}
+    out = {k.name: k.launches for k in sw.SWEEPS + st.KERNELS}
+    out.update({f"{k.name}9": k.launches9 for k in st.KERNELS})
+    return out
 
 
 def reset_all_launch_counts():
@@ -950,10 +1013,36 @@ def grad_setup(n3: int, device):
         w.astype(np.float32)).to(device)
 
 
-def loss_and_grads(solver, params, state, spec, delta, w, mats):
-    """The loss sum(next.pos * w) through one differentiable step, and its
-    gradients (mu, d0, mass, pos) by torch.autograd."""
+def config4_render(device):
+    """(camera, sky cube) of config 4's loss (bench.py:423-425): the bench
+    camera at 1920:1080 and bake_sky_cubemap((0.3, 0.8, 0.5), size=48),
+    made once per device."""
+    from dieselfluid_tpu_torch.render.camera import Camera
+    from dieselfluid_tpu_torch.sky.bake import bake_sky_cubemap
+
+    key = str(device)
+    if key not in _CONFIG4_RENDER:
+        cam = Camera.at((0.0, 0.6, -2.8), front=(0.0, -0.35, 1.0),
+                        fov_deg=55.0, aspect=1920.0 / 1080.0, device=device)
+        _CONFIG4_RENDER[key] = (cam, bake_sky_cubemap(SKY_SUN, SKY_SIZE,
+                                                      device=device))
+    return _CONFIG4_RENDER[key]
+
+
+_CONFIG4_RENDER = {}
+
+
+def loss_and_grads(solver, params, state, spec, delta, w, mats,
+                   standin: bool = False):
+    """One differentiable step and its gradients (mu, d0, mass, pos) by
+    torch.autograd. PCISPH (config 4, bench.py:429-442): the unrolled step,
+    then the sky-lit 1080p tiled render of the next positions at k = 8192
+    (radius 0.7 dx, config4_render's camera and cube; K11 and K12 in their
+    9-output form), loss sum(color^2). WCSPH, or with `standin`: the
+    stand-in loss sum(next.pos * w). -> (loss, grads, {"overflow": tile
+    overflow (a 0-d tensor, None for the stand-in), "next_pos": ...})."""
     import torch
+    from dieselfluid_tpu_torch.render.splat_tiled import splat_particles_tiled
     from dieselfluid_tpu_torch.solvers.dense_step import (
         dense_pcisph_step, dense_wcsph_step)
 
@@ -966,9 +1055,19 @@ def loss_and_grads(solver, params, state, spec, delta, w, mats):
         check(diag.iters == UNROLL_ITERS, f"unrolled iters {diag.iters}")
     else:
         nxt, _ = dense_wcsph_step(st, params, spec, materials=mats)
-    loss = (nxt.pos * w).sum()
+    overflow = None
+    if solver == "pcisph" and not standin:
+        n3 = round(state.pos.shape[0] ** (1.0 / 3.0))   # the dam's cube
+        cam, env = config4_render(pos.device)
+        img, overflow = splat_particles_tiled(
+            nxt.pos, (2.0 / n3) * EXTENT * 0.7, cam, width=SR_WIDTH,
+            height=SR_HEIGHT, k=SR_K, return_overflow=True, env_cube=env)
+        loss = (img.color ** 2).sum()
+    else:
+        loss = (nxt.pos * w).sum()
     grads = torch.autograd.grad(loss, [mats.mu, mats.d0, mats.mass, pos])
-    return loss.detach(), grads
+    return loss.detach(), grads, {"overflow": overflow,
+                                  "next_pos": nxt.pos.detach()}
 
 
 def grad_summary(loss, grads) -> dict:
@@ -979,32 +1078,46 @@ def grad_summary(loss, grads) -> dict:
 
 
 def run_gradients(device, sync) -> dict:
-    """The training path at 1M: forward+backward of the loss through the
-    unrolled PCISPH step and the WCSPH step with traced Materials, timed
+    """The training path at 1M: forward+backward of config 4's loss through
+    the unrolled PCISPH step and the sky-lit 1080p render, and of the
+    stand-in loss through the WCSPH step, with traced Materials, timed
     (median of 3 after 1 warm-up); launch counters reset just before and
-    read just after."""
+    read just after. PCISPH also reports the tile overflow and the peak
+    tile occupancy of its frame."""
     import torch
     from dieselfluid_tpu_torch.models.materials import Materials
 
     params, state, spec, delta, w = grad_setup(100, device)
     mats = Materials.from_params(params, device, requires_grad=True)
+    config4_render(device)                  # the bake is not the loss's
     out = {"n": state.pos.shape[0], "unroll_iters": UNROLL_ITERS}
     reset_all_launch_counts()
     for solver in ("pcisph", "wcsph"):
-        loss, grads = loss_and_grads(solver, params, state, spec, delta, w,
-                                     mats)
+        loss, grads, info = loss_and_grads(solver, params, state, spec,
+                                           delta, w, mats)
         sync()
         torch.cuda.reset_peak_memory_stats()
         times = []
         for _ in range(3):
             t0 = time.perf_counter()
-            loss, grads = loss_and_grads(solver, params, state, spec, delta,
-                                         w, mats)
+            loss, grads, info = loss_and_grads(solver, params, state, spec,
+                                               delta, w, mats)
             sync()
             times.append((time.perf_counter() - t0) * 1e3)
         res = grad_summary(loss, grads)
         res.update(fwd_bwd_ms=float(np.median(times)), fwd_bwd_ms_runs=times,
-                   max_memory_allocated=torch.cuda.max_memory_allocated())
+                   max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   loss_kind=("config 4: sum(color^2), sky-lit 1080p k=8192"
+                              if solver == "pcisph"
+                              else "stand-in: sum(next.pos * w)"))
+        if solver == "pcisph":
+            cam, _ = config4_render(device)
+            _, _, peak, entries, ovf = tile_occupancy(
+                info["next_pos"], (2.0 / 100) * EXTENT * 0.7, cam)
+            check(ovf == int(info["overflow"]),
+                  f"config 4: overflow {ovf} != {int(info['overflow'])}")
+            res.update(tile_overflow=ovf, peak_tile_occupancy=peak,
+                       tile_entries=entries)
         log(f"grad_{solver}_1m " + json.dumps(res))
         check(all(np.isfinite(v) for v in (res["loss"], res["grad_mu"],
                                              res["grad_d0"],
@@ -1013,7 +1126,8 @@ def run_gradients(device, sync) -> dict:
               f"{solver}: non-finite loss or gradient")
         check(bool(torch.isfinite(grads[3]).all()),
               f"{solver}: non-finite position gradient")
-        check(res["grad_pos_norm_sq"] > 0.0 and res["grad_mu"] != 0.0,
+        check(res["grad_pos_norm_sq"] > 0.0 and all(
+            res[f"grad_{f}"] != 0.0 for f in ("mu", "d0", "mass")),
               f"{solver}: zero gradient")
         out[solver] = res
     out["launches"] = launch_counts()
@@ -1022,7 +1136,7 @@ def run_gradients(device, sync) -> dict:
 
 def run_trainer(device) -> list:
     """examples/fit_material.py's sign descent on mu (3 steps) through the
-    1M unrolled PCISPH step and the loss above."""
+    1M unrolled PCISPH step and config 4's loss."""
     import torch
     from dieselfluid_tpu_torch.models.materials import Materials
 
@@ -1033,8 +1147,8 @@ def run_trainer(device) -> list:
     for it in range(3):
         mats = Materials.from_params(params, device, requires_grad=True)
         mats = mats._replace(mu=mu.clone().requires_grad_())
-        loss, grads = loss_and_grads("pcisph", params, state, spec, delta, w,
-                                     mats)
+        loss, grads, _ = loss_and_grads("pcisph", params, state, spec,
+                                        delta, w, mats)
         mu = torch.clamp(mu - 0.02 * torch.sign(grads[0]), 0.01, 2.0)
         steps.append({"step": it, "loss": float(loss),
                       "grad_mu": float(grads[0]), "mu": float(mu)})
@@ -1047,7 +1161,10 @@ def run_trainer(device) -> list:
 def check_step_grads_cpu(device) -> dict:
     """Whole-step gradients at n3=16, kernels on the card against the plain
     path on the CPU from the same numpy state (the config-4 state with its
-    positions jittered), both differentiable steps."""
+    positions jittered), both differentiable steps, through the stand-in
+    loss sum(next.pos * w): the steps' kernels alone (the render's card
+    against CPU comparison is check_composite_cpu's and
+    check_sim_render_cpu's)."""
     import torch
     from dieselfluid_tpu_torch.models.materials import Materials
 
@@ -1062,8 +1179,8 @@ def check_step_grads_cpu(device) -> dict:
         state = state._replace(pos=state.pos + torch.from_numpy(
             jitter.astype(np.float32)).to(dev))
         mats = Materials.from_params(params, dev, requires_grad=True)
-        _, grads = loss_and_grads(solver, params, state, spec, delta, w,
-                                  mats)
+        _, grads, _ = loss_and_grads(solver, params, state, spec, delta, w,
+                                     mats, standin=True)
         return [g.detach().cpu().double() for g in grads]
 
     out = {}
@@ -1170,14 +1287,14 @@ def sr_loss_grad(params, state, spec, cam, radius, width, height, k,
 
 
 def tile_occupancy(pos, radius, cam):
-    """(slot planes, TileSpec, peak entries of a tile, entries) of the
-    1080p frame of `pos`."""
+    """(slot planes, TileSpec, peak entries of a tile, entries, overflow) of
+    the 1080p frame (k = 8192) of `pos`."""
     from dieselfluid_tpu_torch.render import splat_tiled as st
 
     spec = st.TileSpec(SR_WIDTH, SR_HEIGHT, k=SR_K)
-    planes, _, _, _ = st.tile_entries(pos, radius, cam, spec)
+    planes, _, ovf, _ = st.tile_entries(pos, radius, cam, spec)
     occ = (planes["r"] >= 0.5).view(spec.n_tiles, -1).sum(-1)
-    return planes, spec, int(occ.max()), int(occ.sum())
+    return planes, spec, int(occ.max()), int(occ.sum()), int(ovf)
 
 
 def run_sim_render(device, sync) -> dict:
@@ -1206,7 +1323,7 @@ def run_sim_render(device, sync) -> dict:
                                          *args)
     sync()
     launches = launch_counts()
-    planes, tspec, peak_occ, entries = tile_occupancy(nxt, radius, cam)
+    planes, tspec, peak_occ, entries, _ = tile_occupancy(nxt, radius, cam)
     res = {"n": state.pos.shape[0], "width": SR_WIDTH, "height": SR_HEIGHT,
            "k": SR_K, "fwd_bwd_ms": float(np.median(times)),
            "fwd_bwd_ms_runs": times, "max_memory_allocated": peak_mem,
@@ -1462,6 +1579,296 @@ def check_sim_render_cpu(device, seed: int = 45) -> dict:
     return res
 
 
+def check_sky_bake(device, sync) -> dict:
+    """bake_sky_cubemap((0.3, 0.8, 0.5), size=48) on the card (ms: median of
+    5 after the first) against the same call on the CPU: the largest
+    difference, the share of texels more than 1e-5 of the largest radiance
+    apart, the share of texels brighter than 1e-3 of the largest more than
+    1% of themselves apart (SKY_FLIP_SHARE_TOL), the SH9 projections'
+    difference (SKY_SH_REL_TOL), and each face's min, max and mean."""
+    import torch
+    from dieselfluid_tpu_torch.render.sh import project_sh9
+    from dieselfluid_tpu_torch.sky.bake import bake_sky_cubemap
+
+    cube = bake_sky_cubemap(SKY_SUN, SKY_SIZE, device=device)
+    sync()
+    ms = cuda_ms(lambda: bake_sky_cubemap(SKY_SUN, SKY_SIZE, device=device),
+                 reps=5, warmup=0)
+    host = bake_sky_cubemap(SKY_SUN, SKY_SIZE, device=torch.device("cpu"))
+    got = cube.cpu().double()
+    want = host.double()
+    scale = float(want.abs().max())
+    texel = (got - want).abs().amax(-1)
+    value = want.abs().amax(-1)
+    bright = value > 1e-3 * scale
+    sh_card = project_sh9(cube).cpu().double()
+    sh_cpu = project_sh9(host).double()
+    res = {"size": SKY_SIZE, "sun": SKY_SUN, "bake_ms": ms,
+           "max_abs_err": float(texel.max()),
+           "max_rel_err": float(texel.max()) / scale,
+           "far_texels": int((texel > 1e-5 * scale).sum()),
+           "flipped_texels": int(((texel > 1e-2 * value) & bright).sum()),
+           "bright_texels": int(bright.sum()),
+           "texels": int(texel.numel()),
+           "sh9_rel_err": float((sh_card - sh_cpu).abs().max()
+                                / sh_cpu.abs().max()),
+           "faces": [{"min": float(f.min()), "max": float(f.max()),
+                      "mean": float(f.mean())} for f in cube.cpu()]}
+    res["far_share"] = res["far_texels"] / res["texels"]
+    res["flip_share"] = res["flipped_texels"] / res["bright_texels"]
+    log("sky_bake_48 card vs cpu " + json.dumps(res)
+        + f" tol flip_share={SKY_FLIP_SHARE_TOL!r} sh9={SKY_SH_REL_TOL!r}")
+    check(bool(torch.isfinite(cube).all()) and float(cube.max()) > 0.0,
+          "sky bake: non-finite or black")
+    check(res["flip_share"] <= SKY_FLIP_SHARE_TOL
+          and res["sh9_rel_err"] <= SKY_SH_REL_TOL,
+          f"sky bake: card and CPU differ: {res}")
+    return res
+
+
+def composite_scene(device):
+    """bench.py's composite scene (bench.py:483-499) on `device`: the
+    floor (y = -1) and back wall (z = 1), four triangles, one PBRMaterial,
+    through interop from numpy."""
+    from dieselfluid_tpu_torch import interop
+
+    v = np.asarray([
+        [-2, -1, -2], [2, -1, -2], [2, -1, 2],
+        [-2, -1, -2], [2, -1, 2], [-2, -1, 2],
+        [-2, -1, 1], [2, -1, 1], [2, 2, 1],
+        [-2, -1, 1], [2, 2, 1], [-2, 2, 1],
+    ], np.float32).reshape(4, 3, 3)
+    norms = np.asarray([[0, 1, 0], [0, 1, 0], [0, 0, -1], [0, 0, -1]],
+                       np.float32)
+    sc = interop.scene_arrays_from_numpy(v, norms, np.zeros(4, np.int32),
+                                         device=device)
+    mats = interop.pbr_materials_from_numpy([[0.55, 0.5, 0.45]], [0.05],
+                                            [0.7], [0.0], device=device)
+    return sc, mats
+
+
+def composite_loss_grad(pos, radius, cam, scene, env, width, height, k):
+    """bench.py's composite loss sum(color^2) (bench.py:503-510) and its
+    gradient to the positions. -> (loss, grad, image)."""
+    import torch
+    from dieselfluid_tpu_torch.render.composite import render_composite
+
+    sc, mats = scene
+    p = pos.detach().clone().requires_grad_()
+    img = render_composite(p, radius, cam, sc["tris"], sc["tri_normals"],
+                           sc["tri_materials"], mats,
+                           light_pos=(2.0, 3.0, -2.0), env_cube=env,
+                           width=width, height=height, tiled_splats_k=k)
+    loss = (img.color ** 2).sum()
+    (g,) = torch.autograd.grad(loss, p)
+    return loss.detach(), g, img
+
+
+def run_composite(device, sync) -> dict:
+    """composite_1080p_fwd_bwd at full size: the 512k dam break (n3 = 80,
+    no step) over the procedural scene, lit by the baked sky,
+    render_composite(tiled_splats_k=8192), loss sum(color^2) and its
+    gradient to the positions: forward+backward ms (median of 3 after a
+    warm-up), peak memory, tile overflow (must be 0) and peak occupancy;
+    launch counters reset just before, read just after."""
+    import torch
+
+    _, state, _, _ = bench_setup(COMP_N3, device)
+    cam, env = config4_render(device)
+    scene = composite_scene(device)
+    radius = (2.0 / COMP_N3) * EXTENT * 0.7
+    args = (radius, cam, scene, env, SR_WIDTH, SR_HEIGHT, SR_K)
+    reset_all_launch_counts()
+    loss, g, _ = composite_loss_grad(state.pos, *args)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        loss, g, img = composite_loss_grad(state.pos, *args)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak_mem = torch.cuda.max_memory_allocated()
+    launches = launch_counts()
+    _, _, peak_occ, entries, ovf = tile_occupancy(state.pos, radius, cam)
+    res = {"n": state.pos.shape[0], "width": SR_WIDTH, "height": SR_HEIGHT,
+           "k": SR_K, "fwd_bwd_ms": float(np.median(times)),
+           "fwd_bwd_ms_runs": times, "max_memory_allocated": peak_mem,
+           "tile_overflow": ovf, "peak_tile_occupancy": peak_occ,
+           "tile_entries": entries, "loss": float(loss),
+           "grad_pos_norm_sq": float((g.double() ** 2).sum()),
+           "fluid_pixels": int((img.fluid_alpha > 0.5).sum()),
+           "scene_hit_pixels": int(img.scene.hit.sum()),
+           "launches": launches}
+    log("composite_1080p_fwd_bwd " + json.dumps(res))
+    check(ovf == 0, "composite: tile overflow at k = 8192")
+    check(np.isfinite(res["loss"]) and bool(torch.isfinite(g).all())
+          and res["grad_pos_norm_sq"] > 0.0,
+          "composite: non-finite or zero gradient")
+    for name in ("splat_fwd9", "splat_bwd9"):
+        check(launches[name] > 0,
+              f"kernel {name} was not launched by the composite")
+    return res
+
+
+def check_composite_cpu(device, seed: int = 302) -> dict:
+    """The composite at n3=16, 256x144 (k = 2048), positions jittered by a
+    numpy seed, the CPU's sky cube on both devices: the whole path's loss
+    and position gradient, card against CPU (COMP_GRAD_REL_TOL,
+    COMP_GRAD_NORM_TOL); and two witnesses from identical inputs, as
+    check_sim_render_cpu holds the sim -> render path: (1) the scene pass,
+    render_scene on both devices (COMP_SCENE_REL_TOL over the pixels both
+    give to the same triangle, COMP_SCENE_FLIPS pixels the edge slack may
+    give to another); (2) the render's gradient to the CPU frame's slot
+    planes, through K11/K12 (9 outputs) on the card and the plain versions
+    on the CPU, the SH sky and the soft depth test over the CPU's scene
+    image (COMP_RENDER_GRAD_REL_TOL)."""
+    import dataclasses
+
+    import torch
+    from dieselfluid_tpu_torch.render import splat_tiled as st
+    from dieselfluid_tpu_torch.render.composite import composite_images
+    from dieselfluid_tpu_torch.render.raytrace import render_scene
+
+    cpu = torch.device("cpu")
+    w, h, k = 256, 144, 2048
+    tspec = st.TileSpec(w, h, k=k)
+    _, state, _, _ = bench_setup(16, cpu)
+    dx = (2.0 / 16) * EXTENT
+    jitter = np.random.default_rng(seed).uniform(
+        -0.2 * dx, 0.2 * dx, size=tuple(state.pos.shape))
+    pos_cpu = state.pos + torch.from_numpy(jitter.astype(np.float32))
+    radius = dx * 0.7
+    cam_cpu, env_cpu = config4_render(cpu)
+    cam_card = dataclasses.replace(cam_cpu,
+                                   transform=cam_cpu.transform.to(device))
+    env_card = env_cpu.to(device)
+    sc_cpu, sc_card = composite_scene(cpu), composite_scene(device)
+
+    def whole(pos, cam, sc, env):
+        loss, g, _ = composite_loss_grad(pos, radius, cam, sc, env, w, h, k)
+        return float(loss), g.detach().cpu().double()
+
+    gap = st.rim_gap(st.tile_entries(pos_cpu, radius, cam_cpu, tspec)[0],
+                     tspec)
+    check(gap > 2e-5, f"n3=16 composite frame {gap} from the rim")
+    l_card, g_card = whole(pos_cpu.to(device), cam_card, sc_card, env_card)
+    l_cpu, g_cpu = whole(pos_cpu, cam_cpu, sc_cpu, env_cpu)
+
+    def scene(cam, sc, env):
+        s, m = sc
+        return render_scene(s["tris"], s["tri_normals"], s["tri_materials"],
+                            m, cam, (2.0, 3.0, -2.0), env_cube=env,
+                            width=w, height=h, env_mode="sh")
+
+    img_cpu = scene(cam_cpu, sc_cpu, env_cpu)
+    img_card = scene(cam_card, sc_card, env_card)
+    col_card = img_card.color.cpu().double()
+    col_cpu = img_cpu.color.double()
+    same = (img_card.hit.cpu() == img_cpu.hit) & (
+        (col_card - col_cpu).abs().amax(-1) <= 1e-4)
+    scene_rel = float((col_card - col_cpu).abs().amax(-1)[same].max()
+                      / col_cpu.abs().max())
+
+    planes_cpu, _, ovf, zmin = st.tile_entries(pos_cpu, radius, cam_cpu,
+                                               tspec)
+    check(int(ovf) == 0, "n3=16 composite frame: tile overflow")
+    _, dirs = cam_cpu.pixel_rays(w, h)
+    dirs_z = torch.sum(dirs * cam_cpu.front, dim=-1)
+
+    def plane_grads(dev, cam, env):
+        leaves = [planes_cpu[n].to(dev).clone().requires_grad_()
+                  for n in st.CHANNELS]
+        accs = st.rasterize(dict(zip(st.CHANNELS, leaves)), tspec, 12.0,
+                            2.0, emit_normals=True)
+        fluid = st.shade_tiles(accs, tspec, zmin.to(dev), cam,
+                               background=(0.0, 0.0, 0.0), env_cube=env)
+        ray = img_cpu._replace(**{f: getattr(img_cpu, f).to(dev)
+                                  for f in img_cpu._fields})
+        color, _ = composite_images(fluid, ray, cam, dirs_z.to(dev))
+        return torch.autograd.grad((color ** 2).sum(), leaves)
+
+    g_planes_card = plane_grads(device, cam_card, env_card)
+    g_planes_cpu = plane_grads(cpu, cam_cpu, env_cpu)
+    d = g_card - g_cpu
+    res = {"rim_gap": gap, "loss_rel": abs(l_card - l_cpu) / abs(l_cpu),
+           "grad_max_rel": float(d.abs().max() / g_cpu.abs().max()),
+           "grad_norm_rel": float(d.norm() / g_cpu.norm()),
+           "scene_rel": scene_rel,
+           "scene_flipped_pixels": int((~same).sum()),
+           "render_plane_grad_max_rel": max(
+               float((a.cpu().double() - b.double()).abs().max()
+                     / b.double().abs().max())
+               for a, b in zip(g_planes_card, g_planes_cpu))}
+    log(f"composite_n16_256x144 seed {seed} card vs cpu: " + json.dumps(res)
+        + f" tol max={COMP_GRAD_REL_TOL!r} norm={COMP_GRAD_NORM_TOL!r} "
+        f"scene={COMP_SCENE_REL_TOL!r} flips={COMP_SCENE_FLIPS!r} "
+        f"render={COMP_RENDER_GRAD_REL_TOL!r}")
+    check(res["render_plane_grad_max_rel"] <= COMP_RENDER_GRAD_REL_TOL,
+          f"card and CPU composite render gradients differ: {res}")
+    check(res["scene_rel"] <= COMP_SCENE_REL_TOL
+          and res["scene_flipped_pixels"] <= COMP_SCENE_FLIPS,
+          f"card and CPU scene passes differ: {res}")
+    check(res["grad_max_rel"] <= COMP_GRAD_REL_TOL
+          and res["grad_norm_rel"] <= COMP_GRAD_NORM_TOL,
+          f"card and CPU composite gradients differ: {res}")
+    return res
+
+
+def run_cli_sky_gltf(device) -> dict:
+    """The batch CLI at 1M with the sky and a glTF scene: `--render --sky
+    --gltf SCENE`, 10 steps, a frame every 5, the scene (bench.py's floor
+    and wall, one material, untextured) written at run time by the port's
+    make_gltf. Its summary (overflow 0, recoveries 0), the npz read back
+    (2 frames of 1M finite positions), peak memory and launch counts (reset
+    just before, read just after)."""
+    import shutil
+    from pathlib import Path
+
+    import torch
+    from dieselfluid_tpu_torch.render.gltf import make_gltf
+
+    out = Path(__file__).resolve().parent / "build" / "chip_smoke_cli_sky"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    try:
+        v = np.asarray([[-2, -1, -2], [2, -1, -2], [2, -1, 2], [-2, -1, 2],
+                        [-2, -1, 1], [2, -1, 1], [2, 2, 1], [-2, 2, 1]],
+                       np.float32)
+        mat = {"pbrMetallicRoughness": {
+            "baseColorFactor": [0.55, 0.5, 0.45, 1.0],
+            "metallicFactor": 0.05, "roughnessFactor": 0.7}}
+        make_gltf(v, np.asarray([0, 1, 2, 0, 2, 3, 4, 5, 6, 4, 6, 7],
+                                np.uint32), material=mat).save(
+            str(out / "scene.gltf"))
+        argv = ["--n3", str(CLI_N3), "--neighbors", "dense", "--solver",
+                "pcisph", "--column-skip", "--warm-start", "--steps", "10",
+                "--render", "--render-every", "5", "--size", "384", "--sky",
+                "--gltf", str(out / "scene.gltf"), "--out", str(out / "run")]
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launch_counts()
+        summary, _, wall = cli_main(argv, "sky+gltf")
+        launches = launch_counts()
+        traj = np.load(summary["outputs"]["npz"])["positions"]
+        res = {"summary": summary, "process_wall_s": wall,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "npz_frames": int(traj.shape[0]), "launches": launches}
+        log("cli_1m_sky_gltf " + json.dumps(res))
+        check(summary["particles"] == CLI_N3 ** 3 and summary["overflow"] == 0
+              and summary["recoveries"] == 0,
+              f"cli sky+gltf: unhealthy summary {summary}")
+        check(tuple(traj.shape) == (2, CLI_N3 ** 3, 3)
+              and bool(np.isfinite(traj).all())
+              and float(np.abs(traj).max()) <= 1.0,
+              f"cli sky+gltf: npz holds {traj.shape}")
+        for name in ("density_active", "pressure_pq_active"):
+            check(launches[name] > 0,
+                  f"kernel {name} was not launched by the CLI with --sky")
+        return res
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
 def run_simulation(device) -> dict:
     import torch
     from dieselfluid_tpu_torch.config import SimConfig
@@ -1600,12 +2007,15 @@ def main() -> int:
                for g in ("ones", "quarter")} for name in GATED_OF}))
     del ps, grids
 
-    # The training path: K1, K3, K5, K6, K8, K9.
+    # The training path, config 4: K1, K3, K5, K6, K8, K9, and K11, K12
+    # in their 9-output form (the sky-lit render of its loss).
+    check_sky_bake(device, sync)
     grad = run_gradients(device, sync)
     training = grad["launches"]
     log("training-path launches " + json.dumps(training))
     for name in ("density", "viscosity", "pressure", "density_bwd",
-                 "pressure_bwd", "viscosity_bwd"):
+                 "pressure_bwd", "viscosity_bwd", "splat_fwd9",
+                 "splat_bwd9"):
         check(training[name] > 0,
               f"kernel {name} was not launched by the training path")
     run_trainer(device)
@@ -1624,6 +2034,10 @@ def main() -> int:
     del setup
     check_sim_render_cpu(device)
 
+    # The composite cell: K11, K12 (9 outputs) under the ray-traced scene.
+    comp = run_composite(device, sync)
+    check_composite_cpu(device)
+
     sim = run_simulation(device)
     log("simulation_n3_16_pcisph " + json.dumps(sim))
 
@@ -1631,12 +2045,13 @@ def main() -> int:
     # Last, so that the phases above run as they did before it was added.
     skip = run_column_skip(params, state, spec, delta, sync)
     cli_run = run_cli(device)
+    cli_sky = run_cli_sky_gltf(device)
     check(not jax_package_modules(),
           f"the JAX package was imported: {jax_package_modules()}")
 
     kernels = []
-    main_paths = (serving, training, sr["launches"], skip["launches"],
-                  cli_run["launches"])
+    main_paths = (serving, training, sr["launches"], comp["launches"],
+                  skip["launches"], cli_run["launches"], cli_sky["launches"])
     for kern, source in ([(k, sw.SOURCE) for k in sw.SWEEPS]
                          + [(k, st.SOURCE) for k in st.KERNELS]):
         ms, plain_ms, kms = times[kern.name]

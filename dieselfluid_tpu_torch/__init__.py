@@ -16,13 +16,19 @@ module paths so each counterpart is found by name:
   models/sph.py           Simulation facade (neighbors="dense", column_skip included)
   neighbors/calibrate.py  analytic lattice rest density
   solvers/                integrator, PCISPH delta, per-step and plane-resident dense solvers
-  mathx/                  quaternions and 4x4 transforms (what the camera needs)
+  mathx/                  quaternions, 4x4 transforms, spherical coordinates (polar.py)
   render/camera.py        pinhole Camera
   render/splat.py         eager scatter splat renderer (the tiled path's oracle)
   render/splat_tiled.py   tile binning and the tile rasterizer as an autograd Function
                           (CUDA kernels + plain torch); counterpart of splat_pallas.py
-  render/sh.py, cubemap.py  SH9 environment lighting, cubemap texel directions
-  interop.py              numpy <-> torch state and config conversion (across packages)
+  render/sh.py, cubemap.py  SH9 environment lighting, cubemap sampling and directions
+  render/light.py, spectrum.py  light sources, spectra and the solar SPD
+  render/texture.py, pbr.py     bilinear textures, Cook-Torrance shading
+  render/raytrace.py      ray-traced triangle scenes (plain torch, whole-frame)
+  render/gltf.py, scene.py      glTF import/export (numpy), scene -> render tensors
+  render/composite.py     fluid splats depth-composited over the ray-traced scene
+  sky/                    the atmosphere's single-scattering sky and its cubemap bake
+  interop.py              numpy <-> torch state, config, materials and scene arrays
   io/                     checkpoints (torch.save), npz/PLY/DFC export, the native framepack writer
   utils/guard.py          health checks, rollback and dt backoff (GuardedRunner)
   app/cli.py, serve.py    the batch CLI (python -m dieselfluid_tpu_torch.app.cli) and the viewer server

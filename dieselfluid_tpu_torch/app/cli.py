@@ -9,8 +9,9 @@ Usage:
 
 Runs on the CUDA card unless `--cpu` is given; without a card it raises
 (it never falls back to the CPU). Only the dense neighbor mode is ported
-(`--neighbors cellgrid|bruteforce` raise, ROADMAP A10), and the render is
-the eager splat renderer (`--gltf` and `--sky` raise, ROADMAP A9). The last
+(`--neighbors cellgrid|bruteforce` raise, ROADMAP A10). `--render` draws
+the eager splat renderer, lit by the baked sky with `--sky`, and composited
+over a ray-traced glTF scene with `--gltf`. The last
 line of standard output is a JSON summary: steps, particles, wall_s,
 particle_steps_per_s, max_vel, overflow, recoveries, outputs.
 """
@@ -42,11 +43,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--render", action="store_true",
                    help="render frames while stepping")
     p.add_argument("--gltf", type=str, default=None,
-                   help="GLTF scene to composite the fluid into (not ported: "
-                        "ROADMAP A9)")
+                   help="GLTF scene to composite the fluid into")
     p.add_argument("--sky", action="store_true",
-                   help="bake an atmosphere cubemap as the environment light "
-                        "(not ported: ROADMAP A9)")
+                   help="bake an atmosphere cubemap as the environment light")
     p.add_argument("--sun-dir", type=str, default="0.3,0.8,0.5",
                    help="sun direction for --sky as 'x,y,z'")
     p.add_argument("--sky-size", type=int, default=48,
@@ -129,12 +128,40 @@ def _not_ported(args):
         raise NotImplementedError(
             f"--neighbors {args.neighbors} is not ported yet (ROADMAP A10); "
             "use --neighbors dense")
-    if args.gltf:
-        raise NotImplementedError(
-            "--gltf (the composite renderer) is not ported yet: ROADMAP A9")
+
+
+def _frame_renderer(args, sim, cam, device):
+    """pos -> (H, W, 3) frame: the eager splat render, lit by the baked sky
+    cubemap with --sky, composited over the ray-traced glTF scene (its
+    materials, UVs and textures) with --gltf."""
+    from dieselfluid_tpu_torch.render.splat import splat_particles
+
+    env = None
     if args.sky:
-        raise NotImplementedError(
-            "--sky (the sky bake) is not ported yet: ROADMAP A9")
+        from dieselfluid_tpu_torch.sky.bake import bake_sky_cubemap
+
+        sun = tuple(float(c) for c in args.sun_dir.split(","))
+        env = bake_sky_cubemap(sun, size=args.sky_size, device=device)
+    if not args.gltf:
+        return lambda pos: splat_particles(pos, sim.dx * 0.7, cam, args.size,
+                                           args.size, env_cube=env).color
+    from dieselfluid_tpu_torch.render.composite import render_composite
+    from dieselfluid_tpu_torch.render.scene import Scene
+
+    sc = Scene.load(args.gltf)
+    tris, norms, mats = sc.triangle_soup(device=device)
+    uvs = sc.triangle_uvs(device=device)
+    textures, base_tex, norm_tex = sc.texture_stack(device=device)
+    materials = sc.stacked_materials(device=device)
+
+    def render_frame(pos):
+        return render_composite(
+            pos, sim.dx * 0.7, cam, tris, norms, mats, materials,
+            light_pos=(2.0, 3.0, -2.0), env_cube=env, width=args.size,
+            height=args.size, tri_uvs=uvs, textures=textures,
+            mat_base_tex=base_tex, mat_normal_tex=norm_tex).color
+
+    return render_frame
 
 
 def main(argv=None) -> int:
@@ -149,7 +176,6 @@ def main(argv=None) -> int:
                                                      load_checkpoint)
     from dieselfluid_tpu_torch.models.sph import Simulation
     from dieselfluid_tpu_torch.render.camera import Camera
-    from dieselfluid_tpu_torch.render.splat import splat_particles
 
     if args.cpu:
         device = torch.device("cpu")
@@ -178,9 +204,9 @@ def main(argv=None) -> int:
     cam = Camera.at([0.0, 0.6, -2.8], front=[0.0, -0.35, 1.0],
                     fov_deg=55.0, aspect=1.0, device=device)
 
-    def render_frame(pos):
-        return splat_particles(pos, sim.dx * 0.7, cam, args.size,
-                               args.size).color
+    render_frame = None
+    if args.render:
+        render_frame = _frame_renderer(args, sim, cam, device)
 
     def host(pos):
         return pos.detach().cpu().numpy()

@@ -13,14 +13,23 @@
 // 128). Occupied slots have r >= 0.75, empty ones r = 0: occupancy is
 // r >= 0.5.
 //
-// The prefix invariant K11 relies on: a tile's occupied slots are its first
-// ranks 0..n-1. bin_tile_entries (render/splat_tiled.py) writes each valid
-// entry of a tile at its rank among the tile's entries (a stable sort; the
-// valid ones are ranks below K), each with r = pixel_radius >= 0.75
-// (render/splat.py clips it), into planes of zeros, and parks every other
-// entry past the plane. So K11 stops at the first 128-slot chunk whose
-// first slot is empty (r < 0.5), and still tests r >= 0.5 per slot inside a
-// chunk. tests/test_torch_prefix_invariant.py checks the planes.
+// The prefix invariant both kernels rely on: a tile's occupied slots are its
+// first ranks 0..n-1. bin_tile_entries (render/splat_tiled.py) writes each
+// valid entry of a tile at its rank among the tile's entries (a stable
+// sort; the valid ones are ranks below K), each with r = pixel_radius >=
+// 0.75 (render/splat.py clips it), into planes of zeros, and parks every
+// other entry past the plane. tests/test_torch_prefix_invariant.py checks
+// the planes. Both kernels read a tile's live slots alike, so that the
+// backward gives gradients to exactly the splats the forward drew: the
+// occupied prefix ends at the first 128-slot chunk whose first slot is
+// empty (r < 0.5); inside the prefix every slot is still tested r >= 0.5,
+// past it none is read. K11 stops walking there; K12 writes zeros for that
+// chunk and every later one of the tile, a chunk being live only if its
+// own first slot and the first slot of every earlier chunk of its tile are
+// occupied. On planes that keep the invariant this is every occupied slot;
+// on a plane with a hole the two kernels still agree with each other
+// (tests/test_torch_raster_emulated.py), not with the plain versions,
+// which read every occupied slot.
 //
 // The pair. For slot s and pixel (px, py) of its tile, with the pixel center
 // c = (px + 0.5, py + 0.5), o = (c - (u, v)) / max(r, 0.5), r2 = |o|^2:
@@ -72,9 +81,9 @@
 //  most 9 of 32. The box tests come before any transcendental.
 //  K12: one 128-thread CTA per 128-slot chunk of a tile (n_tiles * K / 128
 //  CTAs), so a heavy tile's occupied chunks run on as many SMs and the
-//  tail is one chunk's work. A CTA whose chunk begins with an empty slot
-//  lies past the tile's occupied prefix: it writes its 128 slots' four
-//  zeros as float4s and leaves. An occupied chunk's CTA stages the tile's
+//  tail is one chunk's work. A CTA whose chunk lies past the tile's
+//  occupied prefix (its first slot, or an earlier chunk's, empty) writes
+//  its 128 slots' four zeros as float4s and leaves. An occupied chunk's CTA stages the tile's
 //  6 or 9 cotangent planes in shared memory (24 or 36 KB) and the chunk's
 //  u, v, z, r, then ranks its slots onto threads by the pixel count of
 //  their clipped patch box (a counting sort by ballots, empty slots last),
@@ -293,15 +302,28 @@ splat_bwd_kernel(const RasterArgs a) {
   __shared__ int s_slot[kChunk];              // thread -> slot, ranked
 
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const long long tile_pix =
-      static_cast<long long>(blockIdx.x / (a.k / kChunk)) * kPix;
+  const int chunks = a.k / kChunk;
+  const int tile = blockIdx.x / chunks, chunk = blockIdx.x - tile * chunks;
+  const long long tile_pix = static_cast<long long>(tile) * kPix;
   const long long base = static_cast<long long>(blockIdx.x) * kChunk;
-  // Past the tile's occupied prefix every slot is empty: four zero planes,
-  // one float4 a thread (the same address for every thread, so the whole
-  // CTA leaves together).
+  // The chunk lies past the tile's occupied prefix, as K11 reads it, if its
+  // first slot or the first slot of an earlier chunk of the tile is empty.
+  // Then four zero planes, one float4 a thread. Its own first slot is one
+  // address for every thread, so a CTA past the end of a prefix leaves
+  // together at once; an occupied chunk then tests the earlier chunks'
+  // first slots (thread t chunks t, t + 128, ...), and the barrier's vote
+  // makes the CTA leave together if one is empty (a hole).
+  const float4 zeros = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   if (!(a.in[3][base] >= 0.5f)) {
-    reinterpret_cast<float4*>(a.out[warp] + base)[lane] =
-        make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    reinterpret_cast<float4*>(a.out[warp] + base)[lane] = zeros;
+    return;
+  }
+  int hole = 0;
+  for (int c = t; c < chunk; c += kChunk)
+    hole |= !(a.in[3][base + static_cast<long long>(c - chunk) * kChunk] >=
+              0.5f);
+  if (__syncthreads_or(hole)) {
+    reinterpret_cast<float4*>(a.out[warp] + base)[lane] = zeros;
     return;
   }
   {

@@ -6,7 +6,8 @@ such numpy arrays (float64 is cast to float32, slot indices to int64) and
 give them back, so one numpy state feeds both packages and a JAX
 DensePlaneState resumes in the port. Static configs (FluidParams, SimConfig,
 DenseCellSpec) are rebuilt field for field from any object with the same
-fields, and a camera from its transform and scalars. Nothing here imports JAX: a JAX state is converted with `np.asarray`
+fields, a camera from its transform and scalars, PBR materials and a
+scene's render arrays from numpy leaves. Nothing here imports JAX: a JAX state is converted with `np.asarray`
 on the caller's side.
 """
 
@@ -23,6 +24,7 @@ from dieselfluid_tpu_torch.models.materials import Materials
 from dieselfluid_tpu_torch.models.particles import FluidState
 from dieselfluid_tpu_torch.ops.cellops import DenseCellSpec
 from dieselfluid_tpu_torch.render.camera import Camera
+from dieselfluid_tpu_torch.render.pbr import PBRMaterial
 from dieselfluid_tpu_torch.solvers.dense_resident import DensePlaneState
 
 _FLUID = ("pos", "vel", "force", "density", "pressure")
@@ -129,3 +131,39 @@ def camera_from_numpy(transform, fov_deg, aspect, near, far, exposure, *,
     return Camera(transform=_f32(transform, device), fov_deg=float(fov_deg),
                   aspect=float(aspect), near=float(near), far=float(far),
                   exposure=float(exposure))
+
+
+def pbr_materials_from_numpy(base_color, metallic, roughness, fresnel_rim,
+                             *, device,
+                             requires_grad: bool = False) -> PBRMaterial:
+    """A stacked PBRMaterial on `device` from numpy-convertible leaves
+    (base_color (M, 3), the others (M,); a JAX PBRMaterial's fields through
+    `np.asarray`), each a float32 leaf that requires grad when
+    `requires_grad`."""
+    def f(x):
+        return _f32(x, device).requires_grad_(requires_grad)
+
+    return PBRMaterial(base_color=f(base_color), metallic=f(metallic),
+                       roughness=f(roughness), fresnel_rim=f(fresnel_rim))
+
+
+def scene_arrays_from_numpy(tris, tri_normals, tri_materials, tri_uvs=None,
+                            textures=None, mat_base_tex=None,
+                            mat_normal_tex=None, *,
+                            device) -> Dict[str, Optional[torch.Tensor]]:
+    """A scene's render arrays on `device`, keyed as render_scene and
+    render_composite take them: tris (T, 3, 3), tri_normals (T, 3) and
+    tri_uvs (T, 3, 2), textures (K, S, S, 3) as float32; tri_materials and
+    the per-material texture indices as int64. From numpy-convertible
+    arrays (either package's Scene through `np.asarray`); None stays None."""
+    def idx(a):
+        return None if a is None else torch.from_numpy(
+            np.array(a, dtype=np.int64)).to(device)
+
+    return {"tris": _f32(tris, device),
+            "tri_normals": _f32(tri_normals, device),
+            "tri_materials": idx(tri_materials),
+            "tri_uvs": _opt_f32(tri_uvs, device),
+            "textures": _opt_f32(textures, device),
+            "mat_base_tex": idx(mat_base_tex),
+            "mat_normal_tex": idx(mat_normal_tex)}

@@ -17,10 +17,13 @@ one tile at a time:
 There is no mask channel: live slots carry r >= 0.75 (the projection clip)
 and empty or trash slots r = 0, so occupancy is r >= 0.5 everywhere. A
 tile's occupied slots are its first ranks (bin_tile_entries writes each
-valid entry at its rank in the tile): K11 walks each tile's slots only up
-to the first 128-slot chunk whose first slot is empty, and K12 writes zeros
-for that chunk and every one after it without looking past their first
-slots, so slot planes from anywhere else must keep that order too.
+valid entry at its rank in the tile): both kernels read a tile's slots only
+up to the first 128-slot chunk whose first slot is empty (K11 stops there,
+K12 writes zeros for that chunk and every one after it), so slot planes
+from anywhere else must keep that order too. On a plane with a hole the
+kernels agree with each other (the backward's gradients are those of the
+splats the forward drew), not with the plain versions, which read every
+occupied slot.
 
 Dispatch is by the device of the slot planes, forward and backward alike:
   * CUDA tensors launch the hand-written sm_90a kernels in
@@ -131,13 +134,15 @@ class TileSpec:
 @dataclasses.dataclass
 class RasterKernel:
     """One rasterizer kernel: its C launchers (6 and 9 outputs), the kernel
-    body they run, and its launch count (CUDA launches only)."""
+    body they run, and its launch count (CUDA launches only), with the
+    9-output (env-lit) form's share of it."""
 
     name: str
     symbols: Tuple[str, str]
     replaces: str
     body: str
     launches: int = 0
+    launches9: int = 0
 
 
 SPLAT_FWD = RasterKernel("splat_fwd", ("dft_splat_fwd6", "dft_splat_fwd9"),
@@ -155,6 +160,7 @@ KERNELS = (SPLAT_FWD, SPLAT_BWD)
 def reset_launch_counts():
     for kern in KERNELS:
         kern.launches = 0
+        kern.launches9 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -449,6 +455,7 @@ def _launch(kern: RasterKernel, emit_normals: bool,
     if err != 0:
         raise RuntimeError(f"{kern.symbols} launch failed: cudaError {err}")
     kern.launches += 1
+    kern.launches9 += int(emit_normals)
 
 
 def _device_of(planes: Planes, spec: TileSpec) -> torch.device:
@@ -523,7 +530,14 @@ def rasterize(planes: Planes, spec: TileSpec, sharpness: float,
               depth_falloff: float, emit_normals: bool = False):
     """Slot planes -> accumulator planes (n_tiles, 8, 128): num_r, num_g,
     num_b, den, acc_a, acc_z (+ wn_x, wn_y, wn_z with emit_normals).
-    Differentiable in the four slot planes (JAX `_rasterize`)."""
+    Differentiable in the four slot planes (JAX `_rasterize`).
+
+    The planes must hold each tile's occupied slots (r >= 0.5) as its first
+    ranks, as bin_tile_entries writes them. The kernels read a tile's live
+    slots as the prefix of 128-slot chunks up to the first chunk whose first
+    slot is empty, forward and backward alike; the plain versions (CPU
+    planes) read every occupied slot, so the two differ only on planes that
+    break this."""
     return _Rasterize.apply(spec, sharpness, depth_falloff, emit_normals,
                             *[planes[n] for n in CHANNELS])
 

@@ -632,3 +632,38 @@ def test_splat_gradient_on_card_matches_cpu(frame):
     # The kernels round r2 as the plain version does; what is left is
     # summation order, amplified where a slot's per-pixel terms cancel.
     assert float((g - c).abs().max()) <= 1e-4 * float(c.abs().max())
+
+
+@pytest.mark.parametrize("n_out", [6, 9])
+def test_rasterizer_kernels_read_a_holed_plane_alike(cuda, n_out):
+    """A tile with a hole at its second chunk's first slot: K11 and K12 both
+    stop there, so each gives on the holed planes what it gives on the
+    planes cut to the prefix (bit for bit), K12 zero past it, and both
+    within tolerance of the plain versions on the cut planes."""
+    from dieselfluid_tpu_torch.render import splat_tiled as st
+
+    emit = n_out == 9
+    spec, planes = _chunk_frame(st, cuda)
+    for c in st.CHANNELS:
+        planes[c].view(spec.n_tiles, -1)[0, 128] = 0.0
+    cut = {c: p.clone() for c, p in planes.items()}
+    for c in st.CHANNELS:
+        cut[c].view(spec.n_tiles, -1)[0, 128:] = 0.0
+    cts = _cts_of(spec, n_out, cuda)
+    fwd = st.rasterize_fwd(planes, spec, 12.0, 2.0, emit)
+    fwd_cut = st.rasterize_fwd(cut, spec, 12.0, 2.0, emit)
+    bwd = st.rasterize_bwd(planes, cts, spec, 12.0, 2.0, emit)
+    bwd_cut = st.rasterize_bwd(cut, cts, spec, 12.0, 2.0, emit)
+    want_f = st.plain.rasterize_fwd(cut, spec, 12.0, 2.0, emit)
+    want_b = st.plain.rasterize_bwd(cut, cts, spec, 12.0, 2.0, emit)
+    torch.cuda.synchronize()
+    past = (cut["r"] < 0.5) & (planes["r"] >= 0.5)
+    assert int(past.sum()) == 450 - 129
+    for g, w, p in zip(fwd, fwd_cut, want_f):
+        assert torch.equal(g, w)
+        assert float((g - p).abs().max()) <= st.RASTER_REL_TOL * float(
+            p.abs().max())
+    for g, w, p in zip(bwd, bwd_cut, want_b):
+        assert torch.equal(g, w) and bool((g[past] == 0).all())
+        assert float((g - p).abs().max()) <= st.RASTER_BWD_REL_TOL * float(
+            p.abs().max())

@@ -18,7 +18,9 @@ binned by bin_tile_entries, in both output forms (6 and 9), each kernel
 must write every element (outputs start as NaN), give its oracle's results
 bit for bit (K12 with seeded cotangents, exact zeros at every empty slot)
 and stay within RASTER_REL_TOL (K11) or RASTER_BWD_REL_TOL (K12) of the
-plain torch version. The arithmetic is the host's (rsqrtf is 1 / sqrtf
+plain torch version. On planes with a hole (a chunk's first slot empty
+before occupied slots) both kernels read the tile's prefix alike: each
+gives what it gives on the planes cut at the hole, bit for bit. The arithmetic is the host's (rsqrtf is 1 / sqrtf
 here), so the rounding on the card is the card-only tests' and
 chip_smoke.py's to check.
 """
@@ -178,3 +180,51 @@ def test_chunked_k12_equals_tile_body_and_plain(lib, name, patch, n_out):
         assert float((g - p).abs().max()) <= st.RASTER_BWD_REL_TOL * max(
             scale, 1e-30), o
     assert bool(got[3].any()) == (name != "empty")
+
+
+def _holed():
+    """Slot planes (256x16, k = 512) with holes: tile 0 keeps 200 entries as
+    its first ranks; tile 1 has chunks 0-3 occupied but the first slot of
+    chunk 1 empty, so its occupied prefix, as the kernels read it, ends
+    after chunk 0; tile 2 has an empty slot inside its first chunk (slot 5
+    of 160). Returns the spec, the planes and the planes cut to each
+    tile's occupied prefix (every slot from its first chunk with an empty
+    first slot on zeroed)."""
+    spec = st.TileSpec(256, 16, k=512, patch=9)
+    planes = _tile_planes(spec, {0: 200, 1: 512, 2: 160}, 3,
+                          lambda rng, n: rng.uniform(-4.5, 132.5, n))
+    for c in st.CHANNELS:
+        planes[c].view(spec.n_tiles, -1)[1, 128] = 0.0
+        planes[c].view(spec.n_tiles, -1)[2, 5] = 0.0
+    cut = {c: p.clone() for c, p in planes.items()}
+    first = planes["r"].view(spec.n_tiles, spec.k_sub, 128)[:, :, 0] >= 0.5
+    live = torch.cumprod(first.int(), dim=1).bool()          # chunk in prefix
+    for c in st.CHANNELS:
+        cut[c].view(spec.n_tiles, spec.k_sub, 128)[~live] = 0.0
+    assert int((planes["r"] >= 0.5).sum()) - int((cut["r"] >= 0.5).sum()) \
+        == 3 * 128 - 1                                       # tile 1's tail
+    return spec, planes, cut
+
+
+@pytest.mark.parametrize("n_out", [6, 9])
+def test_k11_and_k12_read_a_holed_plane_alike(lib, n_out):
+    """On a plane with a hole at a chunk's first slot, K12 gives gradients
+    to exactly the slots K11 draws: both read the tile's prefix up to that
+    chunk, so each equals its run on the planes cut there bit for bit (and
+    the old bodies there), and K12 is zero on every slot past it."""
+    spec, planes, cut = _holed()
+    fwd = _fwd(lib, f"dft_splat_fwd{n_out}", planes, spec)
+    fwd_cut = _fwd(lib, f"dft_splat_fwd{n_out}", cut, spec)
+    fwd_tile = _fwd(lib, f"emu_tile_fwd{n_out}", cut, spec)
+    for o, (g, w, t) in enumerate(zip(fwd, fwd_cut, fwd_tile)):
+        assert torch.equal(g, w) and torch.equal(g, t), o
+    cts = _cotangents(spec, n_out, 50)
+    bwd = _bwd(lib, f"dft_splat_bwd{n_out}", planes, cts, spec)
+    bwd_cut = _bwd(lib, f"dft_splat_bwd{n_out}", cut, cts, spec)
+    bwd_tile = _bwd(lib, f"emu_tile_bwd{n_out}", cut, cts, spec)
+    past = (cut["r"] < 0.5) & (planes["r"] >= 0.5)
+    assert int(past.sum()) == 3 * 128 - 1
+    for o, (g, w, t) in enumerate(zip(bwd, bwd_cut, bwd_tile)):
+        assert torch.equal(g, w) and torch.equal(g, t), o
+        assert bool((g[past] == 0).all()), o
+    assert bool(bwd[3][cut["r"] >= 0.5].ne(0).any())

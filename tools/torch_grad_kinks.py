@@ -48,9 +48,9 @@ def main() -> int:
                 pos = (state.pos + torch.from_numpy(j.astype(np.float32))) \
                     * (1.0 + eps)
                 mats = Materials.from_params(params, dev, requires_grad=True)
-                _, g = chip_smoke.loss_and_grads(
+                _, g, _ = chip_smoke.loss_and_grads(
                     solver, params, state._replace(pos=pos), spec, delta, w,
-                    mats)
+                    mats, standin=True)
                 grads.append([x.detach().double() for x in g])
             rel = {name: float((a - b).abs().max() / b.abs().max())
                    for name, a, b in zip(("mu", "d0", "mass", "pos"),

@@ -7,22 +7,26 @@ CUDA card, and the same for two checkouts in turns.
 
 Profile (first form): chip_smoke.py's training cell with the package and
 chip_smoke.py of CHECKOUT (default: the checkout this file is in), so one
-copy of this script profiles any checkout: the loss sum(next.pos * w)
-through dense_pcisph_step(materials=m, unroll_for_grad=True,
-unroll_iters=3) and through dense_wcsph_step(materials=m) on the 1M dam
-break with seeded velocities, then backward to the Materials and the
+copy of this script profiles any checkout: on the 1M dam break with
+seeded velocities, config 4's loss (its checkout's
+chip_smoke.loss_and_grads: since the sky bake was ported, the sky-lit 1080p
+tiled render of the next positions at k = 8192, sum(color^2); before, the
+stand-in sum(next.pos * w)) through dense_pcisph_step(materials=m,
+unroll_for_grad=True, unroll_iters=3), and the stand-in through
+dense_wcsph_step(materials=m), then backward to the Materials and the
 positions (chip_smoke.grad_setup, loss_and_grads). Per solver, after one
 warm-up: `reps` forward+backward runs unprofiled (host clock, synchronized:
 median and each run), then `reps` under torch.profiler. Prints one JSON
 line per solver: ms per forward+backward unprofiled and profiled,
 device-busy ms (CUDA kernel self time per forward+backward), the idle
-share of the profiled wall (1 - busy / wall), kernel launches, sweep
-launches by name, peak memory, the loss and gradient summary
+share of the profiled wall (1 - busy / wall), kernel launches, sweep and
+rasterizer launches by name, peak memory, the loss and gradient summary
 (chip_smoke.grad_summary, to compare two checkouts' results), and device
 ms by group: each sweep kernel by its K number (K5 is PressPair on
 sweep_block or ForceFoldPair<false> on the compacted body; K8
-PressBwdPair or PressBwdFoldPair; K9 ViscBwdPair or ViscBwdFoldPair),
-sort/scan/index, memset/copy, and the rest (elementwise and reductions).
+PressBwdPair or PressBwdFoldPair; K9 ViscBwdPair or ViscBwdFoldPair), the
+rasterizer's K11 and K12, sort/scan/index, memset/copy, and the rest
+(elementwise and reductions).
 
 A/B (second form): runs the first form on each checkout in a fresh
 process from its root, in the order A B B A per pair, prints every run's
@@ -54,6 +58,10 @@ def group(key: str) -> str:
     m = re.search(r"sweep_kernel<\(anonymous namespace\)::(\w+(<\w+>)?)", key)
     if m:
         return f"sweep {_KERNEL_OF.get(m.group(1), m.group(1))}"
+    if "splat_fwd_kernel" in key:
+        return "raster K11"
+    if "splat_bwd_kernel" in key:
+        return "raster K12"
     if any(s in key for s in _SORT):
         return "sort/scan/index"
     if "Memset" in key or "Memcpy" in key or "fill" in key.lower() \
@@ -71,6 +79,7 @@ def profile_root(root: str, reps: int) -> int:
     import chip_smoke as cs
     from dieselfluid_tpu_torch.models.materials import Materials
     from dieselfluid_tpu_torch.ops import sph_sweep as sw
+    from dieselfluid_tpu_torch.render import splat_tiled as st
 
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -85,11 +94,12 @@ def profile_root(root: str, reps: int) -> int:
             out = cs.loss_and_grads(solver, params, state, spec, delta, w,
                                     mats)
             torch.cuda.synchronize()
-            return out
+            return out[0], out[1]
 
         run()
         torch.cuda.reset_peak_memory_stats()
         sw.reset_launch_counts()
+        st.reset_launch_counts()
         walls = []
         for _ in range(reps):
             t0 = time.perf_counter()
@@ -97,6 +107,8 @@ def profile_root(root: str, reps: int) -> int:
             walls.append((time.perf_counter() - t0) * 1e3)
         launches = {s.name: s.launches / reps for s in sw.SWEEPS
                     if s.launches}
+        launches.update({k.name: k.launches / reps for k in st.KERNELS
+                         if k.launches})
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
