@@ -98,11 +98,34 @@ Phases, each of which raises (and so exits nonzero) on failure:
      steps): its summary line (1,000,000 particles, overflow 0, recoveries
      0), the .dfc read back (2 frames), the checkpoints, the viewer, peak
      memory, the launch counts; then `--resume` from the last checkpoint
-     for 5 steps. These two run last, so that the phases above run as
-     they did before the slice that added them;
+     for 5 steps. These two run after the phases above, so that those
+     run as they did before the slice that added them;
  17a. the CLI at 1M with `--render --sky --gltf SCENE` (10 steps, the scene
      written by the port's make_gltf, untextured): summary, the npz read
-     back, peak memory, launch counts.
+     back, peak memory, launch counts;
+ 18a. BASELINE.json configuration 2 at full size through the facade:
+     Simulation.create(SimConfig(n3=40, solver="pcisph",
+     neighbors="cellgrid")), 64,000 particles, k = 128, capacity 32, 10
+     steps of warm-up and 20 timed: ms per step, particle-steps per second,
+     mean iterations, peak memory, overflow_fraction (must be 0), phase 6's
+     health, the largest in-radius count below k, and no sweep or raster
+     launch (the path is plain torch, as it is XLA in JAX);
+ 18b. configuration 1: the 8,000-particle WCSPH dam break with brute-force
+     neighbors, ms per step and health;
+ 18c. the mesh collider: the JAX boundary test's own scene (512
+     particles, its container box 1.8 at -0.1, [-1.0, 0.8]^3, 60 PCISPH
+     steps): finite, inside the container within 1e-3; then that container
+     through Simulation.create(collider=) at 64k for 10 PCISPH steps,
+     neighbors="dense" (its kernels launch) then "cellgrid": finite,
+     inside the box, the escapes from the container reported;
+ 18d. the CLI's default invocation (cell grid, WCSPH, n3 = 12, 20 steps)
+     and its summary, the dam_break twin (20 frames), the fit_material
+     twin's descent cut to 4 steps (the loss falls);
+ 18e. card against CPU at n3 = 12 from the same numpy state: the cell-grid
+     and brute-force tables identical, torch.sqrt on the card bitwise the
+     correctly rounded root, one pcisph_step and one wcsph_step
+     (XLA_CARD_REL_TOL), the materials= gradients through the unrolled
+     PCISPH step (XLA_CARD_GRAD_REL_TOL).
 
 The line before the last is a JSON object with one entry per kernel (`ms` the
 public call, `kernel_ms` its launch alone, `body` the kernel body it runs
@@ -1891,6 +1914,400 @@ def run_simulation(device) -> dict:
             "max_v": float(vmax.max()), "iters": int(diag.iters)}
 
 
+# Phase 18: the fixed-degree neighbor solvers (BASELINE.json configurations
+# 1 and 2), the mesh collider, the CLI's default invocation and the two
+# example twins; no sweep or raster kernel runs on the cellgrid and
+# bruteforce paths (no Pallas kernel in the JAX package there either).
+XLA_N3, XLA_WARMUP, XLA_STEPS = 40, 10, 20   # 18a: 64,000 particles
+WC_N3, WC_WARMUP, WC_STEPS = 20, 5, 20       # 18b: 8,000 particles
+COLLIDER_N3, COLLIDER_STEPS = 40, 10         # 18c
+CARD_CPU_N3 = 12                             # 18e: 1,728 particles
+# 18e, card against CPU from the same numpy state (max |diff| / max |CPU|
+# per field after one step, and per gradient). Measured on an H100: pos
+# 6.0e-8, vel 2.5e-6 (PCISPH; WCSPH 9.3e-7), density 1.6e-7; gradients mu
+# 2.7e-7, d0 5.6e-6, positions 8.9e-7. The bounds are about 10x.
+XLA_CARD_REL_TOL = {"pos": 6e-7, "vel": 3e-5, "density": 2e-6}
+XLA_CARD_GRAD_REL_TOL = 6e-5
+
+
+def xla_launches_zero(label: str, launches: dict):
+    """The fixed-degree paths run no sweep or raster kernel."""
+    check(not any(launches.values()),
+          f"{label}: kernels launched on a plain-torch path: "
+          + json.dumps({k: v for k, v in launches.items() if v}))
+
+
+def xla_health(sim, label: str, mean_y0: float, spec=None) -> dict:
+    """Phase 6's health checks on a fixed-degree run: finite, inside the
+    box, mean y falls, rho_max/d0 in [1.0, 1.2], and (with a cell spec)
+    no cell overflow and every in-radius count below k."""
+    import torch
+    from dieselfluid_tpu_torch.neighbors.cellgrid import (
+        cell_grid_neighborhood, overflow_fraction)
+
+    pos = sim.state.pos
+    res = {"mean_y0": mean_y0, "mean_y": float(pos[:, 1].mean()),
+           "rho_max_over_d0": float(sim.state.density.max()) / sim.params.d0,
+           "max_v": sim.max_v()}
+    check(bool(torch.isfinite(pos).all())
+          and bool(torch.isfinite(sim.state.vel).all()), f"{label}: finite")
+    check(float(pos.abs().max()) <= 1.0, f"{label}: outside the box")
+    check(res["mean_y"] < mean_y0, f"{label}: mean y did not fall {res}")
+    check(1.0 <= res["rho_max_over_d0"] <= 1.2,
+          f"{label}: rho_max/d0 {res['rho_max_over_d0']}")
+    if spec is not None:
+        k = sim.config.max_neighbors
+        nb = cell_grid_neighborhood(pos, pos, sim.params.h, k, spec)
+        res["max_neighbors"] = int(nb.mask.sum(dim=1).max())
+        res["overflow_fraction"] = float(overflow_fraction(pos, spec))
+        check(res["max_neighbors"] < k,
+              f"{label}: {res['max_neighbors']} neighbors fill k = {k}")
+        check(res["overflow_fraction"] == 0.0,
+              f"{label}: overflow {res['overflow_fraction']}")
+    return res
+
+
+def timed_steps(sim, n: int):
+    """(ms per step, iterations per step) of n sim.step() calls, host clock
+    around them, ending in a device sync."""
+    import torch
+
+    torch.cuda.synchronize()
+    iters = []
+    t0 = time.perf_counter()
+    for _ in range(n):
+        iters.append(int(sim.step().iters))
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n, iters
+
+
+def run_xla_pcisph(device) -> dict:
+    """18a: BASELINE.json configuration 2 at full size, as the facade builds
+    it: Simulation.create(SimConfig(n3=40, solver="pcisph",
+    neighbors="cellgrid")), 64,000 particles, k = 128, capacity 32, a cold
+    start, the dam break at extent 0.5. 10 steps of warm-up, then 20 timed
+    (launch counters reset just before them, read just after)."""
+    import torch
+    from dieselfluid_tpu_torch.config import SimConfig
+    from dieselfluid_tpu_torch.models.sph import Simulation
+    from dieselfluid_tpu_torch.neighbors.cellgrid import (
+        CellGridSpec, overflow_fraction)
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = SimConfig(n3=XLA_N3, solver="pcisph", neighbors="cellgrid")
+    sim = Simulation.create(cfg, device)
+    spec = CellGridSpec.for_domain((-1,) * 3, (1,) * 3, sim.params.h,
+                                   capacity=cfg.cell_capacity)
+    y0 = float(sim.state.pos[:, 1].mean())
+    ovf0 = float(overflow_fraction(sim.state.pos, spec))
+    _, warm_iters = timed_steps(sim, XLA_WARMUP)
+    reset_all_launch_counts()
+    ms, iters = timed_steps(sim, XLA_STEPS)
+    launches = launch_counts()
+    res = {"n": sim.n(), "h": sim.params.h, "dt": sim.params.dt,
+           "d0": sim.params.d0, "delta": sim.delta, "ms_per_step": ms,
+           "particle_steps_per_s": sim.n() * 1e3 / ms,
+           "mean_iters": float(np.mean(iters)), "iters": iters,
+           "warmup_iters": warm_iters, "overflow_fraction_start": ovf0,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    res.update(xla_health(sim, "18a", y0, spec))
+    log("xla_pcisph_cellgrid_64k " + json.dumps(res))
+    check(ovf0 == 0.0, f"18a: overflow at the start {ovf0}")
+    check(all(1 <= i <= sim.params.pci_max_iters for i in warm_iters + iters),
+          f"18a: iterations {warm_iters + iters}")
+    xla_launches_zero("18a", launches)
+    return res
+
+
+def run_xla_wcsph(device) -> dict:
+    """18b: BASELINE.json configuration 1: the WCSPH dam break at 8,000
+    particles (n3 = 20) with brute-force neighbors (k = 128), 5 steps of
+    warm-up, 20 timed."""
+    import torch
+    from dieselfluid_tpu_torch.config import SimConfig
+    from dieselfluid_tpu_torch.models.sph import Simulation
+
+    torch.cuda.reset_peak_memory_stats()
+    sim = Simulation.create(SimConfig(n3=WC_N3, solver="wcsph",
+                                      neighbors="bruteforce"), device)
+    y0 = float(sim.state.pos[:, 1].mean())
+    timed_steps(sim, WC_WARMUP)
+    reset_all_launch_counts()
+    ms, _ = timed_steps(sim, WC_STEPS)
+    launches = launch_counts()
+    res = {"n": sim.n(), "ms_per_step": ms,
+           "particle_steps_per_s": sim.n() * 1e3 / ms,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    res.update(xla_health(sim, "18b", y0))
+    log("xla_wcsph_bruteforce_8k " + json.dumps(res))
+    xla_launches_zero("18b", launches)
+    return res
+
+
+def collider_test_scene(device) -> dict:
+    """The JAX package's own collider check (tests/test_boundary.py,
+    test_pcisph_with_boundary_and_collider) on the card: the 512-particle
+    dam break with d0 calibrated on the state, the container's vertices as
+    boundary particles, brute-force neighbors (k = 96), no box clamp, 60
+    PCISPH steps with the collider: finite, every position in [-1.0, 0.8]
+    within 1e-3."""
+    import torch
+    from dieselfluid_tpu_torch.config import FluidParams
+    from dieselfluid_tpu_torch.geometry.mesh import box
+    from dieselfluid_tpu_torch.models.particles import dam_break_state
+    from dieselfluid_tpu_torch.neighbors.bruteforce import (
+        brute_force_neighborhood)
+    from dieselfluid_tpu_torch.neighbors.calibrate import (
+        calibrate_rest_density)
+    from dieselfluid_tpu_torch.solvers.pcisph import (compute_pci_delta,
+                                                      pcisph_step)
+
+    dx = (2.0 / 8) * EXTENT
+    params = FluidParams.for_spacing(dx)
+    s = dam_break_state(8, params, device, extent=EXTENT)
+    params = calibrate_rest_density(s.pos, params)
+    delta = compute_pci_delta(params, dx)
+    container = box(1.8, 1.8, 1.8, origin=(-0.1, -0.1, -0.1), device=device)
+    s = s._replace(boundary_pos=container.generate_boundary_particles(1.0))
+
+    def nfn(p):
+        return brute_force_neighborhood(p, p, params.h, 96)
+
+    for _ in range(60):
+        s, diag = pcisph_step(s, params, delta, neighbor_fn=nfn, bounds=None,
+                              collider=container)
+    res = {"min": float(s.pos.min()), "max": float(s.pos.max()),
+           "max_v": float(diag.max_vel)}
+    check(bool(torch.isfinite(s.pos).all()), "18c test scene: finite")
+    check(res["min"] >= -1.0 - 1e-3 and res["max"] <= 0.8 + 1e-3,
+          f"18c test scene: outside the container {res}")
+    return res
+
+
+def run_collider(device) -> dict:
+    """18c: the mesh collider. First the JAX package's own check on its
+    own scene (collider_test_scene). Then the facade with that container,
+    box(1.8, 1.8, 1.8, origin (-0.1, -0.1, -0.1)) spanning [-1.0, 0.8]^3,
+    as Simulation.create(collider=) wires it (its 36 vertices as frozen
+    boundary particles, the mesh response after the box) around the 64k
+    PCISPH dam break for 10 steps, neighbors="dense" (launch counters
+    reset just before, read just after: the dense kernels run) and then
+    "cellgrid": finite, inside the box, contacts from the start. The
+    facade's dam break lies on the container's walls at -1, so the
+    response pushes its outer layers in by h / 2, one spacing, onto the
+    next: the step then passes the sound speed and particles leave the
+    container for some steps (the JAX facade does the same on the CPU at
+    n3 = 40: |v| up to 2,880, a particle at y = 1.0 at step 8), so the
+    containment there is reported, not required."""
+    import torch
+    from dieselfluid_tpu_torch.config import SimConfig
+    from dieselfluid_tpu_torch.geometry.mesh import box
+    from dieselfluid_tpu_torch.models.sph import Simulation
+
+    out = {"test_scene": collider_test_scene(device)}
+    log("collider_test_scene " + json.dumps(out["test_scene"]))
+    container = box(1.8, 1.8, 1.8, origin=(-0.1, -0.1, -0.1), device=device)
+    for mode in ("dense", "cellgrid"):
+        sim = Simulation.create(SimConfig(n3=COLLIDER_N3, solver="pcisph",
+                                          neighbors=mode), device,
+                                collider=container)
+        check(tuple(sim.state.boundary_pos.shape) == (36, 3),
+              f"18c {mode}: boundary particles")
+        hit, _, _ = container.collide(sim.state.pos, 0.5 * sim.params.h)
+        reset_all_launch_counts()
+        ms, iters = timed_steps(sim, COLLIDER_STEPS)
+        launches = launch_counts()
+        pos = sim.state.pos
+        res = {"n": sim.n(), "contacts_at_start": int(hit.sum()),
+               "ms_per_step": ms, "mean_iters": float(np.mean(iters)),
+               "min": float(pos.min()), "max": float(pos.max()),
+               "outside_container": int(((pos < -1.0 - 1e-3)
+                                         | (pos > 0.8 + 1e-3)).any(1).sum()),
+               "max_v": sim.max_v(), "launches": launches}
+        log(f"collider_{mode}_64k " + json.dumps(res))
+        check(bool(torch.isfinite(pos).all()), f"18c {mode}: finite")
+        check(float(pos.abs().max()) <= 1.0, f"18c {mode}: outside the box")
+        check(res["contacts_at_start"] > 0, f"18c {mode}: no contact")
+        if mode == "dense":
+            for name in ("density", "viscosity", "pressure_pq"):
+                check(launches[name] > 0,
+                      f"18c: kernel {name} was not launched")
+        else:
+            xla_launches_zero("18c cellgrid", launches)
+        out[mode] = res
+    return out
+
+
+def run_cli_default_and_examples(device) -> dict:
+    """18d: the CLI's default invocation (`--steps 20 --out DIR`: the cell
+    grid, WCSPH, n3 = 12, on the card) and its summary line; the dam_break
+    twin for 20 frames; the fit_material twin's descent cut to 4 steps,
+    whose loss must fall."""
+    import shutil
+    from pathlib import Path
+
+    from dieselfluid_tpu_torch.examples import dam_break, fit_material
+    from dieselfluid_tpu_torch.io.native import read_dfc
+
+    out = Path(__file__).resolve().parent / "build" / "chip_smoke_xla"
+    shutil.rmtree(out, ignore_errors=True)
+    try:
+        summary, lines, wall = cli_main(["--steps", "20", "--out",
+                                         str(out / "cli")], "default")
+        check("wcsph/cellgrid on cuda" in lines[0],
+              f"cli default: {lines[0]}")
+        check(summary["particles"] == 12 ** 3 and summary["overflow"] == 0
+              and summary["recoveries"] == 0
+              and np.isfinite(summary["max_vel"]),
+              f"cli default: unhealthy summary {summary}")
+        import contextlib
+        import io
+
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = dam_break.main(["--frames", "20", "--out",
+                                 str(out / "dam_break")])
+        db_wall = time.perf_counter() - t0
+        for line in buf.getvalue().strip().splitlines():
+            log(f"  dam_break: {line}")
+        traj = read_dfc(str(out / "dam_break" / "dam_break.dfc"))
+        check(rc == 0 and tuple(traj.shape) == (4, 4096, 3)
+              and bool(np.isfinite(traj).all()),
+              f"dam_break twin: rc {rc}, .dfc {traj.shape}")
+        t0 = time.perf_counter()
+        history, mu = fit_material.fit(
+            device, iters=4, log=lambda m: log(f"  fit_material: {m}"))
+        fit_wall = time.perf_counter() - t0
+        losses = [h[0] for h in history]
+        res = {"cli_summary": summary, "cli_process_wall_s": wall,
+               "dam_break_wall_s": db_wall, "fit_losses": losses,
+               "fit_mu": mu, "fit_wall_s": fit_wall}
+        log("cli_default_and_examples " + json.dumps(res))
+        check(losses[-1] < losses[0] and mu > fit_material.MU_START,
+              f"fit_material twin: the loss did not fall {losses}")
+        return res
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def check_xla_cpu(device) -> dict:
+    """18e: the card against the CPU from the same numpy state, the n3 = 12
+    dam break on its lattice and jittered by 0.1 dx with N(0, 0.5^2)
+    velocities: the cell-grid and brute-force tables (idx and mask
+    identical), the squared distances' roots (torch.sqrt on the card
+    bitwise the CPU's correctly rounded sqrt_rn), one pcisph_step and one
+    wcsph_step (positions, velocities, densities; XLA_CARD_REL_TOL), and
+    the gradients of sum(next.pos * w)
+    to mu, d0 and the positions through pcisph_step(unroll_for_grad=True,
+    materials=) (XLA_CARD_GRAD_REL_TOL)."""
+    import torch
+    from dieselfluid_tpu_torch.config import FluidParams
+    from dieselfluid_tpu_torch.mathx.polar import sqrt_rn
+    from dieselfluid_tpu_torch.models.materials import Materials
+    from dieselfluid_tpu_torch.models.particles import dam_break_state
+    from dieselfluid_tpu_torch.neighbors.bruteforce import (
+        brute_force_neighborhood)
+    from dieselfluid_tpu_torch.neighbors.calibrate import lattice_rest_density
+    from dieselfluid_tpu_torch.neighbors.cellgrid import (
+        CellGridSpec, cell_grid_neighborhood)
+    from dieselfluid_tpu_torch.solvers.pcisph import (compute_pci_delta,
+                                                      pcisph_step)
+    from dieselfluid_tpu_torch.solvers.wcsph import wcsph_step
+
+    cpu = torch.device("cpu")
+    n3 = CARD_CPU_N3
+    dx = (2.0 / n3) * EXTENT
+    params = lattice_rest_density(dx, FluidParams.for_spacing(dx))
+    delta = compute_pci_delta(params, dx)
+    spec = CellGridSpec.for_domain((-1,) * 3, (1,) * 3, params.h, 32)
+    base = dam_break_state(n3, params, cpu, extent=EXTENT)
+    rng = np.random.default_rng(12)
+    lattice = base.pos.numpy()
+    jittered = (lattice + rng.normal(size=lattice.shape) * 0.1 * dx).astype(
+        np.float32)
+    vel = (rng.normal(size=lattice.shape) * 0.5).astype(np.float32)
+    res = {}
+
+    tables_equal = True
+    for kind, p in (("lattice", lattice), ("jitter", jittered)):
+        pc = torch.from_numpy(p.copy())
+        pg = pc.to(device)
+        d2 = ((pc[:, None, :] - pc[None, :, :]) ** 2).sum(-1)
+        roots_equal = torch.equal(torch.sqrt(d2.to(device)).cpu(),
+                                  sqrt_rn(d2))
+        res[f"{kind}_sqrt_bitwise"] = roots_equal
+        check(roots_equal, f"18e {kind}: torch.sqrt on the card is not the "
+              "correctly rounded root")
+        del d2
+        for name, fn in (
+                ("cellgrid", lambda q: cell_grid_neighborhood(
+                    q, q, params.h, 128, spec)),
+                ("bruteforce", lambda q: brute_force_neighborhood(
+                    q, q, params.h, 64))):
+            a, b = fn(pc), fn(pg)
+            same = (torch.equal(a.idx, b.idx.cpu())
+                    and torch.equal(a.mask, b.mask.cpu()))
+            res[f"{kind}_{name}_tables_equal"] = same
+            res[f"{kind}_{name}_max_count"] = int(a.mask.sum(1).max())
+            tables_equal &= same
+    check(tables_equal, f"18e: card and CPU neighbor tables differ {res}")
+
+    def state_on(dev):
+        return base._replace(pos=torch.from_numpy(jittered.copy()).to(dev),
+                             vel=torch.from_numpy(vel.copy()).to(dev),
+                             force=base.force.to(dev),
+                             density=base.density.to(dev),
+                             pressure=base.pressure.to(dev))
+
+    def nfn(q):
+        return cell_grid_neighborhood(q, q, params.h, 128, spec)
+
+    rel = {}
+    for solver in ("pcisph", "wcsph"):
+        outs = []
+        for dev in (device, cpu):
+            s = state_on(dev)
+            if solver == "pcisph":
+                nxt, d = pcisph_step(s, params, delta, neighbor_fn=nfn)
+                res["pcisph_iters"] = res.get("pcisph_iters", []) + [d.iters]
+            else:
+                nxt, _ = wcsph_step(s, params, neighbor_fn=nfn)
+            outs.append(nxt)
+        for f in XLA_CARD_REL_TOL:
+            c = getattr(outs[1], f).double()
+            g = getattr(outs[0], f).cpu().double()
+            rel[f"{solver}_{f}"] = float((g - c).abs().max()
+                                         / c.abs().max().clamp_min(1e-30))
+    res["step_rel"] = rel
+    w = torch.from_numpy(rng.normal(size=lattice.shape).astype(np.float32))
+    grads = []
+    for dev in (device, cpu):
+        s = state_on(dev)
+        pos = s.pos.clone().requires_grad_(True)
+        mats = Materials.from_params(params, dev, requires_grad=True)
+        nxt, _ = pcisph_step(s._replace(pos=pos), params, delta,
+                             neighbor_fn=nfn, unroll_for_grad=True,
+                             materials=mats)
+        loss = torch.sum(nxt.pos * w.to(dev))
+        grads.append([g.detach().cpu().double() for g in torch.autograd.grad(
+            loss, [mats.mu, mats.d0, pos])])
+    grel = {name: float((g - c).abs().max() / c.abs().max())
+            for name, g, c in zip(("mu", "d0", "pos"), *grads)}
+    res["grad_rel"] = grel
+    log("xla_card_vs_cpu_n12 " + json.dumps(res)
+        + f" tol={XLA_CARD_REL_TOL} grad_tol={XLA_CARD_GRAD_REL_TOL!r}")
+    check(res["pcisph_iters"][0] == res["pcisph_iters"][1],
+          f"18e: PCISPH iterations differ {res['pcisph_iters']}")
+    for solver in ("pcisph", "wcsph"):
+        for f, tol in XLA_CARD_REL_TOL.items():
+            check(rel[f"{solver}_{f}"] <= tol,
+                  f"18e {solver} {f}: card and CPU differ {rel}")
+    check(all(v <= XLA_CARD_GRAD_REL_TOL for v in grel.values()),
+          f"18e: card and CPU gradients differ {grel}")
+    return res
+
+
 def kernel_body(kern) -> str:
     """The kernel body a kernels-line row's launches run, with its CTAs per
     SM on this card (a sweep at the bench's capacity), from the libraries'
@@ -2046,12 +2463,22 @@ def main() -> int:
     skip = run_column_skip(params, state, spec, delta, sync)
     cli_run = run_cli(device)
     cli_sky = run_cli_sky_gltf(device)
+
+    # Phase 18, after every earlier phase: the fixed-degree neighbor
+    # solvers (plain torch), the mesh collider, the CLI's default and the
+    # example twins, the card against the CPU.
+    run_xla_pcisph(device)
+    run_xla_wcsph(device)
+    collider = run_collider(device)
+    run_cli_default_and_examples(device)
+    check_xla_cpu(device)
     check(not jax_package_modules(),
           f"the JAX package was imported: {jax_package_modules()}")
 
     kernels = []
     main_paths = (serving, training, sr["launches"], comp["launches"],
-                  skip["launches"], cli_run["launches"], cli_sky["launches"])
+                  skip["launches"], cli_run["launches"], cli_sky["launches"],
+                  collider["dense"]["launches"])
     for kern, source in ([(k, sw.SOURCE) for k in sw.SWEEPS]
                          + [(k, st.SOURCE) for k in st.KERNELS]):
         ms, plain_ms, kms = times[kern.name]

@@ -10,13 +10,15 @@ module paths so each counterpart is found by name:
                           sweeps as autograd Functions (CUDA kernels + plain torch)
   csrc/sph_sweep.cu       the hand-written sm_90a sweep kernel
   csrc/splat_raster.cu    the hand-written sm_90a tile rasterizer, forward and backward
-  geometry/grid.py        lattice grids
+  geometry/               lattice grids, triangles, meshes and the mesh collider, octree paths
   models/materials.py     Materials: traced material parameters (0-d tensors)
-  models/particles.py     FluidState and the dam-break initial state
-  models/sph.py           Simulation facade (neighbors="dense", column_skip included)
-  neighbors/calibrate.py  analytic lattice rest density
-  solvers/                integrator, PCISPH delta, per-step and plane-resident dense solvers
-  mathx/                  quaternions, 4x4 transforms, spherical coordinates (polar.py)
+  models/particles.py     FluidState, the dam-break initial state, AoS views
+  models/field.py         SPH field operators over fixed-degree neighborhoods
+  models/sph.py           Simulation facade (neighbors "cellgrid", "bruteforce", "dense")
+  neighbors/              brute force, the sorted cell grid, LSH, rest-density calibration
+  solvers/                integrator, WCSPH and PCISPH on neighbor lists (with the
+                          reference-parity steps), per-step and plane-resident dense solvers
+  mathx/                  quaternions, 4x4 transforms, spherical coordinates, rays
   render/camera.py        pinhole Camera
   render/splat.py         eager scatter splat renderer (the tiled path's oracle)
   render/splat_tiled.py   tile binning and the tile rasterizer as an autograd Function
@@ -29,9 +31,12 @@ module paths so each counterpart is found by name:
   render/composite.py     fluid splats depth-composited over the ray-traced scene
   sky/                    the atmosphere's single-scattering sky and its cubemap bake
   interop.py              numpy <-> torch state, config, materials and scene arrays
-  io/                     checkpoints (torch.save), npz/PLY/DFC export, the native framepack writer
-  utils/guard.py          health checks, rollback and dt backoff (GuardedRunner)
+  io/                     checkpoints (torch.save), npz/PLY/DFC export, the native framepack
+                          writer, 1D sample-set JSON
+  utils/                  health checks, rollback and dt backoff (GuardedRunner), step
+                          timers and traces, the simulation logger
   app/cli.py, serve.py    the batch CLI (python -m dieselfluid_tpu_torch.app.cli) and the viewer server
+  examples/               twins of examples/dam_break.py and examples/fit_material.py
 
 Every tensor is float32 (slot indices int64) and every state constructor takes
 an explicit `device=`. The package imports `torch` and never `jax`.

@@ -8,10 +8,11 @@ Usage:
       --stream dfc --viewer --out out
 
 Runs on the CUDA card unless `--cpu` is given; without a card it raises
-(it never falls back to the CPU). Only the dense neighbor mode is ported
-(`--neighbors cellgrid|bruteforce` raise, ROADMAP A10). `--render` draws
-the eager splat renderer, lit by the baked sky with `--sky`, and composited
-over a ray-traced glTF scene with `--gltf`. The last
+(it never falls back to the CPU). `--neighbors cellgrid` (the default) and
+`bruteforce` run the fixed-degree neighbor solvers, `dense` the dense-cell
+solvers and their kernels. `--render` draws the eager splat renderer, lit
+by the baked sky with `--sky`, and composited over a ray-traced glTF scene
+with `--gltf`. The last
 line of standard output is a JSON summary: steps, particles, wall_s,
 particle_steps_per_s, max_vel, overflow, recoveries, outputs.
 """
@@ -32,8 +33,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--solver", choices=["wcsph", "pcisph"], default="wcsph")
     p.add_argument("--neighbors", choices=["cellgrid", "bruteforce", "dense"],
                    default="cellgrid",
-                   help="'dense' = the dense-cell path (the only one ported: "
-                        "the others raise, ROADMAP A10)")
+                   help="'dense' = the dense-cell path and its kernels")
     p.add_argument("--steps", type=int, default=200)
     p.add_argument("--extent", type=float, default=0.5,
                    help="dam-break column extent")
@@ -121,15 +121,6 @@ def _poll_control(path, state_cache):
         time.sleep(0.2)
 
 
-def _not_ported(args):
-    """Options of the JAX CLI this port does not run yet: raise before any
-    stepping."""
-    if args.neighbors != "dense":
-        raise NotImplementedError(
-            f"--neighbors {args.neighbors} is not ported yet (ROADMAP A10); "
-            "use --neighbors dense")
-
-
 def _frame_renderer(args, sim, cam, device):
     """pos -> (H, W, 3) frame: the eager splat render, lit by the baked sky
     cubemap with --sky, composited over the ray-traced glTF scene (its
@@ -166,7 +157,6 @@ def _frame_renderer(args, sim, cam, device):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    _not_ported(args)
 
     import torch
 

@@ -27,6 +27,15 @@ class Grid:
         return (2.0 * np.asarray(self.scale, np.float32)
                 / np.asarray(self.div, np.float32))
 
+    def volume(self) -> float:
+        """(2 sx)(2 sy)(2 sz) (ref: Grid.Volume)."""
+        sc = np.asarray(self.scale, np.float32)
+        return float(8.0 * sc[0] * sc[1] * sc[2])
+
+    def index(self, i, j, k) -> int:
+        """3D -> 1D flattening k + Div0 (i Div1 + j) (ref: Grid.Index)."""
+        return k + self.div[0] * (i * self.div[1] + j)
+
     def positions(self, device) -> torch.Tensor:
         """All lattice positions as (prod(div), 3) float32 on `device`,
         ordered (i, j, k) with k fastest, like the JAX Grid."""

@@ -7,7 +7,8 @@ give them back, so one numpy state feeds both packages and a JAX
 DensePlaneState resumes in the port. Static configs (FluidParams, SimConfig,
 DenseCellSpec) are rebuilt field for field from any object with the same
 fields, a camera from its transform and scalars, PBR materials and a
-scene's render arrays from numpy leaves. Nothing here imports JAX: a JAX state is converted with `np.asarray`
+scene's render arrays from numpy leaves, a neighbor table, a mesh and LSH
+hyperplanes from theirs. Nothing here imports JAX: a JAX state is converted with `np.asarray`
 on the caller's side.
 """
 
@@ -20,8 +21,10 @@ import numpy as np
 import torch
 
 from dieselfluid_tpu_torch.config import FluidParams, SimConfig
+from dieselfluid_tpu_torch.geometry.mesh import Mesh
 from dieselfluid_tpu_torch.models.materials import Materials
 from dieselfluid_tpu_torch.models.particles import FluidState
+from dieselfluid_tpu_torch.neighbors.types import Neighborhood
 from dieselfluid_tpu_torch.ops.cellops import DenseCellSpec
 from dieselfluid_tpu_torch.render.camera import Camera
 from dieselfluid_tpu_torch.render.pbr import PBRMaterial
@@ -167,3 +170,26 @@ def scene_arrays_from_numpy(tris, tri_normals, tri_materials, tri_uvs=None,
             "textures": _opt_f32(textures, device),
             "mat_base_tex": idx(mat_base_tex),
             "mat_normal_tex": idx(mat_normal_tex)}
+
+
+def neighborhood_from_numpy(idx, mask, *, device) -> Neighborhood:
+    """A Neighborhood on `device` from numpy-convertible (N, K) slot
+    indices (int64) and mask (float32): a JAX Neighborhood's fields through
+    `np.asarray`."""
+    return Neighborhood(
+        idx=torch.from_numpy(np.array(idx, dtype=np.int64)).to(device),
+        mask=_f32(mask, device))
+
+
+def mesh_from_numpy(tris, normals, *, device) -> Mesh:
+    """A Mesh on `device` from numpy-convertible (T, 3, 3) triangles and
+    (T, 3) normals (a JAX Mesh's fields through `np.asarray`), taken as
+    they are (no re-orientation)."""
+    return Mesh(tris=_f32(tris, device), normals=_f32(normals, device))
+
+
+def lsh_vectors_from_numpy(vectors, *, device) -> torch.Tensor:
+    """(hash_bits, 3) float32 LSH hyperplanes on `device` from numpy (the
+    JAX package's `hash_vectors(key, spec)` through `np.asarray`, whose
+    jax.random bits the port cannot draw)."""
+    return _f32(vectors, device).reshape(-1, 3)

@@ -1,3 +1,4 @@
 """Persistence: checkpoint/resume (`checkpoint`), animation export
-(`animation`) and the native framepack writer (`native`). Import the
-submodules themselves; this package imports nothing at load."""
+(`animation`), the native framepack writer (`native`) and 1D sample-set
+JSON (`sampler_json`). Import the submodules themselves; this package
+imports nothing at load."""

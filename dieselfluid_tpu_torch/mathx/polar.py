@@ -26,6 +26,21 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).to(x.dtype)
 
 
+def sqrt_cr(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root on any device: torch.sqrt
+    on CUDA tensors (the card's IEEE sqrtf), `sqrt_rn` on the CPU's. The
+    neighbor searches keep or drop a lattice pair at r = h on this last
+    bit, so they take it wherever they run."""
+    return torch.sqrt(x) if x.is_cuda else sqrt_rn(x)
+
+
+def norm_cr(v: torch.Tensor, dim: int = -1,
+            keepdim: bool = False) -> torch.Tensor:
+    """sqrt(sum(v * v)) with the root correctly rounded on any device
+    (`sqrt_cr`)."""
+    return sqrt_cr(torch.sum(v * v, dim=dim, keepdim=keepdim))
+
+
 def norm_rn(v: torch.Tensor, dim: int = -1,
             keepdim: bool = False) -> torch.Tensor:
     """sqrt(sum(v * v)) with the sum in index order and the root correctly

@@ -1,8 +1,8 @@
 """Quaternions as (..., 4) [w, x, y, z] float32 tensors.
 
-Counterpart of dieselfluid_tpu/mathx/quaternion.py, reduced to what the
-camera needs: `from_axis_angle`, `from_euler` and `rot_mat` (with `norm` and
-`unit` under them). Python numbers become float32 tensors on `device`.
+Counterpart of dieselfluid_tpu/mathx/quaternion.py (ref:
+math/quaternion/quaternion.go), any leading batch shape, differentiable.
+Python numbers become float32 tensors on `device`.
 """
 
 from __future__ import annotations
@@ -14,12 +14,83 @@ def _f32(x, device=None) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
+def quat(w, x, y, z, *, device=None) -> torch.Tensor:
+    """[w, x, y, z] stacked on a last axis."""
+    return torch.stack([_f32(c, device) for c in (w, x, y, z)], dim=-1)
+
+
+def pure(x, y, z, *, device=None) -> torch.Tensor:
+    """Pure quaternion, no scalar part (ref: quaternion.go Pure)."""
+    x = _f32(x, device)
+    return quat(torch.zeros_like(x), x, y, z, device=x.device)
+
+
+def scalar(w, *, device=None) -> torch.Tensor:
+    w = _f32(w, device)
+    z = torch.zeros_like(w)
+    return quat(w, z, z, z, device=w.device)
+
+
+def conj(q: torch.Tensor) -> torch.Tensor:
+    """(w, x, y, z) -> (w, -x, -y, -z) (ref: quaternion.go Conj)."""
+    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+
+
+def neg(q: torch.Tensor) -> torch.Tensor:
+    return -q
+
+
+def norm2(q: torch.Tensor) -> torch.Tensor:
+    return torch.sum(q * q, dim=-1)
+
+
 def norm(q: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.sum(q * q, dim=-1))
+    return torch.sqrt(norm2(q))
+
+
+def add(*qs: torch.Tensor) -> torch.Tensor:
+    """Sum, left to right (ref: quaternion.go Sum)."""
+    out = qs[0]
+    for q in qs[1:]:
+        out = out + q
+    return out
+
+
+def prod(*qs: torch.Tensor) -> torch.Tensor:
+    """Hamilton product, left to right (ref: quaternion.go Prod)."""
+    out = qs[0]
+    for q in qs[1:]:
+        w1, x1, y1, z1 = torch.unbind(out, dim=-1)
+        w2, x2, y2, z2 = torch.unbind(q, dim=-1)
+        out = torch.stack([
+            w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+            w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+            w1 * y2 + y1 * w2 + z1 * x2 - x1 * z2,
+            w1 * z2 + z1 * w2 + x1 * y2 - y1 * x2,
+        ], dim=-1)
+    return out
 
 
 def unit(q: torch.Tensor) -> torch.Tensor:
     return q / norm(q)[..., None]
+
+
+def inverse(q: torch.Tensor) -> torch.Tensor:
+    """The conjugate over the squared norm, so q q^-1 = 1 (ref:
+    quaternion.go Inv)."""
+    return conj(q) / norm2(q)[..., None]
+
+
+def to_euler(q: torch.Tensor):
+    """(phi, theta, psi), aerospace XYZ convention (ref: quaternion.go
+    Euler)."""
+    w, x, y, z = torch.unbind(unit(q), dim=-1)
+    phi = torch.atan2(2 * (w * x + y * z), 1 - 2 * (x * x + y * y))
+    s = 2 * (w * y - z * x)
+    theta = torch.asin(torch.minimum(torch.maximum(s, s.new_tensor(-1.0)),
+                                     s.new_tensor(1.0)))
+    psi = torch.atan2(2 * (x * y + w * z), 1 - 2 * (y * y + z * z))
+    return phi, theta, psi
 
 
 def from_euler(phi, theta, psi, *, device=None) -> torch.Tensor:
@@ -48,6 +119,11 @@ def rot_mat(q: torch.Tensor) -> torch.Tensor:
     row2 = torch.stack([2 * (z * x - w * y), 2 * (w * x + z * y),
                         1 - 2 * (x * x + y * y)], -1)
     return torch.stack([row0, row1, row2], dim=-2)
+
+
+def rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate (..., 3) vectors by quaternions: q v q^-1."""
+    return torch.einsum("...ij,...j->...i", rot_mat(q), v)
 
 
 def from_axis_angle(axis, angle, *, device=None) -> torch.Tensor:

@@ -29,6 +29,18 @@ class FluidState(NamedTuple):
     def n(self) -> int:
         return self.pos.shape[0]
 
+    @property
+    def total(self) -> int:
+        """Live + boundary count (ref: ParticleArray.Total)."""
+        m = 0 if self.boundary_pos is None else self.boundary_pos.shape[0]
+        return self.n + m
+
+    def all_positions(self) -> torch.Tensor:
+        """Positions of live then boundary particles, (total, 3)."""
+        if self.boundary_pos is None:
+            return self.pos
+        return torch.cat([self.pos, self.boundary_pos], dim=0)
+
 
 def gravity_force(params: FluidParams, n: int, device,
                   mass=None) -> torch.Tensor:
@@ -37,6 +49,16 @@ def gravity_force(params: FluidParams, n: int, device,
     g = torch.tensor(params.gravity, dtype=torch.float32, device=device)
     m = params.mass if mass is None else mass
     return (g * m).expand(n, 3).contiguous()
+
+
+def zero_state(n: int, boundary_pos: Optional[torch.Tensor] = None, *,
+               device) -> FluidState:
+    """n particles with every field zero, on `device`."""
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+
+    return FluidState(pos=z(n, 3), vel=z(n, 3), force=z(n, 3),
+                      density=z(n), pressure=z(n), boundary_pos=boundary_pos)
 
 
 def init_lattice_state(n3: int, params: FluidParams, device,
@@ -65,3 +87,43 @@ def dam_break_state(n3: int, params: FluidParams, device,
     lo = torch.tensor([-1.0, -1.0, -1.0], dtype=torch.float32, device=device)
     pos = lo + (base.pos - lo) * extent
     return base._replace(pos=pos)
+
+
+def to_aos(state: FluidState) -> torch.Tensor:
+    """SoA -> AoS (N, 11) rows of [pos vel force density pressure] (ref:
+    model/particle.go Particle, model/particle_array.go:72-96 Get)."""
+    return torch.cat([state.pos, state.vel, state.force,
+                      state.density[:, None], state.pressure[:, None]],
+                     dim=-1)
+
+
+def from_aos(aos: torch.Tensor,
+             boundary_pos: Optional[torch.Tensor] = None) -> FluidState:
+    """AoS (N, 11) -> FluidState (ref: model/particle_array.go:98-121
+    Set)."""
+    return FluidState(pos=aos[:, 0:3], vel=aos[:, 3:6], force=aos[:, 6:9],
+                      density=aos[:, 9], pressure=aos[:, 10],
+                      boundary_pos=boundary_pos)
+
+
+def particle(state: FluidState, i: int) -> torch.Tensor:
+    """One AoS row by global index over [fluid | boundary]: a boundary
+    index (i >= n) gives its position with zeroed dynamics (ref:
+    model/particle_array.go:98-105)."""
+    n = state.n
+    fluid_row = to_aos(state)[min(i, n - 1)]
+    if state.boundary_pos is None or i < n:
+        return fluid_row
+    b = state.boundary_pos[min(max(i - n, 0),
+                               state.boundary_pos.shape[0] - 1)]
+    return torch.cat([b, b.new_zeros(8)])
+
+
+def tree_stack(states):
+    """Stack a list of states along a leading time axis (boundary_pos
+    too, when the states carry it)."""
+    first = states[0]
+    return FluidState(*[
+        None if getattr(first, f) is None
+        else torch.stack([getattr(s, f) for s in states])
+        for f in FluidState._fields])

@@ -1,10 +1,11 @@
 """The SPH system facade: configuration -> ready-to-run simulation.
 
-Counterpart of dieselfluid_tpu/models/sph.py for `neighbors="dense"`: binds a
-SimConfig to params, the dam-break (or lattice) initial state on an explicit
-device, and the per-step dense solver. The "cellgrid"/"bruteforce" neighbor
-modes are not ported yet (ROADMAP A10); `collider=` needs geometry/mesh.py
-(ROADMAP A10).
+Counterpart of dieselfluid_tpu/models/sph.py: binds a SimConfig to params,
+the dam-break (or lattice) initial state on an explicit device, and the
+step of its neighbor mode: "dense" (the dense-cell solvers and their
+kernels), "cellgrid" or "bruteforce" (the fixed-degree neighbor solvers,
+plain torch). `collider=` (geometry.mesh.Mesh) adds its boundary particles
+to the state and its collision response to every step.
 """
 
 from __future__ import annotations
@@ -20,33 +21,56 @@ from dieselfluid_tpu_torch.models.particles import (
     dam_break_state,
     init_lattice_state,
 )
+from dieselfluid_tpu_torch.neighbors.bruteforce import (
+    brute_force_neighborhood)
 from dieselfluid_tpu_torch.neighbors.calibrate import lattice_rest_density
+from dieselfluid_tpu_torch.neighbors.cellgrid import (
+    CellGridSpec,
+    cell_grid_neighborhood,
+)
 from dieselfluid_tpu_torch.ops.cellops import DenseCellSpec
 from dieselfluid_tpu_torch.solvers.dense_step import (
     dense_pcisph_step,
     dense_wcsph_step,
 )
 from dieselfluid_tpu_torch.solvers.integrate import StepDiagnostics
-from dieselfluid_tpu_torch.solvers.pcisph import compute_pci_delta
+from dieselfluid_tpu_torch.solvers.pcisph import (
+    compute_pci_delta,
+    pcisph_step,
+)
+from dieselfluid_tpu_torch.solvers.wcsph import wcsph_step
 
 
 def build_step_fn(config: SimConfig, params: FluidParams,
                   delta: float = 0.0, collider=None) -> Callable:
     """step_fn(state) -> (state, diag) for a config/params binding."""
-    if config.neighbors != "dense":
-        raise NotImplementedError(
-            f"neighbors={config.neighbors!r} is not ported yet (ROADMAP A10); "
-            "use neighbors='dense'")
-    if collider is not None:
-        raise NotImplementedError(
-            "collider= needs geometry/mesh.py, not ported yet: ROADMAP A10")
-    dspec = DenseCellSpec.for_domain((-1, -1, -1), (1, 1, 1), params.h,
-                                     capacity=config.cell_capacity)
+    if config.neighbors == "dense":
+        dspec = DenseCellSpec.for_domain((-1, -1, -1), (1, 1, 1), params.h,
+                                         capacity=config.cell_capacity)
+        if config.solver == "pcisph":
+            return lambda s: dense_pcisph_step(
+                s, params, dspec, delta, collider=collider,
+                warm_start=config.warm_start, column_skip=config.column_skip)
+        return lambda s: dense_wcsph_step(s, params, dspec, collider=collider)
+
+    if config.neighbors == "cellgrid":
+        spec = CellGridSpec.for_domain((-1, -1, -1), (1, 1, 1), params.h,
+                                       capacity=config.cell_capacity)
+
+        def nfn(pos):
+            return cell_grid_neighborhood(pos, pos, params.h,
+                                          config.max_neighbors, spec)
+    elif config.neighbors == "bruteforce":
+        def nfn(pos):
+            return brute_force_neighborhood(pos, pos, params.h,
+                                            config.max_neighbors)
+    else:
+        raise ValueError(f"unknown neighbors mode {config.neighbors!r}")
     if config.solver == "pcisph":
-        return lambda s: dense_pcisph_step(s, params, dspec, delta,
-                                           warm_start=config.warm_start,
-                                           column_skip=config.column_skip)
-    return lambda s: dense_wcsph_step(s, params, dspec)
+        return lambda s: pcisph_step(s, params, delta, neighbor_fn=nfn,
+                                     collider=collider,
+                                     warm_start=config.warm_start)
+    return lambda s: wcsph_step(s, params, neighbor_fn=nfn, collider=collider)
 
 
 @dataclasses.dataclass
@@ -64,8 +88,13 @@ class Simulation:
 
     @staticmethod
     def create(config: SimConfig, device, extent: float = 0.5,
-               scene: str = "dam_break", collider=None) -> "Simulation":
-        """Build params, the initial state on `device` and the step."""
+               scene: str = "dam_break", collider=None,
+               boundary_density: float = 1.0) -> "Simulation":
+        """Build params, the initial state on `device` and the step.
+        `collider` (geometry.mesh.Mesh, on `device`) is wired in twice: its
+        boundary particles (`generate_boundary_particles(
+        boundary_density)`) join the solve as frozen fluid, and its
+        triangles run the collision response every frame."""
         n3 = config.n3
         dx = (2.0 / n3) * extent
         params = FluidParams.for_spacing(dx)
@@ -74,6 +103,10 @@ class Simulation:
         else:
             state = init_lattice_state(n3, params, device)
         params = lattice_rest_density(dx, params)
+        if collider is not None:
+            state = state._replace(
+                boundary_pos=collider.generate_boundary_particles(
+                    boundary_density))
         delta = 0.0
         if config.solver == "pcisph":
             delta = compute_pci_delta(params, dx)

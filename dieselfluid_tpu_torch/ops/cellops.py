@@ -153,6 +153,35 @@ def build_planes(values: Dict[str, torch.Tensor], flat: torch.Tensor,
     return out
 
 
+def slot_particle_map(flat: torch.Tensor, valid: torch.Tensor,
+                      spec: DenseCellSpec) -> torch.Tensor:
+    """Inverse binning: the particle index of each slot (int64, -1 = empty).
+    Invalid particles park at slot 0, a ghost-ring slot, where the max can
+    never shadow a real particle. For diagnostics and tests: building
+    planes by gathering through this map is much slower than the scatter of
+    `build_planes` (34x on the JAX package's TPU at 1M)."""
+    safe = torch.where(valid, flat, 0)
+    idx = torch.arange(flat.shape[0], dtype=torch.int64, device=flat.device)
+    smap = torch.full((spec.size,), -1, dtype=torch.int64,
+                      device=flat.device)
+    return smap.scatter_reduce_(0, safe, torch.where(valid, idx, -1),
+                                reduce="amax")
+
+
+def build_planes_from_map(values: Dict[str, torch.Tensor],
+                          smap: torch.Tensor,
+                          spec: DenseCellSpec) -> Dict[str, torch.Tensor]:
+    """Dense planes (plus 'mask') from per-particle channels through the
+    slot map: `build_planes` by gathers."""
+    occupied = smap >= 0
+    src = torch.where(occupied, smap, 0)
+    out = {"mask": occupied.to(torch.float32).view(spec.plane_shape)}
+    for name, v in values.items():
+        out[name] = torch.where(occupied, v[src].to(torch.float32),
+                                0.0).view(spec.plane_shape)
+    return out
+
+
 def gather_plane(plane: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
     """Per-particle values read back out of a dense plane."""
     return plane.reshape(-1)[flat]

@@ -43,6 +43,11 @@ def w_poly6(r: torch.Tensor, k: KernelCoeffs) -> torch.Tensor:
     return torch.where(r < k.h, k.a * q * q, 0.0)
 
 
+def w0(k: KernelCoeffs) -> float:
+    """W(0), the self contribution (ref: kernel/std_kernel.go W0())."""
+    return k.a
+
+
 def dw_spiky(r: torch.Tensor, k: KernelCoeffs) -> torch.Tensor:
     """First radial derivative dW/dr = B (1 - r/h)^2 (negative) for r < h."""
     q = 1.0 - r / k.h
@@ -71,3 +76,9 @@ def tait_eos(density: torch.Tensor, d0, p0=0.0, gamma=7.16, w=2.15):
     x = torch.maximum(density, torch.as_tensor(d0, dtype=density.dtype,
                                                device=density.device))
     return (w / gamma) * (torch.pow(x / d0, gamma) - 1.0) + p0
+
+
+def eos_gamma(density: torch.Tensor, c0, d0, gamma, p0) -> torch.Tensor:
+    """The general Tait form without the clamp:
+    (c0/gamma) ((rho/d0)^gamma - 1) + p0 (ref: model/model.go EosGamma)."""
+    return (c0 / gamma) * (torch.pow(density / d0, gamma) - 1.0) + p0

@@ -676,7 +676,8 @@ class _SweepFunction(torch.autograd.Function):
             raise NotImplementedError(
                 f"the {sweep.name} sweep ({sweep.replaces}) has no backward "
                 "sweep: pressure_force_pq_planes and the active-gated sweeps "
-                "are forward-only in the JAX package too (ROADMAP B4, B11); "
+                "are forward-only in the JAX package too (no custom VJP: "
+                "dieselfluid_tpu/ops/pallas_sph.py:825, :855, :862); "
                 "differentiate through materials= / unroll_for_grad=True, "
                 "which use the factored ungated sweeps")
         names = sweep.in_names

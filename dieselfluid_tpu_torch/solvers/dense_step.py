@@ -23,8 +23,9 @@ kernels on CUDA and as their plain adjoints on the CPU.
 
 `column_skip=True` runs the convergence-gated correction loop
 (`pcisph_skip_loop`, the JAX `skip_loop`) on the active-gated sweeps (K10):
-forward only, as in the JAX package. Not ported (raises
-NotImplementedError): `collider=` (geometry/mesh.py, ROADMAP A10).
+forward only, as in the JAX package. `collider=` (geometry.mesh.Mesh)
+runs its collision response after the box, as the fixed-degree solvers
+do.
 """
 
 from __future__ import annotations
@@ -57,17 +58,11 @@ from dieselfluid_tpu_torch.ops.sph_sweep import (
 )
 from dieselfluid_tpu_torch.solvers.integrate import (
     StepDiagnostics,
-    box_collide,
+    collide,
     semi_implicit_euler,
 )
 
 _BOX = ((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0))
-
-
-def _not_ported(collider=None):
-    if collider is not None:
-        raise NotImplementedError(
-            "collider= needs geometry/mesh.py, not ported yet: ROADMAP A10")
 
 
 def _rematerialize(device) -> bool:
@@ -153,7 +148,6 @@ def dense_wcsph_step(state: FluidState, params: FluidParams,
     dropped for cell capacity (nonzero: raise the spec's capacity).
     `materials` makes the step differentiable in the Materials (and in the
     state) through the factored sweeps."""
-    _not_ported(collider=collider)
     mass = params.mass if materials is None else materials.mass
     rho, pressure, f, overflow = dense_density_forces(state, params, spec,
                                                       materials)
@@ -161,9 +155,7 @@ def dense_wcsph_step(state: FluidState, params: FluidParams,
     state = state._replace(density=rho, pressure=pressure, force=gravity + f)
     state, diag = semi_implicit_euler(state, params, mass=mass)
     diag = diag._replace(overflow=overflow)
-    if bounds is not None:
-        state = box_collide(state, *bounds)
-    return state, diag
+    return collide(state, params, bounds, collider), diag
 
 
 def external_force_planes(visc_planes, params: FluidParams):
@@ -319,7 +311,6 @@ def dense_pcisph_step(state: FluidState, params: FluidParams,
     particle-resident, for exactly `unroll_iters` (default `pci_max_iters`)
     iterations, so the step is differentiable; it ignores `column_skip`, as
     in JAX."""
-    _not_ported(collider)
     mass, mu, d0, _, _ = _material_scalars(params, materials)
     k = KernelCoeffs.build(params.h)
     dev = state.pos.device
@@ -427,6 +418,4 @@ def dense_pcisph_step(state: FluidState, params: FluidParams,
     if warm_start:
         state = state._replace(pressure=pressure)
     diag = diag._replace(overflow=overflow, iters=it)
-    if bounds is not None:
-        state = box_collide(state, *bounds)
-    return state, diag
+    return collide(state, params, bounds, collider), diag

@@ -1,9 +1,9 @@
-"""Time integration and the box container (counterpart of
-dieselfluid_tpu/solvers/integrate.py)."""
+"""Time integration, the box container and the mesh collider's place in a
+step (counterpart of dieselfluid_tpu/solvers/integrate.py)."""
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -61,3 +61,29 @@ def box_collide(state: FluidState, lo=(-1.0, -1.0, -1.0),
     vel = torch.where(hit, -restitution * state.vel, state.vel)
     vel = torch.where(any_hit & ~hit, (1.0 - friction) * vel, vel)
     return state._replace(pos=pos, vel=vel)
+
+
+def collide(state: FluidState, params: FluidParams, bounds, collider
+            ) -> FluidState:
+    """The box (`bounds`, or none), then the mesh collider's response
+    (geometry.mesh.Mesh, or none) at radius h / 2."""
+    if bounds is not None:
+        state = box_collide(state, *bounds)
+    if collider is not None:
+        from dieselfluid_tpu_torch.geometry.mesh import mesh_collide
+
+        state = mesh_collide(state, collider, params.dt, 0.5 * params.h)
+    return state
+
+
+def cfl_dt(params: FluidParams, max_vel: Optional[torch.Tensor] = None, *,
+           device=None) -> torch.Tensor:
+    """The timestep as a 0-d float32 tensor: params.dt (ref:
+    model/sph/fluid.go:111-114), bounded by the CFL condition
+    dt <= 0.4 h / max|v| when max_vel (a tensor, whose device it takes) is
+    given; on `device` otherwise."""
+    if max_vel is None:
+        return torch.tensor(params.dt, dtype=torch.float32, device=device)
+    bound = max_vel.new_tensor(0.4 * params.h) / torch.maximum(
+        max_vel, max_vel.new_tensor(1e-6))
+    return torch.minimum(max_vel.new_tensor(params.dt), bound)

@@ -2,8 +2,8 @@
 
 Same numpy inputs (seeded) through the JAX function and its port; the
 tolerance of each comparison is stated beside it. Also: importing the port
-pulls in no JAX, the interop round trip, and the entry points that raise
-NotImplementedError for what this slice does not port.
+pulls in no JAX, the interop round trip, the options that raised before
+their port and now run, and the forward-only sweeps' backward raise.
 """
 
 import subprocess
@@ -226,20 +226,25 @@ def test_import_pulls_in_no_jax():
 
 
 def test_unported_options_raise():
+    """The options that raised before their port (ROADMAP A10) now run:
+    Simulation.create with the cell-grid and brute-force neighbor modes
+    steps, and dense_pcisph_step takes a mesh collider."""
+    from dieselfluid_tpu_torch.geometry.mesh import box
     from dieselfluid_tpu_torch.models.sph import Simulation
     from dieselfluid_tpu_torch.ops.cellops import DenseCellSpec
     from dieselfluid_tpu_torch.solvers import dense_step
 
     for nb in ("cellgrid", "bruteforce"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Simulation.create(tconfig.SimConfig(n3=4, neighbors=nb),
-                              device="cpu")
+        sim = Simulation.create(tconfig.SimConfig(n3=4, neighbors=nb),
+                                device="cpu")
+        sim.step(1)
+        assert torch.isfinite(sim.state.pos).all()
     params = tconfig.FluidParams.for_spacing(0.25)
     s = particles.dam_break_state(4, params, "cpu")
     spec = DenseCellSpec.for_domain((-1,) * 3, (1,) * 3, params.h)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dense_step.dense_pcisph_step(s, params, spec, 1.0,
-                                     collider=object())
+    nxt, _ = dense_step.dense_pcisph_step(
+        s, params, spec, 1.0, collider=box(2.0, 2.0, 2.0, device="cpu"))
+    assert torch.isfinite(nxt.pos).all()
 
 
 def test_column_skip_runs():
@@ -280,7 +285,8 @@ def test_backward_through_forward_only_sweep_raises(sweep):
     rho = sw.density_planes(p, spec, k, params.mass)
     if sweep == "pressure_pq":
         out = sw.pressure_force_pq_planes(p, rho, spec, k, params.mass)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError,
+                           match="forward-only in the JAX package"):
             torch.autograd.grad(out[0].sum(), x)
         return
     mu = params.mu if sweep == "force" else 0.0

@@ -4,8 +4,8 @@
 `--control` file. Its npz/DFC/PLY trajectories equal, bit for bit, the
 port's `Simulation` stepped by hand; its npz agrees with the JAX CLI's
 (interpret-mode Pallas) within the stated tolerance, with and without the
-sky (`--sky`) and the glTF composite (`--gltf`); the options it does not
-port raise naming their ROADMAP item.
+sky (`--sky`) and the glTF composite (`--gltf`), and with the cell-grid and
+brute-force neighbor modes, which raised before their port.
 """
 
 import json
@@ -103,14 +103,54 @@ def test_control_file_quits(tmp_path, capsys):
     assert summary["outputs"] == {}
 
 
+# Port CLI vs JAX CLI with the fixed-degree neighbor modes, positions after
+# each of two steps, max |diff| (positions in [-1, 0]; measured 1.5e-8
+# (WCSPH) and 6.0e-8 (PCISPH) in both modes).
+NEIGHBOR_POS_TOL = 1e-6
+
+
 @pytest.mark.parametrize("argv,item", [
     (["--neighbors", "cellgrid"], "A10"),
     (["--neighbors", "bruteforce"], "A10"),
 ])
-def test_unported_options_raise(tmp_path, argv, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        main(["--cpu", "--n3", "4", "--out", str(tmp_path)] + argv)
-    assert not os.listdir(tmp_path)     # raised before writing anything
+def test_unported_options_raise(tmp_path, capsys, argv, item):
+    """The neighbor modes that raised before their port (ROADMAP `item`)
+    now run, WCSPH and PCISPH: the same summary as the JAX CLI and
+    positions within NEIGHBOR_POS_TOL of its npz, with nothing raised."""
+    from dieselfluid_tpu.app.cli import main as jmain
+
+    for solver in ("wcsph", "pcisph"):
+        run = ["--cpu", "--n3", "6", "--steps", "2", "--render-every", "1",
+               "--solver", solver] + argv
+        summary, lines = _run(run + ["--out", str(tmp_path / solver)],
+                              capsys)
+        assert f"{solver}/{argv[1]} on cpu" in lines[0], item
+        assert jmain(run + ["--out", str(tmp_path / ("j" + solver))]) == 0
+        jsummary = json.loads(
+            capsys.readouterr().out.strip().splitlines()[-1])
+        for key in ("steps", "particles", "overflow", "recoveries"):
+            assert summary[key] == jsummary[key]
+        got = np.load(summary["outputs"]["npz"])["positions"]
+        want = np.load(jsummary["outputs"]["npz"])["positions"]
+        assert got.shape == want.shape == (2, 216, 3)
+        assert np.abs(got - want).max() < NEIGHBOR_POS_TOL
+
+
+def test_default_invocation_runs_the_cell_grid(tmp_path, capsys):
+    """The JAX CLI's default invocation (no --neighbors: the cell grid,
+    WCSPH) runs, its trajectory the port's Simulation stepped by hand."""
+    summary, lines = _run(["--cpu", "--n3", "5", "--steps", "3",
+                           "--render-every", "1", "--out", str(tmp_path)],
+                          capsys)
+    assert "wcsph/cellgrid on cpu" in lines[0]
+    assert summary["particles"] == 125 and summary["overflow"] == 0
+    sim = Simulation.create(SimConfig(n3=5), device="cpu")
+    want = []
+    for _ in range(3):
+        sim.step()
+        want.append(sim.state.pos.numpy().copy())
+    np.testing.assert_array_equal(np.load(summary["outputs"]["npz"])[
+        "positions"], np.stack(want))
 
 
 def _scene_file(tmp_path) -> str:

@@ -171,7 +171,8 @@ def test_backward_of_gated_sweep_raises(name):
     ins = dict(planes, x=x, rho=rho)
     active = torch.ones(sw.active_patch_shape(spec), dtype=torch.int32)
     out = _gated_calls(sw, ins, spec, k, params.mass, active)[name]()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match="forward-only in the JAX package"):
         torch.autograd.grad(out[0].sum(), x, allow_unused=True)
 
 

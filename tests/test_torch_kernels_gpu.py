@@ -199,7 +199,8 @@ def test_backward_without_kernel_raises_on_card(planes):
     x = p["x"].clone().requires_grad_()
     ins = dict(p, x=x)
     out = sw.pressure_force_pq_planes(ins, p["pq"], spec, k, params.mass)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match="forward-only in the JAX package"):
         torch.autograd.grad(out[0].sum(), x)
     out = sw.force_planes(ins, p["rho"], p["press"], spec, k, params.mass,
                           0.3)
@@ -505,7 +506,8 @@ def test_gated_wrapper_checks_and_backward_raises(planes):
     x = p["x"].clone().requires_grad_()
     out = sw.density_planes_active(dict(p, x=x), spec, k, 1.0,
                                    _grid(spec, "ones", x.device))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match="forward-only in the JAX package"):
         torch.autograd.grad(out.sum(), x)
 
 
