@@ -125,10 +125,48 @@ Phases, each of which raises (and so exits nonzero) on failure:
      and brute-force tables identical, torch.sqrt on the card bitwise the
      correctly rounded root, one pcisph_step and one wcsph_step
      (XLA_CARD_REL_TOL), the materials= gradients through the unrolled
-     PCISPH step (XLA_CARD_GRAD_REL_TOL).
+     PCISPH step (XLA_CARD_GRAD_REL_TOL);
+ 19. BASELINE.json configuration 5, the sharded dense path
+     (dieselfluid_tpu_torch/parallel/) on a LocalMesh of the card, after
+     every earlier phase, one JSON line per sub-phase:
+ 19a. configuration 5 at its own size: the n3 = 252 dam break (16,003,008
+     particles; n3 = 200, 8M, if that does not fit the card, with the
+     attempt's error) over 4 x-slabs (DenseSlabSpec.build_for_state, the
+     bench's parameters and capacity 16), 5 warm-up and 10 timed sharded
+     WCSPH steps (K1, K2), then warm-started PCISPH (K1, K3, K4): ms per
+     step, particle-steps/s, iterations, peak memory, per-slab counts,
+     n_live = N, dropped 0 and cell overflow 0 every step, phase 6's
+     health, launch counts; each step's kernels against their plain
+     versions on the halo-filled planes of its last slabs (every shard,
+     KERNEL_REL_TOL, each output 0 on the ghost ring and at empty slots,
+     edge ghosts 0); one plane's ghost exchange alone;
+ 19b. at n3 = 40 over 4 slabs, 4 sharded WCSPH and PCISPH steps against
+     dense_wcsph_step / dense_pcisph_step on the same global lattice,
+     matched nearest to nearest (SLAB_PARITY_TOL), the same iterations;
+ 19c. configuration 5's "psum grads" at 1M: the materials_arg step's
+     Materials gradients of sum(alive * sin(3 pos)) against the unsharded
+     dense_wcsph_step(materials=) (SLAB_GRAD_REL_TOL), forward+backward
+     ms, peak memory, launches (K1, K3, K5, K6, K8, K9), and those kernels
+     on its halo-filled planes as in 19a;
+ 19d. the 2x2 decomposition: 5 warm-started PCISPH steps at 1M with a
+     replicated boundary floor, the dam break straddling both faces, and
+     K1, K3, K4 on its halo-filled block planes as in 19a;
+ 19e. the plain-torch sharded paths: make_halo_pcisph_step at 64k
+     (configuration 2's size) and sharded_train_step at 8k (configuration
+     1's), no kernel launched;
+ 19f. make_tiled_splat over 4 row tiles at 1920x1080 (configuration 3's
+     512k frame), with and without gather_axis, against the one-device
+     splat_particles (SLAB_RENDER_REL_TOL);
+ 19g. card against CPU at n3 = 12 from the same numpy state: one sharded
+     WCSPH and PCISPH step slot by slot (SLAB_CARD_REL_TOL), and the 19c
+     gradient (SLAB_CARD_GRAD_REL_TOL);
+ 19h. GuardedSlabRunner over the 1M sharded PCISPH for 20 steps with slab
+     checkpoints, the last reloaded (equal) and resumed for 5 steps,
+     recoveries 0; then the distributed_slab example twin.
 
-The line before the last is a JSON object with one entry per kernel (`ms` the
-public call, `kernel_ms` its launch alone, `body` the kernel body it runs
+The line before the last is a JSON object with one entry per kernel
+(`max_abs_err` the worst over every comparison with its plain version,
+phase 19's halo-filled planes included; `ms` the public call, `kernel_ms` its launch alone, `body` the kernel body it runs
 with its CTAs per SM on this card); the last line is {"ok": true, "device":
 {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device, or without the package beside it, the script exits
@@ -138,6 +176,7 @@ nonzero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -375,16 +414,18 @@ def seeded_cotangents(spec, device, seed: int):
                  for _ in range(3))
 
 
-def sweep_inputs(planes, spec, params):
+def sweep_inputs(planes, spec, params, rho=None):
     """(k, rho, press, pq): the density, Tait pressure and prefolded pq
-    planes the solvers would feed the sweeps on `planes`."""
+    planes the solvers would feed the sweeps on `planes` (from `rho`, when
+    given, instead of the density sweep's)."""
     from dieselfluid_tpu_torch.ops import sph_sweep as sw
     from dieselfluid_tpu_torch.ops.smoothing import KernelCoeffs, tait_eos
     import torch
 
     k = KernelCoeffs.build(params.h)
     m = planes["mask"]
-    rho = sw.density_planes(planes, spec, k, params.mass)
+    if rho is None:
+        rho = sw.density_planes(planes, spec, k, params.mass)
     press = torch.where(m > 0, tait_eos(rho, params.d0, params.p0,
                                         params.tait_gamma, params.tait_w),
                         0.0)
@@ -393,13 +434,13 @@ def sweep_inputs(planes, spec, params):
     return k, rho, press, pq
 
 
-def sweep_calls(planes, spec, params, plain: bool, cts):
+def sweep_calls(planes, spec, params, plain: bool, cts, inputs=None):
     """name -> zero-argument call of each public ungated sweep and backward
     sweep on `planes` (or of its plain version), with the planes of
-    sweep_inputs and the cotangent planes `cts`."""
+    sweep_inputs (or `inputs`) and the cotangent planes `cts`."""
     from dieselfluid_tpu_torch.ops import sph_sweep as sw
 
-    k, rho, press, pq = sweep_inputs(planes, spec, params)
+    k, rho, press, pq = inputs or sweep_inputs(planes, spec, params)
     mu, mass = float(params.mu), params.mass
     fns = sw.plain if plain else sw
     return {
@@ -455,21 +496,32 @@ def _rel_err(diff: float, scale: float) -> float:
 
 
 def compare_kernels(planes, spec, params, cts, label: str,
-                    names=None, plain_ms=None) -> dict:
+                    names=None, plain_ms=None, inputs=None,
+                    halo=False) -> dict:
     """Each sweep (or each of `names`) against its plain version on the
-    same planes; fails over KERNEL_REL_TOL (forward, relative to the
-    largest output) or KERNEL_BWD_REL_TOL (backward, per output). Returns
-    name -> (max abs error, max relative error); fills `plain_ms`, when
-    given, with each plain version's time in this comparison."""
+    same planes (and sweep inputs); fails over KERNEL_REL_TOL (forward,
+    relative to the largest output) or KERNEL_BWD_REL_TOL (backward, per
+    output), and with `halo` where a kernel output is not 0 on the ghost
+    ring and at every empty slot. Returns name -> (max abs error, max
+    relative error); fills `plain_ms`, when given, with each plain
+    version's time in this comparison."""
     import torch
     from dieselfluid_tpu_torch.ops.sph_sweep import (KERNEL_BWD_REL_TOL,
                                                      KERNEL_REL_TOL)
 
-    kern = sweep_calls(planes, spec, params, False, cts)
-    ref = sweep_calls(planes, spec, params, True, cts)
+    inputs = inputs or sweep_inputs(planes, spec, params)
+    kern = sweep_calls(planes, spec, params, False, cts, inputs)
+    ref = sweep_calls(planes, spec, params, True, cts, inputs)
+    empty = planes["mask"] == 0
     errs = {}
     for name in names or kern:
         got = kern[name]()
+        if halo:
+            check(not any(bool(ghost_ring(g, spec).any())
+                          or bool(torch.where(empty, g, 0.0).any())
+                          for g in got),
+                  f"{name} {label}: a kernel output is not 0 on the ghost "
+                  f"ring or at an empty slot")
         want, ms = timed_call(ref[name])
         if plain_ms is not None:
             plain_ms[name] = ms
@@ -488,6 +540,17 @@ def compare_kernels(planes, spec, params, cts, label: str,
               f"{label}: rel {rel} > {tol}")
         errs[name] = (max(diffs), rel)
     return errs
+
+
+def ghost_ring(t, spec):
+    """A plane's values on its ghost ring: the x and y ghost columns and
+    the two ghost z-blocks of every row."""
+    import torch
+
+    v = t.reshape(spec.px, spec.py, spec.sub, 128)
+    return torch.cat([v[0].flatten(), v[-1].flatten(), v[:, 0].flatten(),
+                      v[:, -1].flatten(), v[:, :, 0].flatten(),
+                      v[:, :, -1].flatten()])
 
 
 def check_kernels_small(device) -> dict:
@@ -2308,6 +2371,766 @@ def check_xla_cpu(device) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: configuration 5, the sharded dense path (parallel/)
+# ---------------------------------------------------------------------------
+
+SLAB_N3 = 252              # 16,003,008 particles: BASELINE configuration 5
+SLAB_N3_CUT = 200          # 8,000,000 (bench.py's dense_8m), if 16M fails
+SLAB_SHARDS = 4
+SLAB_WARMUP, SLAB_TIMED = 5, 10
+SLAB_MIGRATE = 1 << 16     # slots per face migration buffer (a lattice plane)
+SLAB_PARITY_N3 = 40
+SLAB_PARITY_STEPS = 4
+SLAB_CPU_N3 = 12
+SLAB_2D_SHIFT = (0.5, 0.5, 0.0)
+# Tolerances, each about 10x what an H100 80GB HBM3 measured:
+# 19b: the sharded steps against the unsharded ones on the card after 4
+# steps, nearest match: largest distance (measured 3.6e-7) and velocity
+# difference (2.1e-4, PCISPH after a slam of 1).
+SLAB_PARITY_TOL = {"pos": 4e-6, "vel": 2e-3}
+# 19c: each Materials gradient (measured 1.5e-7) and the position gradient
+# (3.4e-6, of its largest), sharded against unsharded.
+SLAB_GRAD_REL_TOL = {"materials": 2e-6, "pos": 4e-5}
+# 19f: the tiled render against the one-device one, relative to the
+# largest value: image (1.3e-6) and position gradient (2.4e-7).
+SLAB_RENDER_REL_TOL = {"image": 1.3e-5, "grad": 2.5e-6}
+# 19g: card against CPU, slot by slot, relative to each field's largest
+# magnitude (positions 1.2e-7, velocities 2.3e-6, pressures 3.1e-6); the
+# gradients (1.1e-6).
+SLAB_CARD_REL_TOL = {"pos": 1.2e-6, "vel": 2.5e-5, "pressure": 3e-5}
+SLAB_CARD_GRAD_REL_TOL = 1.2e-5
+
+
+def slab_spec_for(state, params, migrate=SLAB_MIGRATE, n_dev=SLAB_SHARDS):
+    """DenseSlabSpec.build_for_state over n_dev x-slabs of the bench's
+    capacity, on the dense bench's domain: [-1 - h/4, 1 + h/4] (the
+    quarter-cell offset keeps the lattice's planes off cell faces), which
+    is also the slabs' box."""
+    from dieselfluid_tpu_torch.parallel.dense_halo import DenseSlabSpec
+
+    off = params.h / 4.0
+    return DenseSlabSpec.build_for_state(state, n_dev, params.h, migrate,
+                                         lo=-1.0 - off, hi=1.0 + off,
+                                         cell_capacity=CAPACITY)
+
+
+def slab_global_spec(spec):
+    """(global DenseCellSpec, bounds) of the unsharded step on the slab
+    spec's lattice (tests/test_dense_halo.py:63-67)."""
+    from dieselfluid_tpu_torch.ops.cellops import DenseCellSpec
+
+    gspec = DenseCellSpec.for_domain(
+        (spec.lo,) * 3, (spec.hi_x, spec.hi_yz, spec.hi_yz + 3.0 * spec.cell),
+        spec.cell, capacity=spec.cell_capacity)
+    return gspec, ((spec.lo,) * 3, (spec.hi_x, spec.hi_yz, spec.hi_yz))
+
+
+def seeded_state(state, n3: int, seed: int, jitter: float, speed: float):
+    """bench_setup(n3)'s state with seeded jitter (x dx) on the positions
+    and N(0, speed^2) velocities, drawn with numpy on the host."""
+    import torch
+
+    dx = (2.0 / n3) * EXTENT
+    rng = np.random.default_rng(seed)
+    shape = tuple(state.pos.shape)
+    dev = state.pos.device
+    pos = state.pos + torch.from_numpy(rng.uniform(
+        -jitter, jitter, shape).astype(np.float32)).to(dev) * dx
+    vel = torch.from_numpy((rng.normal(size=shape) * speed).astype(
+        np.float32)).to(dev)
+    return state._replace(pos=pos, vel=vel)
+
+
+def run_slab_steps(step, slabs, n_expected: int, warmup: int, timed: int,
+                   label: str):
+    """warmup + timed steps of a sharded dense step, each ending in a sync
+    (host clock); every step must keep n_live = n_expected with dropped 0
+    and cell overflow 0. -> (slabs, summary)."""
+    import torch
+
+    times, iters = [], []
+    for i in range(warmup + timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        slabs, max_vel, n_live, ovf, per_slab = step(slabs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        nl, dr, ov, mv = torch.stack([
+            n_live.double(), slabs.dropped.double(), ovf.double(),
+            max_vel.double()]).tolist()
+        check(nl == n_expected and dr == 0.0 and ov == 0.0,
+              f"{label} step {i}: n_live {nl} of {n_expected}, dropped "
+              f"{dr}, cell overflow {ov}")
+        iters.append(getattr(step, "iters", None))
+        if i >= warmup:
+            times.append(dt)
+    ms = float(np.mean(times)) * 1e3
+    out = {"ms_per_step": ms, "ms_steps": [t * 1e3 for t in times],
+           "psteps_per_sec": n_expected / (ms / 1e3), "max_vel": mv,
+           "per_slab": per_slab.tolist()}
+    if iters[0] is not None:
+        out.update(mean_iters=float(np.mean(iters[warmup:])),
+                   min_iters=min(iters), max_iters=max(iters))
+        check(all(1 <= i <= 5 for i in iters), f"{label}: iterations {iters}")
+    return slabs, out
+
+
+def slab_health(slabs, spec, mean_y0, label: str, res: dict, fall=True):
+    """Phase 6's health on sharded slabs: finite, inside the slabs' box,
+    max|v| under the sound speed, (WCSPH) the mean height fallen."""
+    import torch
+
+    live = slabs.alive > 0
+    pos, vel = slabs.pos[live], slabs.vel[live]
+    hi = torch.tensor([spec.hi_x, spec.hi_yz, spec.hi_yz], device=pos.device)
+    res.update(finite=bool(torch.isfinite(pos).all()
+                           and torch.isfinite(vel).all()),
+               below_lo=bool((pos < spec.lo).any()),
+               above_hi=bool((pos > hi).any()),
+               max_v=float(torch.linalg.vector_norm(vel, dim=-1).max()),
+               mean_y0=mean_y0, mean_y=float(pos[:, 1].mean()))
+    check(res["finite"], f"{label}: non-finite state")
+    check(not res["below_lo"] and not res["above_hi"],
+          f"{label}: outside the box")
+    check(res["max_v"] < SOUND_SPEED, f"{label}: max|v| >= sound speed")
+    if fall:
+        check(res["mean_y"] < mean_y0, f"{label}: mean y did not fall")
+    return res
+
+
+def edge_ghosts_zero(mesh, planes, lspec) -> bool:
+    """Whether every channel of every held shard is 0 on the ghost columns
+    that face the mesh's edges: both y ghost columns on a 1-D mesh."""
+    ny_dev = mesh.shape[1] if len(mesh.shape) == 2 else 1
+    for p, shard in zip(planes, mesh.shards):
+        cx, cy = (mesh.coords(shard) + (0,))[:2]
+        for t in p.values():
+            v = t.reshape(lspec.px, lspec.py, lspec.sub, 128)
+            sides = ([v[0]] if cx == 0 else []) + (
+                [v[-1]] if cx == mesh.shape[0] - 1 else []) + (
+                [v[:, 0]] if cy == 0 else []) + (
+                [v[:, -1]] if cy == ny_dev - 1 else [])
+            if any(bool(side.any()) for side in sides):
+                return False
+    return True
+
+
+def compare_halo_kernels(mesh, planes, lspec, params, exchange, names,
+                         label: str, seed: int) -> dict:
+    """Each of `names` against its plain version (compare_kernels, with
+    the ghost-ring check) on every held shard's halo-filled planes, as
+    frame_planes gives them to the sharded steps' sweeps (a shard that
+    owns no particle must give all zeros); rho is the density sweep's
+    with its ghosts exchanged by `exchange` (a list of planes -> the list
+    exchanged), as the steps exchange it, and pressure and pq follow from
+    it; cotangents are seeded over the whole plane, ghost slots included. Checks that the edge ghosts are 0 and that
+    some ghost slot is occupied. -> name -> the worst (max abs error, max
+    relative error) over the shards."""
+    from dieselfluid_tpu_torch.ops import sph_sweep as sw
+    from dieselfluid_tpu_torch.ops.smoothing import KernelCoeffs
+
+    check(edge_ghosts_zero(mesh, planes, lspec),
+          f"{label}: an edge ghost column is not 0")
+    k = KernelCoeffs.build(params.h)
+    rho = exchange([sw.density_planes(p, lspec, k, params.mass)
+                    for p in planes])
+    cts = (seeded_cotangents(lspec, planes[0]["x"].device, seed)
+           if any(n.endswith("_bwd") for n in names) else None)
+    errs, ghosts = {}, []
+    for s, p in enumerate(planes):
+        ghosts.append(int(ghost_ring(p["mask"], lspec).sum()))
+        e = compare_kernels(p, lspec, params, cts, f"{label} shard {s}",
+                            names=names, halo=True,
+                            inputs=sweep_inputs(p, lspec, params, rho[s]))
+        errs = {n: max(errs.get(n, e[n]), e[n]) for n in e}
+    log(f"{label}: occupied ghost slots per shard {ghosts}")
+    check(sum(ghosts) > 0, f"{label}: no ghost slot is occupied")
+    return errs
+
+
+def run_config5_at(n3: int, device) -> dict:
+    """19a at n3^3 particles: 5 warm-up and 10 timed sharded WCSPH steps
+    (K1, K2), then from the same slabs the same of warm-started PCISPH
+    (K1, K3, K4), each on a LocalMesh of 4 slabs on the card; launch counts
+    reset just before each, read just after; each step's kernels against
+    their plain versions on the halo-filled planes of its last slabs; then
+    one plane's ghost exchange alone (CUDA events)."""
+    import torch
+    from dieselfluid_tpu_torch.parallel.dense_halo import (
+        _exchange_ghost_columns, distribute_dense, frame_planes,
+        make_dense_halo_pcisph_step, make_dense_halo_wcsph_step)
+    from dieselfluid_tpu_torch.parallel.mesh import LocalMesh
+
+    torch.cuda.reset_peak_memory_stats()
+    params, state, _, delta = bench_setup(n3, device)
+    n = state.pos.shape[0]
+    mean_y0 = float(state.pos[:, 1].mean())
+    t0 = time.perf_counter()
+    spec = slab_spec_for(state, params)
+    glob = distribute_dense(state, spec)
+    distribute_s = time.perf_counter() - t0
+    del state
+    lspec = spec.local_spec
+    mesh = LocalMesh((SLAB_SHARDS,), device)
+    res = {"n3": n3, "n": n, "nxd": spec.nxd, "capacity": spec.capacity,
+           "plane_shape": list(lspec.plane_shape),
+           "gb_per_channel": lspec.size * 4 * SLAB_SHARDS / 1e9,
+           "distribute_s": distribute_s,
+           "per_slab_start": glob.alive.view(SLAB_SHARDS, -1).sum(1).tolist()}
+    check(float(glob.dropped) == 0.0, "19a: distribute dropped particles")
+    for solver in ("wcsph", "pcisph"):
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launch_counts()
+        step = (make_dense_halo_wcsph_step(mesh, spec, params)
+                if solver == "wcsph" else make_dense_halo_pcisph_step(
+                    mesh, spec, params, delta, warm_start=True))
+        slabs, out = run_slab_steps(step, glob, n, SLAB_WARMUP, SLAB_TIMED,
+                                    f"19a {solver}")
+        out["launches"] = launch_counts()
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        slab_health(slabs, spec, mean_y0, f"19a {solver}", out,
+                    fall=solver == "wcsph")
+        need = (("density", "force") if solver == "wcsph"
+                else ("density", "viscosity", "pressure_pq"))
+        for name in need:
+            check(out["launches"][name] > 0,
+                  f"19a {solver}: kernel {name} was not launched")
+        res[solver] = out
+        del step
+        planes = frame_planes(mesh, spec, slabs)
+        del slabs
+        out["kernel_errs"] = compare_halo_kernels(
+            mesh, planes, lspec, params,
+            lambda ps: _exchange_ghost_columns(mesh, ps, lspec), need,
+            f"19a {solver} slab planes", 19)
+        del planes
+    del glob
+    planes = [torch.zeros(lspec.plane_shape, dtype=torch.float32,
+                          device=device) for _ in range(SLAB_SHARDS)]
+    res["exchange_ms_per_plane"] = cuda_ms(
+        lambda: _exchange_ghost_columns(mesh, planes, lspec), 5)
+    return res
+
+
+def run_config5(device) -> dict:
+    """19a: configuration 5 at its own size, 16M over 4 slabs; at 8M if
+    16M does not fit the card's memory (the 16M attempt's error and peak
+    recorded)."""
+    import torch
+
+    try:
+        res = run_config5_at(SLAB_N3, device)
+    except torch.cuda.OutOfMemoryError as e:
+        attempt = {"n3": SLAB_N3, "error": str(e).splitlines()[0],
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        log("config5_16m_attempt " + json.dumps(attempt))
+        torch.cuda.empty_cache()
+        res = run_config5_at(SLAB_N3_CUT, device)
+        res["attempt_16m"] = attempt
+    log("config5_sharded " + json.dumps(res))
+    return res
+
+
+def nearest_match_cuda(ref, got, chunk: int = 1024):
+    """(match, distance) of each ref row's nearest row of `got`, from exact
+    coordinate differences, chunked over ref; checks the matching is a
+    bijection."""
+    import torch
+
+    match = torch.empty(ref.shape[0], dtype=torch.int64, device=ref.device)
+    dist = torch.empty(ref.shape[0], dtype=torch.float32, device=ref.device)
+    for s in range(0, ref.shape[0], chunk):
+        d2 = ((ref[s:s + chunk, None, :] - got[None, :, :]) ** 2).sum(-1)
+        dist[s:s + chunk], match[s:s + chunk] = d2.min(dim=1)
+    check(int(torch.unique(match).numel()) == ref.shape[0],
+          "nearest match is not a bijection")
+    return match, dist.sqrt()
+
+
+def check_slab_parity(device) -> dict:
+    """19b: at n3 = 40 (64k) over 4 slabs, 4 sharded WCSPH steps (seeded
+    N(0, 0.05^2) velocities) and 4 warm-started PCISPH steps (jittered by
+    0.2 dx, N(0, 0.5^2) velocities, so the loop iterates) against
+    dense_wcsph_step /
+    dense_pcisph_step on the same global lattice and box; particles matched
+    nearest to nearest."""
+    import torch
+    from dieselfluid_tpu_torch.parallel.dense_halo import (
+        distribute_dense, make_dense_halo_pcisph_step,
+        make_dense_halo_wcsph_step)
+    from dieselfluid_tpu_torch.parallel.mesh import LocalMesh
+    from dieselfluid_tpu_torch.solvers.dense_step import (
+        dense_pcisph_step, dense_wcsph_step)
+
+    params, base, _, delta = bench_setup(SLAB_PARITY_N3, device)
+    mesh = LocalMesh((SLAB_SHARDS,), device)
+    res = {}
+    for solver in ("wcsph", "pcisph"):
+        state = (seeded_state(base, SLAB_PARITY_N3, 41, 0.0, 0.05)
+                 if solver == "wcsph" else
+                 seeded_state(base, SLAB_PARITY_N3, 42, 0.2, 0.5))
+        spec = slab_spec_for(state, params, migrate=4096)
+        gspec, bounds = slab_global_spec(spec)
+        s, ref_iters = state, []
+        slabs = distribute_dense(state, spec)
+        step = (make_dense_halo_wcsph_step(mesh, spec, params)
+                if solver == "wcsph" else make_dense_halo_pcisph_step(
+                    mesh, spec, params, delta, warm_start=True))
+        iters = []
+        for _ in range(SLAB_PARITY_STEPS):
+            if solver == "wcsph":
+                s, d = dense_wcsph_step(s, params, gspec, bounds=bounds)
+            else:
+                s, d = dense_pcisph_step(s, params, gspec, delta,
+                                         bounds=bounds, warm_start=True)
+                ref_iters.append(int(d.iters))
+            slabs, _, n_live, ovf, _ = step(slabs)
+            iters.append(getattr(step, "iters", None))
+            check(int(d.overflow) == 0 and int(ovf) == 0,
+                  f"19b {solver}: cell overflow")
+        live = slabs.alive > 0
+        match, dist = nearest_match_cuda(s.pos, slabs.pos[live])
+        vdiff = float((s.vel - slabs.vel[live][match]).abs().max())
+        out = {"n": s.pos.shape[0], "n_live": int(n_live),
+               "max_pos_diff": float(dist.max()), "max_vel_diff": vdiff}
+        if solver == "pcisph":
+            out.update(iters=iters, unsharded_iters=ref_iters)
+            check(iters == ref_iters and max(iters) > 1,
+                  f"19b: iterations differ or never iterate {out}")
+        res[solver] = out
+        check(out["n_live"] == out["n"], f"19b {solver}: particles lost")
+        check(out["max_pos_diff"] <= SLAB_PARITY_TOL["pos"]
+              and vdiff <= SLAB_PARITY_TOL["vel"],
+              f"19b {solver}: sharded and unsharded differ {out}")
+    log("slab_parity_64k " + json.dumps(res))
+    return res
+
+
+def slab_grad(state, params, spec, mesh, gspec=None, bounds=None,
+              slabs=None):
+    """The gradients of sum(alive * sin(3 pos)) of the next state to the
+    Materials and to the positions (in the state's particle order, the
+    distribute order mapped back): through the sharded materials_arg step
+    on `mesh` (from `slabs`, distribute_dense(state, spec) if None), or
+    (with gspec) through dense_wcsph_step(materials=) on the global
+    lattice. -> ({field: gradient}, position gradients)."""
+    import torch
+    from dieselfluid_tpu_torch.models.materials import Materials
+    from dieselfluid_tpu_torch.parallel.dense_halo import (
+        distribute_dense, make_dense_halo_wcsph_step)
+    from dieselfluid_tpu_torch.solvers.dense_step import dense_wcsph_step
+
+    mats = Materials.from_params(params, state.pos.device,
+                                 requires_grad=True)
+    if gspec is not None:
+        pos = state.pos.detach().clone().requires_grad_()
+        nxt, _ = dense_wcsph_step(state._replace(pos=pos), params, gspec,
+                                  bounds=bounds, materials=mats)
+        loss = torch.sin(3.0 * nxt.pos).sum()
+    else:
+        slabs = distribute_dense(state, spec) if slabs is None else slabs
+        pos = slabs.pos.clone().requires_grad_()
+        step = make_dense_halo_wcsph_step(mesh, spec, params,
+                                          materials_arg=True)
+        out, *_ = step(slabs._replace(pos=pos), mats)
+        loss = ((out.alive > 0)[:, None] * torch.sin(3.0 * out.pos)).sum()
+    grads = torch.autograd.grad(loss, [*mats, pos])
+    g_pos = grads[-1]
+    if gspec is None:
+        # distribute_dense keeps each slab's particles in state order.
+        x = state.pos[:, 0].detach().cpu().numpy()
+        slab = np.clip(((x - spec.lo) / spec.slab_width).astype(int), 0,
+                       spec.n_dev - 1)
+        order = torch.from_numpy(np.argsort(slab, kind="stable")).to(
+            g_pos.device)
+        live = g_pos[slabs.alive > 0]
+        g_pos = torch.empty_like(live)
+        g_pos[order] = live
+    return dict(zip(Materials._fields, (float(g) for g in grads[:-1]))), \
+        g_pos
+
+
+def check_slab_grad(device) -> dict:
+    """19c: configuration 5's "psum grads" at 1M over 4 slabs: the
+    materials_arg WCSPH step's gradients of the JAX dryrun's loss to the
+    Materials and the positions (the dam break jittered by 0.1 dx, N(0,
+    0.05^2) velocities: off the Tait clamp's kink) against
+    dense_wcsph_step(materials=) on the global lattice. Forward+backward
+    ms (median of 3 after a warm-up; launch counts reset just before them,
+    read just after), peak memory; then the step's kernels against their
+    plain versions on its halo-filled planes."""
+    import torch
+    from dieselfluid_tpu_torch.parallel.dense_halo import (
+        _exchange_ghost_columns, distribute_dense, frame_planes)
+    from dieselfluid_tpu_torch.parallel.mesh import LocalMesh
+
+    params, base, _, _ = bench_setup(100, device)
+    state = seeded_state(base, 100, 43, 0.1, 0.05)
+    del base
+    spec = slab_spec_for(state, params, migrate=1 << 14)
+    gspec, bounds = slab_global_spec(spec)
+    mesh = LocalMesh((SLAB_SHARDS,), device)
+    want, want_pos = slab_grad(state, params, spec, mesh, gspec, bounds)
+    slabs = distribute_dense(state, spec)
+    got, got_pos = slab_grad(state, params, spec, mesh, slabs=slabs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launch_counts()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        slab_grad(state, params, spec, mesh, slabs=slabs)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    res = {"n": state.pos.shape[0], "sharded": got, "unsharded": want,
+           "rel": {f: abs(got[f] - want[f]) / abs(want[f]) for f in want},
+           "pos_grad_rel": float((got_pos - want_pos).abs().max()
+                                 / want_pos.abs().max()),
+           "fwd_bwd_ms": float(np.median(times)), "ms": times,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launch_counts()}
+    log("slab_grad_1m " + json.dumps(res))
+    need = ("density", "viscosity", "pressure", "density_bwd",
+            "pressure_bwd", "viscosity_bwd")
+    for name in need:
+        check(res["launches"][name] > 0,
+              f"19c: kernel {name} was not launched")
+    lspec = spec.local_spec
+    res["kernel_errs"] = compare_halo_kernels(
+        mesh, frame_planes(mesh, spec, slabs), lspec, params,
+        lambda ps: _exchange_ghost_columns(mesh, ps, lspec), need,
+        "19c slab planes", 20)
+    check(all(np.isfinite(v) and v != 0.0 for v in got.values()),
+          f"19c: degenerate gradients {got}")
+    check(max(res["rel"].values()) <= SLAB_GRAD_REL_TOL["materials"]
+          and res["pos_grad_rel"] <= SLAB_GRAD_REL_TOL["pos"],
+          f"19c: sharded and unsharded gradients differ {res['rel']} "
+          f"{res['pos_grad_rel']}")
+    return res
+
+
+def run_slab_2d(device) -> dict:
+    """19d: the 2-D decomposition, a 2x2 LocalMesh, 5 warm-started PCISPH
+    steps with a replicated boundary store at 1M: the bench's dam break
+    moved by SLAB_2D_SHIFT so that it straddles both faces, over a floor of
+    boundary particles (spacing dx) at y = -1 - 0.2 h; then the step's
+    kernels against their plain versions on the halo-filled planes of its
+    last slabs."""
+    import torch
+    from dieselfluid_tpu_torch.parallel.dense_halo2d import (
+        DenseSlab2DSpec, _exchange_plane_2d, distribute_2d, frame_planes_2d,
+        make_dense_halo_pcisph_step_2d, make_mesh_2d)
+
+    params, state, _, delta = bench_setup(100, device)
+    dx = params.h / 2.0          # for_spacing's h is two spacings
+    state = state._replace(pos=state.pos + torch.tensor(SLAB_2D_SHIFT,
+                                                        device=device))
+    g = torch.arange(-1.0 + dx / 2, 1.0, dx, device=device)
+    gx, gz = torch.meshgrid(g, g, indexing="ij")
+    floor = torch.stack([gx.flatten(), torch.full_like(gx.flatten(), -1.0
+                                                        - 0.2 * params.h),
+                         gz.flatten()], dim=-1)
+    off = params.h / 4.0
+    spec = DenseSlab2DSpec.build_for_state(
+        state, 2, 2, params.h, 1 << 14, lo=-1.0 - off, hi=1.0 + off,
+        cell_capacity=CAPACITY)
+    slabs = distribute_2d(state._replace(boundary_pos=floor), spec)
+    n = state.pos.shape[0]
+    mesh = make_mesh_2d(2, 2, device)
+    step = make_dense_halo_pcisph_step_2d(mesh, spec, params, delta,
+                                          boundary=True, warm_start=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launch_counts()
+    start = slabs.alive.view(4, -1).sum(1).view(2, 2).tolist()
+    slabs, res = run_slab_steps(step, slabs, n, 0, 5, "19d")
+    res.update(n=n, boundary=floor.shape[0], per_slab_start=start,
+               capacity=spec.capacity, launches=launch_counts(),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log("slab_2d_1m " + json.dumps(res))
+    check(len(res["per_slab"]) == 2 and len(res["per_slab"][0]) == 2,
+          "19d: per-slab counts are not (2, 2)")
+    check(min(min(r) for r in start) > 0, "19d: an empty block")
+    need = ("density", "viscosity", "pressure_pq")
+    for name in need:
+        check(res["launches"][name] > 0,
+              f"19d: kernel {name} was not launched")
+    lspec = spec.local_spec
+    res["kernel_errs"] = compare_halo_kernels(
+        mesh, frame_planes_2d(mesh, spec, slabs, boundary=True), lspec,
+        params, lambda ps: _exchange_plane_2d(mesh, ps, lspec), need,
+        "19d block planes", 21)
+    return res
+
+
+def run_slab_plain(device) -> dict:
+    """19e: the plain-torch sharded paths. make_halo_pcisph_step at
+    configuration 2's size (n3 = 40, 64k; k = 128, cell capacity 32, cold
+    start) over 4 slabs, 10 steps; and sharded_train_step at configuration
+    1's size (n3 = 20, 8k; 2 sim steps, k = 64) over 4 shards, with the
+    gradients of its loss through make_spmd_rollout. Neither launches a
+    sweep."""
+    import torch
+    from dieselfluid_tpu_torch.models.materials import Materials
+    from dieselfluid_tpu_torch.parallel.halo import (
+        SlabSpec, distribute, make_halo_pcisph_step)
+    from dieselfluid_tpu_torch.parallel.mesh import LocalMesh
+    from dieselfluid_tpu_torch.parallel.sharding import (
+        particle_mesh, shard_state, sharded_train_step)
+    from dieselfluid_tpu_torch.parallel.spmd import make_spmd_rollout
+
+    params, state, _, delta = bench_setup(40, device)
+    n = state.pos.shape[0]
+    spec = SlabSpec(n_dev=SLAB_SHARDS, capacity=1 << 16,
+                    halo_capacity=1 << 13, migrate_capacity=1 << 12,
+                    h=params.h)
+    slabs = distribute(state, spec)
+    mesh = LocalMesh((SLAB_SHARDS,), device)
+    step = make_halo_pcisph_step(mesh, spec, params, delta, k=128,
+                                 cell_capacity=32)
+    reset_all_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    iters = []
+    for _ in range(10):
+        slabs, max_vel, n_live, per_slab = step(slabs)
+        iters.append(step.iters)
+    torch.cuda.synchronize()
+    res = {"halo_pcisph_64k": {
+        "n": n, "ms_per_step": (time.perf_counter() - t0) * 100.0,
+        "mean_iters": float(np.mean(iters)), "n_live": float(n_live),
+        "dropped": float(slabs.dropped), "max_vel": float(max_vel),
+        "per_slab": per_slab.tolist()}}
+    xla_launches_zero("19e halo", launch_counts())
+    check(res["halo_pcisph_64k"]["n_live"] == n
+          and res["halo_pcisph_64k"]["dropped"] == 0.0,
+          f"19e halo: particles lost {res}")
+
+    params, state, _, _ = bench_setup(20, device)
+    mesh = particle_mesh(SLAB_SHARDS, device)
+    sstate = shard_state(seeded_state(state, 20, 47, 0.0, 0.1), mesh)
+    mats = Materials.from_params(params, device)
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    loss, vel0, new_mats = sharded_train_step(mesh, params, 2)(
+        sstate.vel, mats, sstate)
+    train_ms = (time.perf_counter() - t0) * 1e3
+    v = sstate.vel.clone().requires_grad_()
+    m = Materials(*[x.clone().requires_grad_() for x in mats])
+    final, _ = make_spmd_rollout(mesh, params, 2)(sstate._replace(vel=v), m)
+    g = torch.autograd.grad(((final.pos[:, 1] + 0.9) ** 2).mean()
+                            + 1e-4 * (final.vel ** 2).mean(), [v, *m],
+                            allow_unused=True)
+    res["train_8k"] = {
+        "n": sstate.pos.shape[0], "loss": float(loss), "ms": train_ms,
+        "grad_vel_abs_max": float(g[0].abs().max()),
+        "grad_mats": {f: (0.0 if x is None else float(x))
+                      for f, x in zip(Materials._fields, g[1:])}}
+    log("slab_plain_paths " + json.dumps(res))
+    xla_launches_zero("19e train", launch_counts())
+    check(np.isfinite(res["train_8k"]["loss"]), "19e train: loss")
+    check(bool(torch.isfinite(g[0]).all()) and float(g[0].abs().max()) > 0,
+          "19e train: velocity gradient")
+    check(all(np.isfinite(x) for x in res["train_8k"]["grad_mats"].values())
+          and any(x != 0.0 for x in res["train_8k"]["grad_mats"].values()),
+          "19e train: Materials gradients")
+    return res
+
+
+def run_tiled_render(device) -> dict:
+    """19f: make_tiled_splat over 4 row tiles renders configuration 3's
+    512k frame at 1920x1080 (the bench camera, radius 0.7 dx), with the
+    positions replicated and particle-sharded (gather_axis), against the
+    one-device splat_particles: the image and the gradient of sum(color^2)
+    to the positions, forward+backward ms (median of 3 after a warm-up)."""
+    import torch
+    from dieselfluid_tpu_torch.parallel.mesh import LocalMesh
+    from dieselfluid_tpu_torch.parallel.render_shard import make_tiled_splat
+    from dieselfluid_tpu_torch.render.splat import splat_particles
+
+    _, state, _, cam, radius = sr_setup(80, device)
+    mesh = LocalMesh((SLAB_SHARDS,), device)
+
+    def fwd_bwd(render):
+        pos = state.pos.detach().clone().requires_grad_()
+        img = render(pos)
+        (g,) = torch.autograd.grad((img.color ** 2).sum(), pos)
+        return img.color.detach(), g
+
+    renders = {"one_device": lambda p: splat_particles(
+        p, radius, cam, width=SR_WIDTH, height=SR_HEIGHT)}
+    for gather in (False, True):
+        tiled = make_tiled_splat(mesh, SR_WIDTH, SR_HEIGHT,
+                                 state.pos.shape[0], gather_axis=gather)
+        renders[f"tiled_gather_{gather}".lower()] = (
+            lambda p, t=tiled: t(p, radius, cam))
+    res, out = {}, {}
+    for name, render in renders.items():
+        out[name] = fwd_bwd(render)
+        res[name] = {"ms": cuda_ms(lambda r=render: fwd_bwd(r), 3)}
+    img0, g0 = out["one_device"]
+    for name in renders:
+        if name == "one_device":
+            continue
+        img, g = out[name]
+        res[name].update(
+            image_rel=float((img - img0).abs().max() / img0.abs().max()),
+            grad_rel=float((g - g0).abs().max() / g0.abs().max()))
+        check(res[name]["image_rel"] <= SLAB_RENDER_REL_TOL["image"]
+              and res[name]["grad_rel"] <= SLAB_RENDER_REL_TOL["grad"],
+              f"19f {name}: tiled and one-device differ {res[name]}")
+    log("tiled_render_512k_1080p " + json.dumps(res))
+    return res
+
+
+def _rel_field(a, b) -> float:
+    return float((a.cpu() - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def check_slab_cpu(device) -> dict:
+    """19g: the card against the CPU at n3 = 12 over 4 slabs, from the same
+    numpy state (jittered 0.2 dx, N(0, 0.5^2) velocities, warm pressures):
+    one sharded WCSPH and one warm-started PCISPH step (the kernels on the
+    card, the plain versions on the CPU), slab by slab and slot by slot,
+    and the 19c gradient at that size."""
+    import torch
+    from dieselfluid_tpu_torch.parallel.dense_halo import (
+        distribute_dense, make_dense_halo_pcisph_step,
+        make_dense_halo_wcsph_step)
+    from dieselfluid_tpu_torch.parallel.mesh import LocalMesh
+
+    cpu = torch.device("cpu")
+    params, base, _, delta = bench_setup(SLAB_CPU_N3, cpu)
+    state = seeded_state(base, SLAB_CPU_N3, 53, 0.2, 0.5)
+    rng = np.random.default_rng(53)
+    state = state._replace(pressure=torch.from_numpy(rng.uniform(
+        0.0, 100.0, state.pos.shape[0]).astype(np.float32)))
+    spec = slab_spec_for(state, params, migrate=256)
+    res = {}
+    for solver in ("wcsph", "pcisph"):
+        outs, iters = {}, {}
+        for label, dev in (("card", device), ("cpu", cpu)):
+            mesh = LocalMesh((SLAB_SHARDS,), dev)
+            step = (make_dense_halo_wcsph_step(mesh, spec, params)
+                    if solver == "wcsph" else make_dense_halo_pcisph_step(
+                        mesh, spec, params, delta, warm_start=True))
+            outs[label] = step(distribute_dense(state, spec, dev))
+            iters[label] = getattr(step, "iters", None)
+        card, host = outs["card"], outs["cpu"]
+        r = {f: _rel_field(getattr(card[0], f), getattr(host[0], f))
+             for f in SLAB_CARD_REL_TOL}
+        r["iters"] = [iters["card"], iters["cpu"]]
+        res[solver] = r
+        check(torch.equal(card[0].alive.cpu(), host[0].alive)
+              and torch.equal(card[4].cpu(), host[4])
+              and iters["card"] == iters["cpu"],
+              f"19g {solver}: slots, per-slab counts or iterations differ")
+        for f, tol in SLAB_CARD_REL_TOL.items():
+            check(r[f] <= tol, f"19g {solver} {f}: card and CPU differ {r}")
+    (g_card, p_card), (g_cpu, p_cpu) = [slab_grad(
+        state.__class__(*[None if t is None else t.to(d) for t in state]),
+        params, spec, LocalMesh((SLAB_SHARDS,), d)) for d in (device, cpu)]
+    res["grad_rel"] = {f: abs(g_card[f] - g_cpu[f]) / abs(g_cpu[f])
+                       for f in g_cpu}
+    res["grad_rel"]["pos"] = _rel_field(p_card, p_cpu)
+    log("slab_card_vs_cpu " + json.dumps(res))
+    check(max(res["grad_rel"].values()) <= SLAB_CARD_GRAD_REL_TOL,
+          f"19g: card and CPU gradients differ {res['grad_rel']}")
+    return res
+
+
+def run_slab_guard(device) -> dict:
+    """19h: GuardedSlabRunner over the 1M sharded PCISPH (4 slabs, warm
+    start) for 20 steps, checked every 10, with slab checkpoints every 10;
+    the last checkpoint reloaded onto the mesh must equal the runner's
+    slabs, and resumes for 5 steps; recoveries 0. Then the
+    distributed_slab example twin on the card."""
+    import contextlib
+    import io
+    import shutil
+    from pathlib import Path
+
+    import torch
+    from dieselfluid_tpu_torch.examples import distributed_slab
+    from dieselfluid_tpu_torch.io.checkpoint import (Checkpointer,
+                                                     load_slab_checkpoint)
+    from dieselfluid_tpu_torch.parallel.dense_halo import (
+        distribute_dense, make_dense_halo_pcisph_step)
+    from dieselfluid_tpu_torch.parallel.mesh import LocalMesh
+    from dieselfluid_tpu_torch.utils.guard import GuardedSlabRunner
+
+    out = Path(__file__).resolve().parent / "build" / "chip_smoke_slab"
+    shutil.rmtree(out, ignore_errors=True)
+    try:
+        params, state, _, delta = bench_setup(100, device)
+        spec = slab_spec_for(state, params, migrate=1 << 14)
+        mesh = LocalMesh((SLAB_SHARDS,), device)
+
+        def make_step(p):
+            return make_dense_halo_pcisph_step(mesh, spec, p, delta,
+                                               warm_start=True)
+
+        ck = Checkpointer(str(out / "ckpt"), interval=10)
+        runner = GuardedSlabRunner(distribute_dense(state, spec), params,
+                                   make_step, check_every=10,
+                                   checkpointer=ck, mesh=mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        max_vel, n_live = runner.run(20)
+        run_s = time.perf_counter() - t0
+        saved = sorted(os.listdir(ck.root))
+        loaded, step, lparams = load_slab_checkpoint(
+            os.path.join(ck.root, saved[-1]), mesh=mesh)
+        same = all(torch.equal(getattr(loaded, f), getattr(runner.slabs, f))
+                   for f in ("pos", "vel", "alive", "pressure", "dropped"))
+        resumed = GuardedSlabRunner(loaded, lparams, make_step,
+                                    check_every=5, mesh=mesh)
+        r_vel, r_live = resumed.run(5)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = distributed_slab.main(["--out", str(out / "example")])
+        ex_s = time.perf_counter() - t0
+        lines = buf.getvalue().strip().splitlines()
+        for line in lines:
+            log(f"  distributed_slab: {line}")
+        res = {"steps": runner.step_count, "recoveries": runner.recoveries,
+               "max_vel": max_vel, "n_live": n_live, "run_s": run_s,
+               "checkpoints": saved, "reloaded_step": step,
+               "reloaded_equal": same, "resumed_steps": resumed.step_count,
+               "resumed_recoveries": resumed.recoveries,
+               "resumed_n_live": r_live, "example_rc": rc,
+               "example_s": ex_s}
+        log("slab_guard_1m " + json.dumps(res))
+        check(runner.step_count == 20 and runner.recoveries == 0
+              and n_live == runner.n0, f"19h: guarded run {res}")
+        check(step == 20 and same, f"19h: checkpoint round trip {res}")
+        check(resumed.step_count == 5 and resumed.recoveries == 0
+              and r_live == runner.n0, f"19h: resumed run {res}")
+        check(rc == 0 and "round-trip OK" in lines[-1]
+              and "overflow=0" in lines[0], f"19h: example twin {lines}")
+        return res
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def run_phase19(device) -> dict:
+    """Phase 19, after every earlier phase; every sub-phase's launch
+    counts are taken over its own main-path run."""
+    res = {"19a": run_config5(device), "19b": check_slab_parity(device),
+           "19c": check_slab_grad(device), "19d": run_slab_2d(device),
+           "19e": run_slab_plain(device), "19f": run_tiled_render(device),
+           "19g": check_slab_cpu(device), "19h": run_slab_guard(device)}
+    res["launches"] = [res["19a"]["wcsph"]["launches"],
+                       res["19a"]["pcisph"]["launches"],
+                       res["19c"]["launches"], res["19d"]["launches"]]
+    res["kernel_errs"] = [res["19a"]["wcsph"]["kernel_errs"],
+                          res["19a"]["pcisph"]["kernel_errs"],
+                          res["19c"]["kernel_errs"],
+                          res["19d"]["kernel_errs"]]
+    return res
+
+
 def kernel_body(kern) -> str:
     """The kernel body a kernels-line row's launches run, with its CTAs per
     SM on this card (a sweep at the bench's capacity), from the libraries'
@@ -2472,13 +3295,20 @@ def main() -> int:
     collider = run_collider(device)
     run_cli_default_and_examples(device)
     check_xla_cpu(device)
+
+    # Phase 19, after every earlier phase: configuration 5, the sharded
+    # dense path (parallel/) on a LocalMesh of the card.
+    slab = run_phase19(device)
+    for halo_errs in slab["kernel_errs"]:
+        for name, e in halo_errs.items():
+            errs[name] = max(errs[name], e)
     check(not jax_package_modules(),
           f"the JAX package was imported: {jax_package_modules()}")
 
     kernels = []
     main_paths = (serving, training, sr["launches"], comp["launches"],
                   skip["launches"], cli_run["launches"], cli_sky["launches"],
-                  collider["dense"]["launches"])
+                  collider["dense"]["launches"], *slab["launches"])
     for kern, source in ([(k, sw.SOURCE) for k in sw.SWEEPS]
                          + [(k, st.SOURCE) for k in st.KERNELS]):
         ms, plain_ms, kms = times[kern.name]

@@ -1,2 +1,3 @@
-"""Twins of the repo's examples on the port: `dam_break` and
-`fit_material` (python -m dieselfluid_tpu_torch.examples.<name> [--cpu])."""
+"""Twins of the repo's examples on the port: `dam_break`, `fit_material`
+and `distributed_slab` (python -m dieselfluid_tpu_torch.examples.<name>
+[--cpu])."""

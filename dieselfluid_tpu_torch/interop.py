@@ -8,7 +8,8 @@ DensePlaneState resumes in the port. Static configs (FluidParams, SimConfig,
 DenseCellSpec) are rebuilt field for field from any object with the same
 fields, a camera from its transform and scalars, PBR materials and a
 scene's render arrays from numpy leaves, a neighbor table, a mesh and LSH
-hyperplanes from theirs. Nothing here imports JAX: a JAX state is converted with `np.asarray`
+hyperplanes from theirs, a sharded SlabState and the slab specs (SlabSpec,
+DenseSlabSpec, DenseSlab2DSpec) from theirs. Nothing here imports JAX: a JAX state is converted with `np.asarray`
 on the caller's side.
 """
 
@@ -26,6 +27,9 @@ from dieselfluid_tpu_torch.models.materials import Materials
 from dieselfluid_tpu_torch.models.particles import FluidState
 from dieselfluid_tpu_torch.neighbors.types import Neighborhood
 from dieselfluid_tpu_torch.ops.cellops import DenseCellSpec
+from dieselfluid_tpu_torch.parallel.dense_halo import DenseSlabSpec
+from dieselfluid_tpu_torch.parallel.dense_halo2d import DenseSlab2DSpec
+from dieselfluid_tpu_torch.parallel.halo import SlabSpec, SlabState
 from dieselfluid_tpu_torch.render.camera import Camera
 from dieselfluid_tpu_torch.render.pbr import PBRMaterial
 from dieselfluid_tpu_torch.solvers.dense_resident import DensePlaneState
@@ -193,3 +197,30 @@ def lsh_vectors_from_numpy(vectors, *, device) -> torch.Tensor:
     JAX package's `hash_vectors(key, spec)` through `np.asarray`, whose
     jax.random bits the port cannot draw)."""
     return _f32(vectors, device).reshape(-1, 3)
+
+
+def slab_spec_from(obj) -> SlabSpec:
+    """The port's SlabSpec from any object with its fields."""
+    return _same_fields(SlabSpec, obj)
+
+
+def dense_slab_spec_from(obj) -> DenseSlabSpec:
+    """The port's DenseSlabSpec from any object with its fields."""
+    return _same_fields(DenseSlabSpec, obj)
+
+
+def dense_slab2d_spec_from(obj) -> DenseSlab2DSpec:
+    """The port's DenseSlab2DSpec from any object with its fields."""
+    return _same_fields(DenseSlab2DSpec, obj)
+
+
+def slab_state_from_numpy(pos, vel, alive, dropped, pressure=None,
+                          boundary_pos=None, boundary_mask=None, *,
+                          device) -> SlabState:
+    """A SlabState on `device` from numpy-convertible arrays (a JAX
+    SlabState's fields through `np.asarray`, every shard's store)."""
+    return SlabState(pos=_f32(pos, device), vel=_f32(vel, device),
+                     alive=_f32(alive, device), dropped=_f32(dropped, device),
+                     pressure=_opt_f32(pressure, device),
+                     boundary_pos=_opt_f32(boundary_pos, device),
+                     boundary_mask=_opt_f32(boundary_mask, device))

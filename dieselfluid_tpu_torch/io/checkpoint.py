@@ -5,8 +5,10 @@ A checkpoint is a directory: `state.pt`, the FluidState's tensors copied to
 the host and written with `torch.save`, and `meta.json`, the JAX package's
 schema (step, params, config, has_boundary). The port does not read the JAX
 package's orbax checkpoints (their `state/` directory), nor does the JAX
-package read these. The slab (multi-device) variants wait for `parallel/`
-(ROADMAP A12).
+package read these. A slab checkpoint (`save_slab_checkpoint`) holds a
+sharded SlabState (parallel/halo.py) gathered into every shard's store,
+`slabs.pt` beside `meta.json` with `"kind": "slab"`; it loads onto any mesh
+of the same shard count.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from dieselfluid_tpu_torch.config import FluidParams, SimConfig
 from dieselfluid_tpu_torch.models.particles import FluidState
 
 STATE_FILE = "state.pt"
+SLAB_FILE = "slabs.pt"
 
 
 def save_checkpoint(path: str, state: FluidState, step: int,
@@ -61,11 +64,70 @@ def load_checkpoint(path: str, device
     state = FluidState(pos=t["pos"], vel=t["vel"], force=t["force"],
                        density=t["density"], pressure=t["pressure"],
                        boundary_pos=t.get("boundary_pos"))
-    params = (FluidParams(**{**meta["params"],
-                             "gravity": tuple(meta["params"]["gravity"])})
-              if meta.get("params") else None)
+    params = _params_from(meta)
     config = SimConfig(**meta["config"]) if meta.get("config") else None
     return state, meta["step"], params, config
+
+
+def _params_from(meta) -> Optional[FluidParams]:
+    if not meta.get("params"):
+        return None
+    return FluidParams(**{**meta["params"],
+                          "gravity": tuple(meta["params"]["gravity"])})
+
+
+def save_slab_checkpoint(path: str, slabs, step: int,
+                         params: Optional[FluidParams] = None, mesh=None,
+                         replicated_boundary: bool = False):
+    """Checkpoint a sharded SlabState. With `mesh` the process's slabs are
+    gathered first (a DistMesh's from every rank; its rank 0 writes);
+    without it `slabs` holds every shard's store, as a LocalMesh's does.
+    `replicated_boundary`: the 2-D mesh's whole boundary set."""
+    from dieselfluid_tpu_torch.parallel.halo import global_slabs
+
+    if mesh is not None:
+        slabs = global_slabs(mesh, slabs, replicated_boundary)
+        if mesh.shards[0] != 0:
+            return
+    path = os.path.abspath(path)
+    if os.path.exists(path):
+        shutil.rmtree(path)
+    os.makedirs(path)
+    tensors = {k: v.detach().cpu() for k, v in slabs._asdict().items()
+               if v is not None}
+    torch.save(tensors, os.path.join(path, SLAB_FILE))
+    meta = {
+        "step": int(step),
+        "params": dataclasses.asdict(params) if params else None,
+        "kind": "slab",
+    }
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        json.dump(meta, f, indent=1)
+
+
+def load_slab_checkpoint(path: str, device=None, mesh=None,
+                         replicated_boundary: bool = False):
+    """Restore (SlabState, step, params) saved by save_slab_checkpoint:
+    every shard's store on `device`, or with `mesh` the process's part on
+    the mesh's device (any mesh of the saved shard count)."""
+    from dieselfluid_tpu_torch.parallel.halo import SlabState, local_slabs
+
+    if device is None and mesh is None:
+        raise ValueError("load_slab_checkpoint needs a device or a mesh")
+    path = os.path.abspath(path)
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    if meta.get("kind") != "slab":
+        raise ValueError(f"{path} is not a slab checkpoint")
+    t = torch.load(os.path.join(path, SLAB_FILE), map_location="cpu",
+                   weights_only=True)
+    slabs = SlabState(**t)
+    if mesh is not None:
+        slabs = local_slabs(mesh, slabs, replicated_boundary)
+    else:
+        slabs = SlabState(*[None if v is None else v.to(device)
+                            for v in slabs])
+    return slabs, meta["step"], _params_from(meta)
 
 
 class Checkpointer:

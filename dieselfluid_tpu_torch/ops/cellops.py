@@ -110,9 +110,10 @@ def dense_indices(pos: torch.Tensor, spec: DenseCellSpec):
     sorted_cid = cid[order]
     n = pos.shape[0]
     idx = torch.arange(n, dtype=torch.int64, device=dev)
-    is_start = torch.ones(n, dtype=torch.bool, device=dev)
-    is_start[1:] = sorted_cid[1:] != sorted_cid[:-1]
-    first_occ = torch.cummax(torch.where(is_start, idx, 0), dim=0).values
+    # Each sorted entry's run start, by binary search: torch.cummax over
+    # one long row runs as one serial scan on the card (192 of 325 ms of a
+    # 16M sharded step).
+    first_occ = torch.searchsorted(sorted_cid, sorted_cid)
     rank = torch.empty_like(idx)
     rank[order] = idx - first_occ
 
@@ -183,12 +184,16 @@ def build_planes_from_map(values: Dict[str, torch.Tensor],
 
 
 def gather_plane(plane: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
-    """Per-particle values read back out of a dense plane."""
-    return plane.reshape(-1)[flat]
+    """Per-particle values read back out of a dense plane. An index_select,
+    whose backward adds into the plane's gradient with atomics: the
+    backward of `plane[flat]` sorts the indices and walks each run of
+    equal ones serially, and an overflowed or dead slot's `flat` repeats
+    (a sharded store's dead slots share one: seconds per gather at 1M)."""
+    return plane.reshape(-1).index_select(0, flat)
 
 
 def gather_planes(planes: Sequence[torch.Tensor],
                   flat: torch.Tensor) -> torch.Tensor:
     """Per-particle values of C planes as one (N, C) tensor. One gather per
     plane (no stacked plane-size copy)."""
-    return torch.stack([p.reshape(-1)[flat] for p in planes], dim=-1)
+    return torch.stack([gather_plane(p, flat) for p in planes], dim=-1)

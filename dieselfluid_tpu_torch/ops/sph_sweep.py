@@ -457,8 +457,10 @@ def _sweep_plain(pair: Callable, ins: Planes, n_out: int,
 
     Views each plane as (px, py, z-cells, cap) and, for each of the 27 cell
     offsets, evaluates the pair function on (cells, cap, cap) broadcasts of
-    own slots against the offset cell's slots. Chunked over x so that one
-    broadcast holds about `chunk_elems` pairs."""
+    own slots against the offset cell's slots. Own cells are the interior
+    cells inside the bounding box of the occupied ones (every other own
+    cell's outputs are 0 once masked, as the caller masks them), chunked
+    over x so that one broadcast holds about `chunk_elems` pairs."""
     px, py, cap = spec.px, spec.py, spec.capacity
     nx, ny = spec.nx, spec.ny
     ncz = spec.row_len // cap
@@ -466,17 +468,24 @@ def _sweep_plain(pair: Callable, ins: Planes, n_out: int,
     cells = {n: p.view(px, py, ncz, cap) for n, p in ins.items()}
     outs = [torch.zeros((px, py, ncz, cap), dtype=torch.float32, device=dev)
             for _ in range(n_out)]
-    step = max(1, chunk_elems // (ny * (ncz - 2) * cap * cap))
-    for x0 in range(1, nx + 1, step):
-        x1 = min(x0 + step, nx + 1)
-        own = {n: c[x0:x1, 1:ny + 1, 1:ncz - 1, :, None]
-               for n, c in cells.items()}
+    occ = cells["mask"][1:nx + 1, 1:ny + 1, 1:ncz - 1].amax(dim=-1) > 0
+    if not bool(occ.any()):
+        return [o.view(spec.plane_shape) for o in outs]
+    (xa, xb), (ya, yb), (za, zb) = [
+        (int(i[0]) + 1, int(i[-1]) + 2) for i in (
+            torch.nonzero(occ.any(dim=(1, 2)))[:, 0],
+            torch.nonzero(occ.any(dim=(0, 2)))[:, 0],
+            torch.nonzero(occ.any(dim=(0, 1)))[:, 0])]
+    step = max(1, chunk_elems // ((yb - ya) * (zb - za) * cap * cap))
+    for x0 in range(xa, xb, step):
+        x1 = min(x0 + step, xb)
+        own = {n: c[x0:x1, ya:yb, za:zb, :, None] for n, c in cells.items()}
         acc = [None] * n_out
         for ox in (-1, 0, 1):
             for oy in (-1, 0, 1):
                 for oz in (-1, 0, 1):
-                    cand = {n: c[x0 + ox:x1 + ox, 1 + oy:ny + 1 + oy,
-                                 1 + oz:ncz - 1 + oz, None, :]
+                    cand = {n: c[x0 + ox:x1 + ox, ya + oy:yb + oy,
+                                 za + oz:zb + oz, None, :]
                             for n, c in cells.items()}
                     contrib = pair(own, cand)
                     for o in range(n_out):
@@ -484,7 +493,7 @@ def _sweep_plain(pair: Callable, ins: Planes, n_out: int,
                         acc[o] = s if acc[o] is None else acc[o] + s
         own_m = own["mask"][..., 0]
         for o in range(n_out):
-            outs[o][x0:x1, 1:ny + 1, 1:ncz - 1, :] = acc[o] * own_m
+            outs[o][x0:x1, ya:yb, za:zb, :] = acc[o] * own_m
     return [o.view(spec.plane_shape) for o in outs]
 
 

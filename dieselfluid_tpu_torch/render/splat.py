@@ -107,8 +107,14 @@ def splat_particles(
     env_diffuse: float = 0.75,
     env_specular: float = 0.35,
     chunk: Optional[int] = None,             # particles per scatter block
+    full_height: Optional[int] = None,
+    y_offset=0,
 ) -> SplatImage:
     """Rasterize particles as soft spheres. Fully differentiable.
+
+    Tile mode (parallel/render_shard.py): `height` is the tile's height,
+    `full_height` the whole image's and `y_offset` the tile's first row.
+    The projection uses the whole image; the scatter lands in the tile.
 
     `env_cube` lights each sample: its fake sphere normal, rotated to world
     space, and the view reflection look up the cubemap's SH9 projection.
@@ -119,7 +125,8 @@ def splat_particles(
     dev = pos.device
     radius = torch.broadcast_to(
         torch.as_tensor(radius, dtype=torch.float32, device=dev), (n,))
-    u, v, depth, focal = _project(cam, pos, width, height)
+    u, v, depth, focal = _project(cam, pos, width, full_height or height)
+    v = v - y_offset
     in_front = depth > 1e-3
     pix_r = pixel_radius(radius, focal, depth, patch)
     zmin = depth_min(depth, in_front)

@@ -213,9 +213,9 @@ def bin_tile_entries(u, v, z_norm, pix_r, in_front, spec: TileSpec):
     order = torch.argsort(sort_key, stable=True)
     sorted_ids = sort_key[order]
     idx = torch.arange(n, dtype=torch.int64, device=dev)
-    is_start = torch.ones(n, dtype=torch.bool, device=dev)
-    is_start[1:] = sorted_ids[1:] != sorted_ids[:-1]
-    first_occ = torch.cummax(torch.where(is_start, idx, 0), dim=0).values
+    # Run starts by binary search (cellops.dense_indices: a cummax over
+    # one long row is one serial scan on the card).
+    first_occ = torch.searchsorted(sorted_ids, sorted_ids)
     rank = torch.empty_like(idx)
     rank[order] = idx - first_occ
 

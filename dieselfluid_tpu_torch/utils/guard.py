@@ -13,12 +13,13 @@ and re-runs with a shorter timestep.
 dt. Snapshots hold references to the state's tensors, not copies: no step of
 the port writes into a state tensor in place (every solver returns new
 tensors; `FluidState._replace` shares the rest), so a snapshot stays what it
-was. The multi-device `GuardedSlabRunner` waits for `parallel/` (ROADMAP
-A12).
+was. `GuardedSlabRunner` does the same for the sharded slab steps
+(parallel/), on their own global diagnostics.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -63,6 +64,104 @@ class SimulationDiverged(RuntimeError):
                          f"overflow={report.overflow})")
         self.report = report
         self.step = step
+
+
+class GuardedSlabRunner:
+    """Failure detection and rollback for the sharded slab steps
+    (parallel/halo.py, dense_halo.py, dense_halo2d.py).
+
+    A slab step returns its global diagnostics (the pmax'd max_vel, the
+    psum'd n_live), so a check reads 3 scalars (those two and the dropped
+    count) in one host copy per chunk, never the state. Failure policy:
+      * non-finite global max |v|, or above the acoustic limit -> blowup
+      * global live count below the initial one by more than `drop_budget`
+        -> particles lost (migration or store overflow)
+    On failure: restore the last healthy SlabState, dt *= dt_backoff,
+    rebind the step via `make_step(params)` and retry, as GuardedRunner.
+    `checkpointer` (io.checkpoint.Checkpointer): healthy slabs are written
+    with save_slab_checkpoint under its root. `mesh`: the step's mesh,
+    where the slabs hold only this process's shards (a DistMesh)."""
+
+    def __init__(self, slabs, params: FluidParams,
+                 make_step: Callable[[FluidParams], Callable],
+                 check_every: int = 25, vel_limit: float = 1.0,
+                 drop_budget: int = 0, dt_backoff: float = 0.5,
+                 max_retries: int = 3, checkpointer=None, mesh=None):
+        self.slabs = slabs
+        self.params = params
+        self.make_step = make_step
+        self.step_fn = make_step(params)
+        self.check_every = check_every
+        self.vel_limit = vel_limit
+        self.drop_budget = drop_budget
+        self.dt_backoff = dt_backoff
+        self.max_retries = max_retries
+        self.checkpointer = checkpointer
+        self.mesh = mesh
+        self.step_count = 0
+        self.recoveries = 0
+        self.dropped = 0.0
+        self._last_saved = 0
+        live = slabs.alive.sum()
+        if mesh is not None:
+            live = mesh.psum([a.sum() for a in mesh.split(slabs.alive)])[0]
+        self.n0 = float(live)
+        self._snapshot = (slabs, 0)
+
+    @property
+    def sound_speed(self) -> float:
+        return float(np.sqrt(self.params.tait_w / self.params.d0))
+
+    def run(self, steps: int):
+        """Advance `steps` frames; returns (max_vel, n_live) of the last
+        chunk as host floats."""
+        done = 0
+        mv = nl = None
+        while done < steps:
+            n = min(self.check_every, steps - done)
+            s = self.slabs
+            for _ in range(n):
+                s, max_vel, n_live, *_rest = self.step_fn(s)
+            mv, nl, self.dropped = torch.stack([
+                max_vel.to(torch.float64), n_live.to(torch.float64),
+                s.dropped.to(torch.float64)]).cpu().tolist()
+            failure = None
+            if not np.isfinite(mv):
+                failure = "non-finite velocities"
+            elif mv > self.vel_limit * self.sound_speed:
+                failure = "velocity blowup past the acoustic limit"
+            elif nl < self.n0 - self.drop_budget:
+                failure = (f"particles lost ({self.n0 - nl:.0f} > budget "
+                           f"{self.drop_budget})")
+            if failure is None:
+                self.slabs = s
+                self.step_count += n
+                done += n
+                self._snapshot = (s, self.step_count)
+                if self.checkpointer is not None and (
+                        self.step_count - self._last_saved
+                        >= self.checkpointer.interval):
+                    from dieselfluid_tpu_torch.io.checkpoint import (
+                        save_slab_checkpoint)
+
+                    save_slab_checkpoint(
+                        os.path.join(self.checkpointer.root,
+                                     f"step_{self.step_count:09d}"),
+                        self.slabs, self.step_count, self.params,
+                        mesh=self.mesh)
+                    self.checkpointer._prune()
+                    self._last_saved = self.step_count
+                continue
+            if self.recoveries >= self.max_retries:
+                rep = HealthReport(bool(np.isfinite(mv)), mv, 0.0,
+                                   int(self.n0 - nl))
+                raise SimulationDiverged(failure, rep, self.step_count)
+            self.recoveries += 1
+            self.slabs, self.step_count = self._snapshot
+            self.params = self.params.replace(
+                dt=float(self.params.dt * self.dt_backoff))
+            self.step_fn = self.make_step(self.params)
+        return mv, nl
 
 
 class GuardedRunner:

@@ -126,6 +126,93 @@ def test_kernel_matches_plain_and_counts_launch(planes, name):
         assert bool((g[empty] == 0).all())
 
 
+HALO_NAMES = ["density", "force", "viscosity", "pressure_pq", "pressure",
+              "density_bwd", "pressure_bwd", "viscosity_bwd"]
+
+
+@pytest.fixture(scope="module")
+def slab_planes(cuda):
+    """Halo-filled slab planes as parallel/dense_halo.py builds them: a
+    jittered 16^3 dam break (extent 0.75) over 4 x-slabs on the card, with
+    seeded velocities, rho, pressure, pq and cotangents, every channel's
+    ghost columns exchanged (occupied on both sides of slab 1, zero at the
+    edges) and x shifted into the local frame."""
+    from dieselfluid_tpu_torch.parallel import dense_halo as pdh
+    from dieselfluid_tpu_torch.parallel.mesh import LocalMesh
+
+    params = lattice_rest_density(DX, FluidParams.for_spacing(DX))
+    pos = dam_break_state(N3, params, "cpu", extent=0.75).pos.numpy()
+    rng = np.random.default_rng(19)
+    pos = pos + rng.uniform(-0.3, 0.3, pos.shape).astype(np.float32) * DX
+    n = pos.shape[0]
+    vals = {c: rng.normal(size=n).astype(np.float32)
+            for c in ("vx", "vy", "vz", "ct_0", "ct_1", "ct_2")}
+    vals["rho"] = (rng.uniform(0.9, 1.2, n) * params.d0).astype(np.float32)
+    vals["press"] = rng.uniform(0.0, 50.0, n).astype(np.float32)
+    vals["pq"] = vals["press"] / vals["rho"] ** 2
+    spec = pdh.DenseSlabSpec.build(4, params.h, capacity=n,
+                                   migrate_capacity=64, cell_capacity=16)
+    lspec = spec.local_spec
+    mesh = LocalMesh((4,), cuda)
+    x = torch.from_numpy(pos[:, 0])
+    shard = torch.clamp(((x - spec.lo) / spec.slab_width).long(), 0, 3)
+    planes = []
+    for s, me in enumerate(mesh.axis_index("sp")):
+        sel = shard == s
+        p = torch.from_numpy(pos)[sel].to(cuda)
+        alive = torch.ones(p.shape[0], device=cuda)
+        entries, flat, valid, _, _, _ = pdh._local_layout(p, alive, spec,
+                                                          lspec, me)
+        ch = {c: torch.from_numpy(v)[sel].to(cuda) for c, v in vals.items()}
+        ch.update(x=entries[:, 0], y=entries[:, 1], z=entries[:, 2])
+        planes.append(tc.build_planes(ch, flat, valid, lspec))
+    planes = pdh._exchange_all(mesh, planes, lspec, list(planes[0]))
+    planes = [pdh._shift_ghost_x(p, lspec, spec.slab_width) for p in planes]
+    py, nx = lspec.py, lspec.nx
+    lo = [float(p["mask"][:py].sum()) for p in planes]
+    hi = [float(p["mask"][(nx + 1) * py:].sum()) for p in planes]
+    assert lo[1] > 0 and hi[1] > 0 and lo[0] == 0 and hi[3] == 0
+    return params, lspec, planes
+
+
+def _ghost_ring(t, spec):
+    """The values of a plane on its ghost ring: x and y ghost columns and
+    the two ghost z-blocks of every row."""
+    v = t.reshape(spec.px, spec.py, spec.sub, 128)
+    return torch.cat([v[0].flatten(), v[-1].flatten(), v[:, 0].flatten(),
+                      v[:, -1].flatten(), v[:, :, 0].flatten(),
+                      v[:, :, -1].flatten()])
+
+
+@pytest.mark.parametrize("name", HALO_NAMES)
+def test_kernel_on_halo_filled_slab_planes(slab_planes, name):
+    """K1-K6, K8, K9 on slab planes whose ghost columns hold the
+    neighbours' particles (the sharded steps' planes) against their plain
+    versions; every output is 0 on the ghost ring and at empty slots."""
+    params, spec, planes = slab_planes
+    counter = _SWEEP_OF[name]
+    for p in planes:
+        before = counter.launches
+        got = _call(name, params, spec, p, plain=False)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        want = _call(name, params, spec, p, plain=True)
+        if name in BWD_NAMES:
+            for g, w in zip(got, want):
+                err = float((g - w).abs().max()) / max(
+                    float(w.abs().max()), 1e-30)
+                assert err <= sw.KERNEL_BWD_REL_TOL, name
+        else:
+            scale = max(max(float(w.abs().max()) for w in want), 1e-30)
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            assert err / scale <= sw.KERNEL_REL_TOL, name
+        empty = p["mask"] == 0
+        for g in got:
+            assert bool(torch.isfinite(g).all())
+            assert not bool(_ghost_ring(g, spec).any()), name
+            assert not bool(g[empty].any()), name
+
+
 def test_cuda_wrapper_rejects_bad_planes(planes):
     params, spec, p = planes
     k = KernelCoeffs.build(params.h)

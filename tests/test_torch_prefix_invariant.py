@@ -18,7 +18,11 @@ render path runs them; and Materials, which runs the factored pressure
 and viscosity, backward included) and PCISPH steps (the correction loop's
 predicted planes, the column_skip loop's, the unrolled loop's scatter of
 predicted positions, backward included), and the resident WCSPH and PCISPH
-states over several skin > 0 steps between rebuilds.
+states over several skin > 0 steps between rebuilds; and the slab-decomposed
+steps of parallel/ (1-D WCSPH static and Materials, backward included,
+PCISPH, and the 2-D PCISPH with boundary), whose planes carry the
+neighbours' columns in their ghost ring: the exchanged masks keep the
+prefix form and every ghost plane value is 0 at an empty slot.
 
 And the rasterizer's invariant (K11 walks each tile's slots only up to the
 first 128-slot chunk whose first slot is empty): in the slot planes
@@ -203,6 +207,50 @@ def test_resident_states_between_rebuilds_hand_prefix_masks(spy):
             assert prefix_violations(ps.planes["mask"], spec.capacity) == 0
         assert 0 < ages[-1] < 6, ages
     _check(spy, spec, ("density", "force", "viscosity", "pressure_pq"))
+
+
+def test_sharded_steps_hand_prefix_masks(spy):
+    """Every sweep call of the sharded dense steps on a jittered, moving
+    dam break over 4 x-slabs and a 2x2 mesh, ghost columns occupied."""
+    from dieselfluid_tpu_torch.geometry.mesh import box
+    from dieselfluid_tpu_torch.parallel import dense_halo as pdh
+    from dieselfluid_tpu_torch.parallel import dense_halo2d as pd2
+    from dieselfluid_tpu_torch.parallel.mesh import LocalMesh
+
+    params, s, _ = _setup(seed=5)
+    delta = compute_pci_delta(params, DX)
+    mesh = LocalMesh((4,), CPU)
+    spec = pdh.DenseSlabSpec.build(4, params.h, capacity=1024,
+                                   migrate_capacity=256, cell_capacity=16)
+    slabs = pdh.distribute_dense(s, spec)
+    pdh.make_dense_halo_wcsph_step(mesh, spec, params)(slabs)
+    mats = Materials.from_params(params, CPU, requires_grad=True)
+    pos = slabs.pos.clone().requires_grad_()
+    out, *_ = pdh.make_dense_halo_wcsph_step(mesh, spec, params,
+                                             materials_arg=True)(
+        slabs._replace(pos=pos), mats)
+    torch.autograd.grad(((out.alive > 0)[:, None] * out.pos ** 2).sum(),
+                        (mats.mass, pos))
+    pdh.make_dense_halo_pcisph_step(mesh, spec, params, delta,
+                                    warm_start=True)(slabs)
+    lspec = spec.local_spec
+    py, hi = lspec.py, (lspec.nx + 1) * lspec.py
+    ghosts = [float(ins["mask"][:py].sum() + ins["mask"][hi:].sum())
+              for _, ins in spy]
+    assert max(ghosts) > 0, "no sweep saw an occupied ghost column"
+    _check(spy, lspec, ("density", "force", "viscosity", "pressure",
+                        "pressure_pq", "density_bwd", "pressure_bwd",
+                        "viscosity_bwd"))
+
+    spy.clear()
+    spec2 = pd2.DenseSlab2DSpec.build(2, 2, params.h, capacity=1024,
+                                      migrate_capacity=256, cell_capacity=16)
+    bnd = box(1.6, 1.6, 1.6, device=CPU).generate_boundary_particles(1.0)
+    slabs2 = pd2.distribute_2d(s._replace(boundary_pos=bnd), spec2)
+    pd2.make_dense_halo_pcisph_step_2d(pd2.make_mesh_2d(2, 2, CPU), spec2,
+                                       params, delta, boundary=True,
+                                       warm_start=True)(slabs2)
+    _check(spy, spec2.local_spec, ("density", "viscosity", "pressure_pq"))
 
 
 @pytest.mark.parametrize("case", ["overflow", "off_screen"])

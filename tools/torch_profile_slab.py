@@ -1,0 +1,183 @@
+"""Device-time breakdown of the port's sharded dense steps (parallel/) on
+one CUDA card (torch.profiler; CUDA kernel self time per step).
+
+    python tools/torch_profile_slab.py [--n3 252]
+
+chip_smoke.py's phase 19a setup: the bench's dam break at n3 (252:
+16,003,008 particles, BASELINE.json configuration 5) over 4 x-slabs of a
+LocalMesh on the card. For the sharded WCSPH step and the warm-started
+PCISPH step: 2 warm-up steps, then 3 steps unprofiled (wall ms/step) and 3
+under the profiler. Then the 1M materials_arg WCSPH forward+backward of
+phase 19c (2 warm-up, 3 profiled). Prints one JSON line per case: wall
+ms/step with and without the profiler, device-busy ms/step, idle share of
+the profiled wall, launches per step, device ms/step by group (the sweep
+kernels, sort, index/gather/scatter, cat (the ghost exchanges' and the
+joins' copies), memset/copy, the rest: elementwise and reductions), the
+ten costliest kernels, and the device ms/step of the halo's own work: the
+kernels issued inside dense_halo's ghost-column exchange
+(`_exchange_ghost_columns`, forward and in the backward's cotangent sync)
+and inside its ghost x shift (`_shift_ghost_x`), each call wrapped here in
+a `record_function` range, with their share of the busy and of the
+profiled wall time.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+import torch  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
+from torch.profiler import (  # noqa: E402
+    ProfilerActivity, profile, record_function)
+
+import chip_smoke  # noqa: E402
+from dieselfluid_tpu_torch.parallel import dense_halo  # noqa: E402
+
+#: range name -> the dense_halo function whose calls it wraps.
+RANGES = {"ghost_exchange": "_exchange_ghost_columns",
+          "ghost_shift": "_shift_ghost_x"}
+
+
+def annotate_halo():
+    """Wrap each RANGES function of dense_halo (the steps look them up as
+    module globals) in a record_function range of its name."""
+    for label, attr in RANGES.items():
+        fn = getattr(dense_halo, attr)
+
+        def wrapped(*args, _fn=fn, _label=label, **kwargs):
+            with record_function(_label):
+                return _fn(*args, **kwargs)
+
+        setattr(dense_halo, attr, wrapped)
+
+
+def group(key: str) -> str:
+    k = key.lower()
+    if "compact_sweep_kernel" in k:
+        return "sweeps"
+    if "sort" in k or "radix" in k or "cub" in k:
+        return "sort"
+    if "cat" in k and "copy" in k:
+        return "cat"
+    if any(s in k for s in ("index", "gather", "scatter")):
+        return "index/gather/scatter"
+    if "memset" in k or "memcpy" in k or "fill" in k or "copy" in k:
+        return "memset/copy"
+    return "elementwise/reduce"
+
+
+def measure(name: str, run, steps: int, extra: dict):
+    """Wall ms/step of `run` (one step) unprofiled and profiled, and the
+    profiled device time by group."""
+    def window():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / steps * 1e3
+
+    wall_unprof = window()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = window()
+    groups, kernels, busy, launches = {}, {}, 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.key in RANGES:
+            continue
+        t = e.self_device_time_total / 1e3 / steps
+        groups[group(e.key)] = groups.get(group(e.key), 0.0) + t
+        kernels[e.key[:90]] = t
+        busy += t
+        launches += e.count
+    top = sorted(kernels.items(), key=lambda x: -x[1])[:10]
+    # The device time of the kernels each range's calls issued (their CPU
+    # ops' kernels, the ranges do not nest).
+    ranges = {name: sum(e.device_time_total for e in prof.events()
+                        if e.name == name and e.device_type == DeviceType.CPU)
+              / 1e3 / steps for name in RANGES}
+    print(json.dumps({
+        "case": name, **extra, "steps_profiled": steps,
+        "wall_ms_per_step_unprofiled": wall_unprof,
+        "wall_ms_per_step_profiled": wall,
+        "device_busy_ms_per_step": busy,
+        "idle_share_of_profiled_wall": 1 - busy / wall,
+        "kernel_launches_per_step": launches / steps,
+        "groups_ms_per_step": dict(sorted(groups.items(),
+                                          key=lambda x: -x[1])),
+        "top_kernels_ms_per_step": dict(top),
+        "halo_ms_per_step": ranges,
+        "halo_share_of_busy": {n: t / busy for n, t in ranges.items()},
+        "halo_share_of_profiled_wall": {n: t / wall
+                                        for n, t in ranges.items()}}),
+        flush=True)
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--n3", type=int, default=chip_smoke.SLAB_N3)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 2
+    from dieselfluid_tpu_torch.parallel.dense_halo import (
+        distribute_dense, make_dense_halo_pcisph_step,
+        make_dense_halo_wcsph_step)
+    from dieselfluid_tpu_torch.parallel.mesh import LocalMesh
+
+    dev = torch.device("cuda", 0)
+    annotate_halo()
+    print(chip_smoke.card_line(), flush=True)
+    params, state, _, delta = chip_smoke.bench_setup(args.n3, dev)
+    n = state.pos.shape[0]
+    spec = chip_smoke.slab_spec_for(state, params)
+    slabs0 = distribute_dense(state, spec)
+    del state
+    mesh = LocalMesh((chip_smoke.SLAB_SHARDS,), dev)
+    for solver in ("wcsph", "pcisph"):
+        step = (make_dense_halo_wcsph_step(mesh, spec, params)
+                if solver == "wcsph" else make_dense_halo_pcisph_step(
+                    mesh, spec, params, delta, warm_start=True))
+        slabs = slabs0
+        for _ in range(2):
+            slabs = step(slabs)[0]
+        start = slabs
+
+        def run(step=step, start=start):
+            step(start)
+
+        measure(f"{solver}_sharded", run, 3,
+                {"n": n, "iters": getattr(step, "iters", None)})
+        del slabs, start
+    del slabs0
+
+    params, base, _, _ = chip_smoke.bench_setup(100, dev)
+    state = chip_smoke.seeded_state(base, 100, 43, 0.1, 0.05)
+    spec = chip_smoke.slab_spec_for(state, params, migrate=1 << 14)
+    slabs = distribute_dense(state, spec)
+    from dieselfluid_tpu_torch.models.materials import Materials
+
+    gstep = make_dense_halo_wcsph_step(mesh, spec, params,
+                                       materials_arg=True)
+
+    def fwd_bwd():
+        mats = Materials.from_params(params, dev, requires_grad=True)
+        pos = slabs.pos.clone().requires_grad_()
+        out, *_ = gstep(slabs._replace(pos=pos), mats)
+        loss = ((out.alive > 0)[:, None] * torch.sin(3.0 * out.pos)).sum()
+        torch.autograd.grad(loss, [*mats, pos])
+
+    for _ in range(2):
+        fwd_bwd()
+    measure("materials_grad_1m", fwd_bwd, 3, {"n": state.pos.shape[0]})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
