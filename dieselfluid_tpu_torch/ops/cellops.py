@@ -96,7 +96,8 @@ def dense_indices(pos: torch.Tensor, spec: DenseCellSpec):
     decides who overflows) is the particle order, as in the JAX package.
     Particles past a cell's capacity are dropped and counted; their `flat`
     is clamped onto the cell's last slot, which it ALIASES — every gather
-    through `flat` must be masked with `valid`."""
+    through `flat` must be masked with `valid`, and a step spreads the
+    masked entries (`spread_masked`) before its gathers."""
     c = spec.capacity
     dev = pos.device
     lo = torch.tensor(spec.lo, dtype=torch.float32, device=dev)
@@ -183,12 +184,24 @@ def build_planes_from_map(values: Dict[str, torch.Tensor],
     return out
 
 
+def spread_masked(flat: torch.Tensor, valid: torch.Tensor,
+                  size: int) -> torch.Tensor:
+    """`flat` where `valid`, else the entry's own index modulo `size`: every
+    masked entry gets an in-range address that no other masked entry shares
+    (while there are at most `size` entries). For index ops that add: a
+    clamped or parked index repeats at every masked entry, and on the card
+    their zero adds queue on that one address. The caller's mask discards
+    what a masked entry reads, and its zero cotangent lands alone."""
+    idx = torch.arange(flat.shape[0], dtype=flat.dtype, device=flat.device)
+    return torch.where(valid, flat, idx % size)
+
+
 def gather_plane(plane: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
     """Per-particle values read back out of a dense plane. An index_select,
     whose backward adds into the plane's gradient with atomics: the
     backward of `plane[flat]` sorts the indices and walks each run of
-    equal ones serially, and an overflowed or dead slot's `flat` repeats
-    (a sharded store's dead slots share one: seconds per gather at 1M)."""
+    equal ones serially, so a step gathers through `spread_masked` indices
+    (an overflowed or dead slot's `flat` repeats)."""
     return plane.reshape(-1).index_select(0, flat)
 
 

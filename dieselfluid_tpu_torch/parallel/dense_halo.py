@@ -52,6 +52,7 @@ from dieselfluid_tpu_torch.ops.cellops import (
     dense_indices,
     gather_plane,
     gather_planes,
+    spread_masked,
 )
 from dieselfluid_tpu_torch.ops.smoothing import KernelCoeffs, tait_eos
 from dieselfluid_tpu_torch.ops.sph_sweep import (
@@ -218,8 +219,9 @@ def _local_layout(pos, alive, spec: DenseSlabSpec, lspec: DenseCellSpec, me,
                   bpos=None, bmask=None):
     """Local coordinates and dense slots of one shard's [fluid | boundary].
     Dead and foreign slots park in the sacrificial z band; the shard bins
-    only the boundary inside its own x-range. Returns (entries, flat,
-    valid, overflow, x0)."""
+    only the boundary inside its own x-range. A masked slot's `flat` is
+    spread (`spread_masked`): parked, they all share one. Returns (entries,
+    flat, valid, overflow, x0)."""
     dev = pos.device
     x0 = origin(spec.lo, spec.slab_width, me, dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
@@ -237,7 +239,9 @@ def _local_layout(pos, alive, spec: DenseSlabSpec, lspec: DenseCellSpec, me,
         live_all = torch.cat([live, own_b], dim=0)
     flat, valid, _ = dense_indices(entries, lspec)
     overflow = torch.sum(~valid & live_all)  # parked slots overflow freely
-    return entries, flat, valid & live_all, overflow, shift, park
+    valid = valid & live_all
+    return (entries, spread_masked(flat, valid, lspec.size), valid, overflow,
+            shift, park)
 
 
 def _pos_vel_planes(entries, vel, flat, valid, lspec, boundary: bool):

@@ -37,6 +37,7 @@ from dieselfluid_tpu_torch.ops.cellops import (
     build_planes,
     dense_indices,
     gather_planes,
+    spread_masked,
 )
 from dieselfluid_tpu_torch.ops.smoothing import KernelCoeffs, tait_eos
 from dieselfluid_tpu_torch.ops.sph_sweep import (
@@ -228,7 +229,8 @@ def _exchange_2d(mesh, planes, spec: DenseCellSpec, names,
 
 def _layout_2d(mesh, spec: DenseSlab2DSpec, lspec, pos, alive, bpos, bmask):
     """Per shard (entries, flat, valid, overflow, offset, park) of [fluid |
-    the boundary inside the shard's block]."""
+    the boundary inside the shard's block], masked slots spread as in
+    dense_halo._local_layout."""
     out = []
     for s, (mex, mey) in enumerate(zip(mesh.axis_index(AXIS_X),
                                        mesh.axis_index(AXIS_Y))):
@@ -252,7 +254,9 @@ def _layout_2d(mesh, spec: DenseSlab2DSpec, lspec, pos, alive, bpos, bmask):
             live_all = torch.cat([live, own_b], dim=0)
         flat, valid, _ = dense_indices(entries, lspec)
         overflow = torch.sum(~valid & live_all)
-        out.append((entries, flat, valid & live_all, overflow, off, park))
+        valid = valid & live_all
+        out.append((entries, spread_masked(flat, valid, lspec.size), valid,
+                    overflow, off, park))
     return out
 
 

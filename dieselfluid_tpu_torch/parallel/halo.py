@@ -42,6 +42,7 @@ from dieselfluid_tpu_torch.neighbors.cellgrid import (
     CellGridSpec,
     cell_grid_neighborhood,
 )
+from dieselfluid_tpu_torch.ops.cellops import spread_masked
 from dieselfluid_tpu_torch.ops.smoothing import tait_eos
 from dieselfluid_tpu_torch.parallel.mesh import AXIS
 from dieselfluid_tpu_torch.solvers.integrate import (
@@ -271,10 +272,7 @@ def _migrate(mesh, pos, vel, press, alive, dropped, spec, axis=AXIS,
         imm_slot = slot - n_stay
         can_place = (imm_slot >= 0) & (imm_slot < torch.clamp(
             n_imm, max=2 * mc))
-        # index_select: the clamped index repeats at every slot that takes
-        # no immigrant, and the backward of `a[safe]` walks such runs
-        # serially (cellops.gather_plane).
-        safe = torch.clamp(imm_slot, 0, 2 * mc - 1).to(torch.int64)
+        safe = spread_masked(imm_slot.to(torch.int64), can_place, 2 * mc)
         new_pos = torch.where(can_place[:, None],
                               imm_pos.index_select(0, safe), pos_c)
         new_vel = torch.where(can_place[:, None],

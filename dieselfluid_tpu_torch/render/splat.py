@@ -92,6 +92,18 @@ def depth_min(depth: torch.Tensor, in_front: torch.Tensor) -> torch.Tensor:
     return torch.amin(torch.where(in_front, depth, torch.inf))
 
 
+def _pixel_index(px: torch.Tensor, py: torch.Tensor, width: int,
+                 height: int) -> torch.Tensor:
+    """Each entry's flat pixel: its own inside the image (or tile), its
+    unclamped flat index modulo the pixel count outside it. An outside
+    entry adds exactly 0 wherever it lands (its w, a_src and w * cdepth are
+    0, and shade * w is 0 because shade is finite), so it is spread over
+    the pixels: clamped, the ~3/4 of a tile's entries that fall outside
+    would pile their zero adds onto the tile's two border rows."""
+    return (py.to(torch.int64) * width + px.to(torch.int64)) % (width
+                                                                * height)
+
+
 def splat_particles(
     pos: torch.Tensor,                     # (N, 3) world positions
     radius,                                # scalar or (N,) world radii
@@ -175,9 +187,7 @@ def splat_particles(
                  & (py >= 0) & (py < height))
         w = torch.where(valid, w, 0.0)
         a_src = torch.where(valid, coverage, 0.0)
-        ix = torch.clamp(px.to(torch.int64), 0, width - 1)
-        iy = torch.clamp(py.to(torch.int64), 0, height - 1)
-        flat = (iy * width + ix).reshape(-1)
+        flat = _pixel_index(px, py, width, height).reshape(-1)
         wf = w.reshape(-1)
         num = num.index_add(0, flat, shade.reshape(-1, 3) * wf[:, None])
         den = den.index_add(0, flat, wf)

@@ -44,6 +44,7 @@ from dieselfluid_tpu_torch.ops.cellops import (
     dense_indices,
     gather_plane,
     gather_planes,
+    spread_masked,
 )
 from dieselfluid_tpu_torch.ops.smoothing import KernelCoeffs, tait_eos
 from dieselfluid_tpu_torch.ops.sph_sweep import (
@@ -102,12 +103,27 @@ def _pos_vel_planes(pos, vel, flat, valid, spec):
         flat, valid, spec)
 
 
+def _to_plane(values_f, boundary_value, flat, valid, spec: DenseCellSpec,
+              mask):
+    """Per-fluid values -> plane over a frozen binning whose `flat`/`valid`
+    hold the fluid first, then the boundary; boundary slots get
+    boundary_value (a number or a 0-d tensor). Stored as build_planes
+    stores: each overflowed particle into its own trash slot past the
+    plane."""
+    nb = flat.shape[0] - values_f.shape[0]
+    if nb:
+        bv = torch.as_tensor(boundary_value, dtype=torch.float32,
+                             device=values_f.device)
+        values_f = torch.cat([values_f, bv.expand(nb)])
+    return build_planes({"v": values_f}, flat, valid, spec, mask=mask)["v"]
+
+
 def dense_density_forces(state: FluidState, params: FluidParams,
                          spec: DenseCellSpec, materials=None):
     """(rho, pressure, force, overflow) for the current positions, fluid
     particles only. Overflowed particles get rho = d0 and zero interaction
-    force (every gather is masked with `valid`: their clamped slot aliases a
-    live one).
+    force (every gather is masked with `valid`, and reads their slots
+    through `spread_masked`: clamped, they alias a live one).
 
     Without `materials` the force is the fused sweep (mass and mu baked in,
     differentiable in the state); with them it is the factored pressure +
@@ -117,6 +133,7 @@ def dense_density_forces(state: FluidState, params: FluidParams,
     n = state.pos.shape[0]
     pos, vel = _boundary_extended(state)
     flat, valid, overflow = dense_indices(pos, spec)
+    flat = spread_masked(flat, valid, spec.size)
     planes = _pos_vel_planes(pos, vel, flat, valid, spec)
     k = KernelCoeffs.build(params.h)
     rho_plane = density_planes(planes, spec, k, mass)
@@ -317,6 +334,7 @@ def dense_pcisph_step(state: FluidState, params: FluidParams,
     n = state.pos.shape[0]
     pos0, vel0 = _boundary_extended(state)
     flat, valid, overflow = dense_indices(pos0, spec)
+    flat = spread_masked(flat, valid, spec.size)
     flat_f, valid_f = flat[:n], valid[:n]
     planes = _pos_vel_planes(pos0, vel0, flat, valid, spec)
     rho_plane = density_planes(planes, spec, k, mass)
@@ -328,21 +346,9 @@ def dense_pcisph_step(state: FluidState, params: FluidParams,
     gravity = _gravity(params, dev) * mass
     ext_force = gravity + visc
 
-    has_boundary = state.boundary_pos is not None
-
-    def to_plane(values_f, boundary_value=None):
-        """Per-fluid values -> plane over the frozen binning; boundary slots
-        get boundary_value (a number or a 0-d tensor)."""
-        out = torch.zeros(spec.size, dtype=torch.float32, device=dev)
-        out.index_put_((torch.where(valid_f, flat_f, 0),),
-                       torch.where(valid_f, values_f, 0.0), accumulate=True)
-        if has_boundary and boundary_value is not None:
-            flat_b, valid_b = flat[n:], valid[n:]
-            bv = torch.as_tensor(boundary_value, dtype=torch.float32,
-                                 device=dev)
-            out.index_put_((torch.where(valid_b, flat_b, 0),),
-                           torch.where(valid_b, bv, 0.0), accumulate=True)
-        return out.view(spec.plane_shape)
+    def to_plane(values_f, boundary_value=0.0):
+        return _to_plane(values_f, boundary_value, flat, valid, spec,
+                         planes["mask"])
 
     if unroll_for_grad:
         zero = torch.zeros((), dtype=torch.float32, device=dev)

@@ -756,3 +756,48 @@ def test_rasterizer_kernels_read_a_holed_plane_alike(cuda, n_out):
         assert torch.equal(g, w) and bool((g[past] == 0).all())
         assert float((g - p).abs().max()) <= st.RASTER_BWD_REL_TOL * float(
             p.abs().max())
+
+
+def test_gather_plane_backward_on_a_sharded_store_equals_the_clamped_form(
+        cuda):
+    """A 1M dam break over 4 slabs, two of them empty: the dead slots park
+    on one point, so dense_indices gives thousands of them one `flat`. The
+    backward of gather_plane (index_add with atomics) through the layout's
+    spread `flat` gives bit for bit the gradient through the clamped one,
+    which adds all their zeros at that address."""
+    from dieselfluid_tpu_torch.parallel import dense_halo as tdh
+    from dieselfluid_tpu_torch.parallel.mesh import LocalMesh
+
+    n3, n_dev = 100, 4
+    dx = (2.0 / n3) * 0.5
+    params = lattice_rest_density(dx, FluidParams.for_spacing(dx))
+    state = dam_break_state(n3, params, cuda)
+    off = params.h / 4.0
+    spec = tdh.DenseSlabSpec.build_for_state(
+        state, n_dev, params.h, 1 << 14, lo=-1.0 - off, hi=1.0 + off,
+        cell_capacity=16)
+    slabs = tdh.distribute_dense(state, spec)
+    assert int((slabs.alive.reshape(n_dev, -1).sum(1) == 0).sum()) == 2
+    lay = tdh._frame(LocalMesh((n_dev,), cuda), spec, slabs, False)[5]
+    rng = np.random.default_rng(21)
+    shared, total = 0, 0.0
+    for entries, flat, valid, _, _, _ in lay:
+        clamped = tc.dense_indices(entries, spec.local_spec)[0]
+        assert torch.equal(flat[valid], clamped[valid])
+        shared = max(shared, int(torch.unique(
+            clamped[~valid], return_counts=True)[1].max()))
+        plane = torch.from_numpy(rng.normal(
+            size=spec.local_spec.plane_shape).astype(np.float32)).to(cuda)
+        w = torch.from_numpy(rng.normal(size=flat.shape[0]).astype(
+            np.float32)).to(cuda)
+        grads = []
+        for idx in (flat, clamped):
+            p = plane.clone().requires_grad_()
+            read = torch.where(valid, tc.gather_plane(p, idx), 0.0)
+            (g,) = torch.autograd.grad((read * w).sum(), p)
+            grads.append(g)
+        torch.cuda.synchronize()
+        assert torch.equal(grads[0], grads[1])
+        total += float(grads[0].abs().sum())
+    assert total > 0.0
+    assert shared > 100_000, "the dead slots must share an address"

@@ -1,17 +1,20 @@
-"""Device-time breakdown of the port's sharded dense steps (parallel/) on
-one CUDA card (torch.profiler; CUDA kernel self time per step).
+"""Device-time breakdown of the port's sharded paths (parallel/) on one
+CUDA card (torch.profiler; CUDA kernel self time per step).
 
-    python tools/torch_profile_slab.py [--n3 252]
+    python tools/torch_profile_slab.py [--n3 252] [--root DIR]
 
 chip_smoke.py's phase 19a setup: the bench's dam break at n3 (252:
 16,003,008 particles, BASELINE.json configuration 5) over 4 x-slabs of a
 LocalMesh on the card. For the sharded WCSPH step and the warm-started
 PCISPH step: 2 warm-up steps, then 3 steps unprofiled (wall ms/step) and 3
 under the profiler. Then the 1M materials_arg WCSPH forward+backward of
-phase 19c (2 warm-up, 3 profiled). Prints one JSON line per case: wall
-ms/step with and without the profiler, device-busy ms/step, idle share of
-the profiled wall, launches per step, device ms/step by group (the sweep
-kernels, sort, index/gather/scatter, cat (the ghost exchanges' and the
+phase 19c and the 4-tile 1080p render forward+backward of phase 19f (2
+warm-up, 3 profiled each). Prints one JSON line per case: wall ms/step
+with and without the profiler, device-busy ms/step, idle share of the
+profiled wall, launches per step, device ms/step by group (the sweep
+kernels, sort, index add (index_add and the accumulating index_put's
+backward walk: the adds whose repeated indices queue on one address),
+the other index/gather/scatter kernels, cat (the ghost exchanges' and the
 joins' copies), memset/copy, the rest: elementwise and reductions), the
 ten costliest kernels, and the device ms/step of the halo's own work: the
 kernels issued inside dense_halo's ghost-column exchange
@@ -19,6 +22,9 @@ kernels issued inside dense_halo's ghost-column exchange
 and inside its ghost x shift (`_shift_ghost_x`), each call wrapped here in
 a `record_function` range, with their share of the busy and of the
 profiled wall time.
+
+`--root DIR` profiles the checkout at DIR (its package and its
+chip_smoke.py) with this script, so that two checkouts are read alike.
 """
 
 from __future__ import annotations
@@ -29,22 +35,16 @@ import sys
 import time
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-
-import torch  # noqa: E402
-from torch.autograd import DeviceType  # noqa: E402
-from torch.profiler import (  # noqa: E402
-    ProfilerActivity, profile, record_function)
-
-import chip_smoke  # noqa: E402
-from dieselfluid_tpu_torch.parallel import dense_halo  # noqa: E402
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile, record_function
 
 #: range name -> the dense_halo function whose calls it wraps.
 RANGES = {"ghost_exchange": "_exchange_ghost_columns",
           "ghost_shift": "_shift_ghost_x"}
 
 
-def annotate_halo():
+def annotate_halo(dense_halo):
     """Wrap each RANGES function of dense_halo (the steps look them up as
     module globals) in a record_function range of its name."""
     for label, attr in RANGES.items():
@@ -65,6 +65,8 @@ def group(key: str) -> str:
         return "sort"
     if "cat" in k and "copy" in k:
         return "cat"
+    if "indexfunc" in k or "indexing_backward" in k:
+        return "index add"
     if any(s in k for s in ("index", "gather", "scatter")):
         return "index/gather/scatter"
     if "memset" in k or "memcpy" in k or "fill" in k or "copy" in k:
@@ -121,28 +123,36 @@ def measure(name: str, run, steps: int, extra: dict):
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--n3", type=int, default=chip_smoke.SLAB_N3)
+    p.add_argument("--n3", type=int, default=None)
+    p.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
+                   help="the checkout to profile")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
-    from dieselfluid_tpu_torch.parallel.dense_halo import (
-        distribute_dense, make_dense_halo_pcisph_step,
-        make_dense_halo_wcsph_step)
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    import chip_smoke
+    from dieselfluid_tpu_torch.models.materials import Materials
+    from dieselfluid_tpu_torch.parallel import dense_halo
     from dieselfluid_tpu_torch.parallel.mesh import LocalMesh
+    from dieselfluid_tpu_torch.parallel.render_shard import make_tiled_splat
 
     dev = torch.device("cuda", 0)
-    annotate_halo()
+    annotate_halo(dense_halo)
     print(chip_smoke.card_line(), flush=True)
-    params, state, _, delta = chip_smoke.bench_setup(args.n3, dev)
+    print(json.dumps({"root": str(Path(args.root).resolve()),
+                      "package": dense_halo.__file__}), flush=True)
+    mesh = LocalMesh((chip_smoke.SLAB_SHARDS,), dev)
+    params, state, _, delta = chip_smoke.bench_setup(
+        args.n3 or chip_smoke.SLAB_N3, dev)
     n = state.pos.shape[0]
     spec = chip_smoke.slab_spec_for(state, params)
-    slabs0 = distribute_dense(state, spec)
+    slabs0 = dense_halo.distribute_dense(state, spec)
     del state
-    mesh = LocalMesh((chip_smoke.SLAB_SHARDS,), dev)
     for solver in ("wcsph", "pcisph"):
-        step = (make_dense_halo_wcsph_step(mesh, spec, params)
-                if solver == "wcsph" else make_dense_halo_pcisph_step(
+        step = (dense_halo.make_dense_halo_wcsph_step(mesh, spec, params)
+                if solver == "wcsph" else
+                dense_halo.make_dense_halo_pcisph_step(
                     mesh, spec, params, delta, warm_start=True))
         slabs = slabs0
         for _ in range(2):
@@ -160,11 +170,9 @@ def main(argv=None) -> int:
     params, base, _, _ = chip_smoke.bench_setup(100, dev)
     state = chip_smoke.seeded_state(base, 100, 43, 0.1, 0.05)
     spec = chip_smoke.slab_spec_for(state, params, migrate=1 << 14)
-    slabs = distribute_dense(state, spec)
-    from dieselfluid_tpu_torch.models.materials import Materials
-
-    gstep = make_dense_halo_wcsph_step(mesh, spec, params,
-                                       materials_arg=True)
+    slabs = dense_halo.distribute_dense(state, spec)
+    gstep = dense_halo.make_dense_halo_wcsph_step(mesh, spec, params,
+                                                  materials_arg=True)
 
     def fwd_bwd():
         mats = Materials.from_params(params, dev, requires_grad=True)
@@ -176,6 +184,21 @@ def main(argv=None) -> int:
     for _ in range(2):
         fwd_bwd()
     measure("materials_grad_1m", fwd_bwd, 3, {"n": state.pos.shape[0]})
+    del slabs, state, base
+
+    _, state, _, cam, radius = chip_smoke.sr_setup(80, dev)
+    render = make_tiled_splat(mesh, chip_smoke.SR_WIDTH, chip_smoke.SR_HEIGHT,
+                              state.pos.shape[0])
+
+    def render_fwd_bwd():
+        pos = state.pos.detach().clone().requires_grad_()
+        img = render(pos, radius, cam)
+        torch.autograd.grad((img.color ** 2).sum(), pos)
+
+    for _ in range(2):
+        render_fwd_bwd()
+    measure("tiled_render_1080p", render_fwd_bwd, 3,
+            {"n": state.pos.shape[0], "tiles": chip_smoke.SLAB_SHARDS})
     return 0
 
 
