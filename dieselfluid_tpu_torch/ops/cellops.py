@@ -191,9 +191,21 @@ def spread_masked(flat: torch.Tensor, valid: torch.Tensor,
     (while there are at most `size` entries). For index ops that add: a
     clamped or parked index repeats at every masked entry, and on the card
     their zero adds queue on that one address. The caller's mask discards
-    what a masked entry reads, and its zero cotangent lands alone."""
-    idx = torch.arange(flat.shape[0], dtype=flat.dtype, device=flat.device)
-    return torch.where(valid, flat, idx % size)
+    what a masked entry reads, and its zero cotangent lands alone.
+
+    Laid out in rows of `size`, an entry's index modulo `size` is its
+    column: the rows take one `where` against one arange and the last,
+    shorter row another, with no division and no index-sized temporary."""
+    m = flat.shape[0]
+    cols = torch.arange(min(m, size), dtype=flat.dtype, device=flat.device)
+    out = torch.empty_like(flat)
+    full = m - m % size
+    if full:
+        torch.where(valid[:full].reshape(-1, size),
+                    flat[:full].reshape(-1, size), cols,
+                    out=out[:full].view(-1, size))
+    torch.where(valid[full:], flat[full:], cols[:m - full], out=out[full:])
+    return out
 
 
 def gather_plane(plane: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:

@@ -321,7 +321,7 @@ def _local_sources(mesh, pos, vel, alive, spec: SlabSpec, packs, k: int,
         parked = torch.where(src_live[:, None] > 0, src_pos, park)
         qpos = torch.where(alive[s][:, None] > 0, pos[s], spec.lo - 1e3)
         nb = cell_grid_neighborhood(qpos, parked, spec.h, k, cg,
-                                    self_offset=0)
+                                    self_offset=0).spread(parked.shape[0])
         out.append((nb, qpos, parked, src_vel, halo_mask[s]))
     return out
 
@@ -332,7 +332,8 @@ def _boundary_density(bpos, bmask, parked, spec: SlabSpec,
     local + ghost sources (boundary slots are full density participants,
     as in the single-device paths)."""
     bq = torch.where(bmask[:, None] > 0, bpos, spec.lo - 1e3)
-    nb_b = cell_grid_neighborhood(bq, parked, spec.h, k, cg, self_offset=0)
+    nb_b = cell_grid_neighborhood(bq, parked, spec.h, k, cg,
+                                  self_offset=0).spread(parked.shape[0])
     rho_b = F.density_with_self(bq, nb_b, params, source_pos=parked)
     return torch.where(bmask > 0, rho_b, params.d0)
 

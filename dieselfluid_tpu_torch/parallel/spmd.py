@@ -42,7 +42,8 @@ def local_wcsph_frame(mesh, states: List[FluidState], params: FluidParams,
 
     all_pos = mesh.all_gather([s.pos for s in states], axis)
     nbs = [brute_force_neighborhood(s.pos, ap, params.h, k,
-                                    self_offset=me * s.pos.shape[0])
+                                    self_offset=me * s.pos.shape[0]
+                                    ).spread(ap.shape[0])
            for s, ap, me in zip(states, all_pos, mesh.axis_index(axis))]
     rho = [F.density_with_self(s.pos, nb, params, source_pos=ap)
            for s, nb, ap in zip(states, nbs, all_pos)]

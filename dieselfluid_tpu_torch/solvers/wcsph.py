@@ -44,9 +44,10 @@ def default_neighbor_fn(params: FluidParams, k: int = 64) -> NeighborFn:
 
 
 def neighbors_of(neighbor_fn: NeighborFn, pos: torch.Tensor) -> Neighborhood:
-    """The neighbor table of `pos`, without gradient."""
+    """The neighbor table of `pos`, without gradient, its masked slots
+    spread over the source rows (`Neighborhood.spread`)."""
     with torch.no_grad():
-        return neighbor_fn(pos.detach())
+        return neighbor_fn(pos.detach()).spread(pos.shape[0])
 
 
 def gravity_of(params: FluidParams, device) -> torch.Tensor:

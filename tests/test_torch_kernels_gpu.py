@@ -28,6 +28,12 @@ N3 = 16
 DX = (2.0 / N3) * 0.5
 SWEEP_NAMES = ["density", "force", "force_mu0", "viscosity", "pressure_pq",
                "pressure"]
+# train_8k's outputs and gradients through the spread tables against the
+# clamped ones, relative to each tensor's largest entry: the card's index
+# backward groups a run's sum its own way (measured on the H100: loss and
+# SGD updates 0, velocity gradient 1.3e-7, mu 6.2e-8, d0 2.0e-7,
+# tait_gamma 9.4e-6, tait_w 7.0e-8; the spread form against itself 0)
+SPREAD_GRAD_REL_TOL = 1e-4
 BWD_NAMES = ["density_bwd", "pressure_bwd", "viscosity_bwd", "force_bwd",
              "force_p_bwd"]
 
@@ -801,3 +807,81 @@ def test_gather_plane_backward_on_a_sharded_store_equals_the_clamped_form(
         total += float(grads[0].abs().sum())
     assert total > 0.0
     assert shared > 100_000, "the dead slots must share an address"
+
+
+def test_sharded_train_step_on_spread_tables_equals_the_clamped_form(
+        cuda, monkeypatch):
+    """chip_smoke 19e's train_8k (8,000 particles, 4 shards, k = 64, 2
+    WCSPH frames): sharded_train_step's loss and updates, and the
+    gradients of its loss through the rollout, with the spread tables
+    against the clamped ones (index 0 at every masked slot, patched in),
+    whose backward queues every masked zero on row 0: within
+    SPREAD_GRAD_REL_TOL (the loss and updates were equal bit for bit).
+    The spread table built on the card equals the CPU's."""
+    from dieselfluid_tpu_torch.models.materials import Materials
+    from dieselfluid_tpu_torch.neighbors import types as ntypes
+    from dieselfluid_tpu_torch.neighbors.bruteforce import (
+        brute_force_neighborhood)
+    from dieselfluid_tpu_torch.parallel.sharding import (
+        particle_mesh, shard_state, sharded_train_step)
+    from dieselfluid_tpu_torch.parallel.spmd import make_spmd_rollout
+
+    n3, n_dev = 20, 4
+    dx = (2.0 / n3) * 0.5
+    params = lattice_rest_density(dx, FluidParams.for_spacing(dx))
+    state = dam_break_state(n3, params, cuda)
+    vel = np.random.default_rng(47).normal(size=tuple(state.pos.shape))
+    state = state._replace(vel=torch.from_numpy(
+        (vel * 0.1).astype(np.float32)).to(cuda))
+    mesh = particle_mesh(n_dev, cuda)
+    sstate = shard_state(state, mesh)
+    mats = Materials.from_params(params, cuda)
+
+    def run():
+        out = sharded_train_step(mesh, params, 2)(sstate.vel, mats, sstate)
+        v = sstate.vel.clone().requires_grad_()
+        m = Materials(*[x.clone().requires_grad_() for x in mats])
+        final, _ = make_spmd_rollout(mesh, params, 2)(
+            sstate._replace(vel=v), m)
+        g = torch.autograd.grad(((final.pos[:, 1] + 0.9) ** 2).mean()
+                                + 1e-4 * (final.vel ** 2).mean(), [v, *m],
+                                allow_unused=True)
+        torch.cuda.synchronize()
+        return [out[0], out[1], *out[2], *g[:5]]   # mass: no gradient
+
+    spread, again = run(), run()
+    monkeypatch.setattr(ntypes, "spread_masked",
+                        lambda flat, valid, size: torch.where(valid, flat, 0))
+    clamped = run()
+    assert len(spread) == len(clamped) == 12
+    for a in spread + clamped:
+        assert bool(torch.isfinite(a).all())
+
+    def gaps(xs, ys):
+        """Each tensor's largest difference over its largest entry."""
+        return [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                for a, b in zip(xs, ys)]
+
+    # The card's backward of a gather sums each run of equal indices in
+    # its own grouping, and the clamped form's run at row 0 held every
+    # masked zero, so row 0's live terms may group otherwise.
+    names = ["loss", "vel0", *[f"new_{f}" for f in Materials._fields],
+             "grad_vel", *[f"grad_{f}" for f in Materials._fields[:4]]]
+    print("train_8k spread vs clamped:",
+          dict(zip(names, gaps(spread, clamped))))
+    print("train_8k spread vs spread:", dict(zip(names, gaps(spread, again))))
+    assert max(gaps(spread, clamped)) <= SPREAD_GRAD_REL_TOL
+    assert float(spread[7].abs().max()) > 0.0     # d loss / d vel
+    monkeypatch.undo()
+
+    pos = sstate.pos
+    n, block = pos.shape[0], pos.shape[0] // n_dev
+    for shard in range(n_dev):
+        q = slice(shard * block, (shard + 1) * block)
+        card = brute_force_neighborhood(pos[q], pos, params.h, 64,
+                                        self_offset=q.start).spread(n)
+        cpu = brute_force_neighborhood(pos[q].cpu(), pos.cpu(), params.h,
+                                       64, self_offset=q.start).spread(n)
+        assert torch.equal(card.idx.cpu(), cpu.idx)
+        assert torch.equal(card.mask.cpu(), cpu.mask)
+        assert int((cpu.mask == 0).sum()) > 0

@@ -338,7 +338,7 @@ _ADDING = {torch.Tensor.index_select, torch.index_select,
 
 def _int_index(func, args, kwargs):
     """(the integer index an adding op was given, the length of the axis
-    it indexes), or None."""
+    it indexes), or None. A 2-D index of `__getitem__` is flattened."""
     dim = 0
     if func in (torch.Tensor.index_put_, torch.Tensor.index_put,
                 torch.index_put):
@@ -351,6 +351,8 @@ def _int_index(func, args, kwargs):
             else None
     elif func is torch.Tensor.__getitem__:
         idx = args[1]
+        if torch.is_tensor(idx) and idx.dim() == 2:
+            idx = idx.reshape(-1)     # a neighbor table's (N, K) slots
     else:
         dim = args[1] if len(args) > 1 else kwargs.get("dim", 0)
         idx = args[2] if len(args) > 2 else kwargs.get("index")

@@ -2,14 +2,19 @@
 CUDA card (torch.profiler; CUDA kernel self time per step).
 
     python tools/torch_profile_slab.py [--n3 252] [--root DIR]
+        [--cases wcsph_sharded,pcisph_sharded,materials_grad_1m,...]
 
 chip_smoke.py's phase 19a setup: the bench's dam break at n3 (252:
 16,003,008 particles, BASELINE.json configuration 5) over 4 x-slabs of a
 LocalMesh on the card. For the sharded WCSPH step and the warm-started
 PCISPH step: 2 warm-up steps, then 3 steps unprofiled (wall ms/step) and 3
 under the profiler. Then the 1M materials_arg WCSPH forward+backward of
-phase 19c and the 4-tile 1080p render forward+backward of phase 19f (2
-warm-up, 3 profiled each). Prints one JSON line per case: wall ms/step
+phase 19c, the 4-tile 1080p render forward+backward of phase 19f and
+phase 19e's `train_8k`: sharded_train_step at configuration 1's size
+(8,000 particles, 4 shards, k = 64, 2 WCSPH frames forward+backward and
+the SGD update) through the fixed-degree neighbor tables (2 warm-up, 3
+profiled each). `--cases` picks a comma-separated subset of the case
+names (default: all). Prints one JSON line per case: wall ms/step
 with and without the profiler, device-busy ms/step, idle share of the
 profiled wall, launches per step, device ms/step by group (the sweep
 kernels, sort, index add (index_add and the accumulating index_put's
@@ -38,6 +43,9 @@ from pathlib import Path
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
+
+CASES = ("wcsph_sharded", "pcisph_sharded", "materials_grad_1m",
+         "tiled_render_1080p", "train_8k")
 
 #: range name -> the dense_halo function whose calls it wraps.
 RANGES = {"ghost_exchange": "_exchange_ghost_columns",
@@ -126,16 +134,19 @@ def main(argv=None) -> int:
     p.add_argument("--n3", type=int, default=None)
     p.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
                    help="the checkout to profile")
+    p.add_argument("--cases", default=",".join(CASES),
+                   help="comma-separated subset of " + ", ".join(CASES))
     args = p.parse_args(argv)
+    cases = set(args.cases.split(","))
+    if cases - set(CASES):
+        p.error(f"unknown cases {sorted(cases - set(CASES))}")
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(args.root).resolve()))
     import chip_smoke
-    from dieselfluid_tpu_torch.models.materials import Materials
     from dieselfluid_tpu_torch.parallel import dense_halo
     from dieselfluid_tpu_torch.parallel.mesh import LocalMesh
-    from dieselfluid_tpu_torch.parallel.render_shard import make_tiled_splat
 
     dev = torch.device("cuda", 0)
     annotate_halo(dense_halo)
@@ -143,13 +154,15 @@ def main(argv=None) -> int:
     print(json.dumps({"root": str(Path(args.root).resolve()),
                       "package": dense_halo.__file__}), flush=True)
     mesh = LocalMesh((chip_smoke.SLAB_SHARDS,), dev)
-    params, state, _, delta = chip_smoke.bench_setup(
-        args.n3 or chip_smoke.SLAB_N3, dev)
-    n = state.pos.shape[0]
-    spec = chip_smoke.slab_spec_for(state, params)
-    slabs0 = dense_halo.distribute_dense(state, spec)
-    del state
-    for solver in ("wcsph", "pcisph"):
+    solvers = [s for s in ("wcsph", "pcisph") if f"{s}_sharded" in cases]
+    if solvers:
+        params, state, _, delta = chip_smoke.bench_setup(
+            args.n3 or chip_smoke.SLAB_N3, dev)
+        n = state.pos.shape[0]
+        spec = chip_smoke.slab_spec_for(state, params)
+        slabs0 = dense_halo.distribute_dense(state, spec)
+        del state
+    for solver in solvers:
         step = (dense_halo.make_dense_halo_wcsph_step(mesh, spec, params)
                 if solver == "wcsph" else
                 dense_halo.make_dense_halo_pcisph_step(
@@ -165,7 +178,19 @@ def main(argv=None) -> int:
         measure(f"{solver}_sharded", run, 3,
                 {"n": n, "iters": getattr(step, "iters", None)})
         del slabs, start
-    del slabs0
+    if solvers:
+        del slabs0
+    for name, case in (("materials_grad_1m", materials_grad_1m),
+                       ("tiled_render_1080p", tiled_render_1080p),
+                       ("train_8k", train_8k)):
+        if name in cases:
+            case(chip_smoke, mesh, dev)
+    return 0
+
+
+def materials_grad_1m(chip_smoke, mesh, dev):
+    from dieselfluid_tpu_torch.models.materials import Materials
+    from dieselfluid_tpu_torch.parallel import dense_halo
 
     params, base, _, _ = chip_smoke.bench_setup(100, dev)
     state = chip_smoke.seeded_state(base, 100, 43, 0.1, 0.05)
@@ -184,7 +209,10 @@ def main(argv=None) -> int:
     for _ in range(2):
         fwd_bwd()
     measure("materials_grad_1m", fwd_bwd, 3, {"n": state.pos.shape[0]})
-    del slabs, state, base
+
+
+def tiled_render_1080p(chip_smoke, mesh, dev):
+    from dieselfluid_tpu_torch.parallel.render_shard import make_tiled_splat
 
     _, state, _, cam, radius = chip_smoke.sr_setup(80, dev)
     render = make_tiled_splat(mesh, chip_smoke.SR_WIDTH, chip_smoke.SR_HEIGHT,
@@ -199,7 +227,30 @@ def main(argv=None) -> int:
         render_fwd_bwd()
     measure("tiled_render_1080p", render_fwd_bwd, 3,
             {"n": state.pos.shape[0], "tiles": chip_smoke.SLAB_SHARDS})
-    return 0
+
+
+def train_8k(chip_smoke, mesh, dev):
+    """Phase 19e's sharded_train_step (its own particle mesh of the same
+    shard count)."""
+    from dieselfluid_tpu_torch.models.materials import Materials
+    from dieselfluid_tpu_torch.parallel.sharding import (
+        particle_mesh, shard_state, sharded_train_step)
+
+    params, state, _, _ = chip_smoke.bench_setup(20, dev)
+    tmesh = particle_mesh(chip_smoke.SLAB_SHARDS, dev)
+    sstate = shard_state(chip_smoke.seeded_state(state, 20, 47, 0.0, 0.1),
+                         tmesh)
+    mats = Materials.from_params(params, dev)
+    train = sharded_train_step(tmesh, params, 2)
+
+    def train_step():
+        train(sstate.vel, mats, sstate)
+
+    for _ in range(2):
+        train_step()
+    measure("train_8k", train_step, 3,
+            {"n": sstate.pos.shape[0], "shards": chip_smoke.SLAB_SHARDS,
+             "k": 64, "sim_steps": 2})
 
 
 if __name__ == "__main__":
