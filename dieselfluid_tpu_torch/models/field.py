@@ -47,6 +47,7 @@ from dieselfluid_tpu_torch.ops.smoothing import (
     w0,
     w_poly6,
 )
+from dieselfluid_tpu_torch.utils.profiling import count
 
 _EPS = 1e-12
 
@@ -58,11 +59,13 @@ def _src(source, query):
 def _over(a: float, t: torch.Tensor) -> torch.Tensor:
     """a / t as a true division (`a / t` with a Python `a` is
     reciprocal(t) * a in torch, which rounds twice)."""
+    count("host_sync.field.over")
     return t.new_tensor(a) / t
 
 
 def _floor_eps(x: torch.Tensor) -> torch.Tensor:
     """max(x, _EPS), splitting the gradient at a tie as jnp.maximum does."""
+    count("host_sync.field.floor_eps")
     return torch.maximum(x, x.new_tensor(_EPS))
 
 

@@ -13,6 +13,7 @@ import torch
 
 from dieselfluid_tpu_torch.config import FluidParams
 from dieselfluid_tpu_torch.geometry.grid import Grid, kern_grid
+from dieselfluid_tpu_torch.utils.profiling import count
 
 
 class FluidState(NamedTuple):
@@ -46,6 +47,7 @@ def gravity_force(params: FluidParams, n: int, device,
                   mass=None) -> torch.Tensor:
     """(n, 3) gravity * mass, the force every frame starts from; `mass` (a
     traced Materials scalar) overrides params.mass."""
+    count("host_sync.particles.gravity_force")
     g = torch.tensor(params.gravity, dtype=torch.float32, device=device)
     m = params.mass if mass is None else mass
     return (g * m).expand(n, 3).contiguous()

@@ -27,6 +27,7 @@ import torch
 from dieselfluid_tpu_torch.mathx.polar import sqrt_cr
 from dieselfluid_tpu_torch.neighbors.bruteforce import rank_smallest
 from dieselfluid_tpu_torch.neighbors.types import Neighborhood
+from dieselfluid_tpu_torch.utils.profiling import count
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,9 +64,12 @@ def cell_coords(pos: torch.Tensor, spec: CellGridSpec) -> torch.Tensor:
     a device tensor: a CUDA divide by a Python number multiplies by its
     reciprocal, which is not the quotient the JAX package floors."""
     dev = pos.device
+    count("host_sync.cellgrid.cell_coords")
     lo = torch.tensor(spec.lo, dtype=torch.float32, device=dev)
+    count("host_sync.cellgrid.cell_coords")
     cell = torch.tensor(spec.cell, dtype=torch.float32, device=dev)
     ijk = torch.floor((pos - lo) / cell).to(torch.int32)
+    count("host_sync.cellgrid.cell_coords")
     hi = torch.tensor(spec.dims, dtype=torch.int32, device=dev) - 1
     return torch.minimum(torch.clamp(ijk, min=0), hi).to(torch.int64)
 
@@ -102,10 +106,12 @@ def _stencil_cells(ijk: torch.Tensor, spec: CellGridSpec):
     for cells outside the grid, whose ids are clipped)."""
     _, ny, nz = spec.dims
     dev = ijk.device
+    count("host_sync.cellgrid.stencil")
     offsets = torch.tensor(
         [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
          for dz in (-1, 0, 1)], dtype=ijk.dtype, device=dev)   # (27, 3)
     nbr = ijk[:, None, :] + offsets[None, :, :]                # (N, 27, 3)
+    count("host_sync.cellgrid.stencil")
     dims = torch.tensor(spec.dims, dtype=ijk.dtype, device=dev)
     valid = torch.all((nbr >= 0) & (nbr < dims), dim=-1)
     nbr = torch.minimum(torch.clamp(nbr, min=0), dims - 1)

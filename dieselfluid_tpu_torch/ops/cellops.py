@@ -22,6 +22,8 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 
+from dieselfluid_tpu_torch.utils.profiling import count
+
 
 @dataclasses.dataclass(frozen=True)
 class DenseCellSpec:
@@ -100,8 +102,10 @@ def dense_indices(pos: torch.Tensor, spec: DenseCellSpec):
     masked entries (`spread_masked`) before its gathers."""
     c = spec.capacity
     dev = pos.device
+    count("host_sync.cellops.dense_indices")
     lo = torch.tensor(spec.lo, dtype=torch.float32, device=dev)
     ijk = torch.floor((pos - lo) / spec.cell).to(torch.int32)
+    count("host_sync.cellops.dense_indices")
     hi = torch.tensor([spec.nx - 1, spec.ny - 1, spec.nz - 1],
                       dtype=torch.int32, device=dev)
     ijk = torch.minimum(torch.clamp(ijk, min=0), hi).to(torch.int64)

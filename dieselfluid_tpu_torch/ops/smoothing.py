@@ -14,6 +14,8 @@ from typing import NamedTuple
 
 import torch
 
+from dieselfluid_tpu_torch.utils.profiling import count
+
 PI = 3.141592653589
 
 
@@ -72,7 +74,11 @@ def tait_eos(density: torch.Tensor, d0, p0=0.0, gamma=7.16, w=2.15):
 
     d0, gamma and w may be 0-d tensors (traced Materials). The clamp is
     `torch.maximum`, which like `jnp.maximum` splits the gradient at a tie
-    (`torch.clamp` with a tensor bound would give it all to `density`)."""
+    (`torch.clamp` with a tensor bound would give it all to `density`).
+    A Python `d0` becomes a tensor on density's device: a host sync on a
+    card (`host_sync.smoothing.tait_eos`)."""
+    if not torch.is_tensor(d0):
+        count("host_sync.smoothing.tait_eos")
     x = torch.maximum(density, torch.as_tensor(d0, dtype=density.dtype,
                                                device=density.device))
     return (w / gamma) * (torch.pow(x / d0, gamma) - 1.0) + p0

@@ -100,6 +100,7 @@ import torch
 
 from dieselfluid_tpu_torch.ops.cellops import DenseCellSpec
 from dieselfluid_tpu_torch.ops.smoothing import KernelCoeffs
+from dieselfluid_tpu_torch.utils.profiling import span
 
 _EPS = 1e-12
 SOURCE = "dieselfluid_tpu_torch/csrc/sph_sweep.cu"
@@ -619,17 +620,19 @@ def _run_plain(sweep: Sweep, pair: Callable, ins: Planes,
 def _run(sweep: Sweep, pair: Callable, ins: Planes, spec: DenseCellSpec,
          consts: Sequence[float], active: Optional[torch.Tensor] = None
          ) -> List[torch.Tensor]:
-    """Dispatch by device: the plain version on the CPU, the kernel on CUDA."""
-    dev = ins[sweep.in_names[0]].device
-    if dev.type == "cpu":
-        return _run_plain(sweep, pair, ins, spec, consts, active)
-    arrs = [ins[n] for n in sweep.in_names]
-    _check_planes(arrs, spec)
-    if dev.type != "cuda":
-        raise ValueError(f"no sweep kernel for device {dev}")
-    if sweep.gated:
-        _check_active(active, spec, dev)
-    return _sweep_cuda(sweep, arrs, spec, consts, active)
+    """Dispatch by device: the plain version on the CPU, the kernel on CUDA.
+    One span `sweep.<name>` (utils/profiling.py) a call."""
+    with span("sweep." + sweep.name):
+        dev = ins[sweep.in_names[0]].device
+        if dev.type == "cpu":
+            return _run_plain(sweep, pair, ins, spec, consts, active)
+        arrs = [ins[n] for n in sweep.in_names]
+        _check_planes(arrs, spec)
+        if dev.type != "cuda":
+            raise ValueError(f"no sweep kernel for device {dev}")
+        if sweep.gated:
+            _check_active(active, spec, dev)
+        return _sweep_cuda(sweep, arrs, spec, consts, active)
 
 
 def _mask_where(mask_plane: torch.Tensor, value_plane: torch.Tensor):

@@ -34,6 +34,12 @@ by every shard gets its gradients summed by autograd (LocalMesh) or by
 The sweeps leave ghost rows at zero (they walk interior rows only), and
 the exchanged masks keep build_planes' prefix form (a neighbour's owned
 column, copied), which the compacted kernels need.
+
+Spans (utils/profiling.py): `slab.step` (a step), `halo.frame` (the local
+layouts, the binning and the halo-filled planes), `halo.exchange` (one
+ghost-column exchange), `halo.shift` (the ghost x shift), `halo.migrate`
+(the migration and the global reductions), and the PCISPH loop's
+(solvers/dense_step.py).
 """
 
 from __future__ import annotations
@@ -75,10 +81,12 @@ from dieselfluid_tpu_torch.parallel.halo import (
     origin,
 )
 from dieselfluid_tpu_torch.parallel.mesh import AXIS
+from dieselfluid_tpu_torch.solvers.dense_step import pcisph_continue
 from dieselfluid_tpu_torch.solvers.integrate import (
     box_collide,
     semi_implicit_euler,
 )
+from dieselfluid_tpu_torch.utils.profiling import count, span
 
 Planes = Dict[str, torch.Tensor]
 POS_VEL = ("x", "y", "z", "vx", "vy", "vz", "mask")
@@ -169,11 +177,12 @@ def _exchange_ghost_columns(mesh, planes: List[torch.Tensor],
     neighbour's low ghost, the first to the left neighbour's high ghost.
     Edge ghosts stay zero."""
     py, nx = spec.py, spec.nx
-    from_left = mesh.ppermute([p[nx * py:(nx + 1) * py] for p in planes],
-                              axis, +1)
-    from_right = mesh.ppermute([p[py:2 * py] for p in planes], axis, -1)
-    return [torch.cat([lf, p[py:(nx + 1) * py], rt], dim=0)
-            for lf, p, rt in zip(from_left, planes, from_right)]
+    with span("halo.exchange"):
+        from_left = mesh.ppermute(
+            [p[nx * py:(nx + 1) * py] for p in planes], axis, +1)
+        from_right = mesh.ppermute([p[py:2 * py] for p in planes], axis, -1)
+        return [torch.cat([lf, p[py:(nx + 1) * py], rt], dim=0)
+                for lf, p, rt in zip(from_left, planes, from_right)]
 
 
 def _exchange_all(mesh, planes: List[Planes], spec: DenseCellSpec, names,
@@ -203,10 +212,11 @@ def _shift_ghost_x(planes: Planes, spec: DenseCellSpec,
     m = planes["mask"]
     x = planes["x"]
     planes = dict(planes)
-    planes["x"] = torch.cat([
-        x[:py] - torch.where(m[:py] > 0, slab_width, 0.0),
-        x[py:hi],
-        x[hi:] + torch.where(m[hi:] > 0, slab_width, 0.0)], dim=0)
+    with span("halo.shift"):
+        planes["x"] = torch.cat([
+            x[:py] - torch.where(m[:py] > 0, slab_width, 0.0),
+            x[py:hi],
+            x[hi:] + torch.where(m[hi:] > 0, slab_width, 0.0)], dim=0)
     return planes
 
 
@@ -226,6 +236,7 @@ def _local_layout(pos, alive, spec: DenseSlabSpec, lspec: DenseCellSpec, me,
     x0 = origin(spec.lo, spec.slab_width, me, dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     shift = torch.stack([x0, zero, zero])
+    count("host_sync.halo.park")
     park = torch.tensor([0.5 * spec.slab_width, 0.0, spec.park_z],
                         dtype=torch.float32, device=dev)
     live = alive > 0
@@ -254,6 +265,7 @@ def _pos_vel_planes(entries, vel, flat, valid, lspec, boundary: bool):
         flat, valid, lspec)
 
 
+@span("halo.frame")
 def _frame(mesh, spec: DenseSlabSpec, slabs: SlabState, boundary: bool):
     """The held shards' (pos, vel, pressure, alive, dropped), their
     layouts (_local_layout) and their position and velocity planes with
@@ -289,6 +301,7 @@ def _integrate(pos, vel, force, rho, pressure, params, mass, spec):
     return state, diag
 
 
+@span("halo.migrate")
 def _reduce_and_migrate(mesh, pos, vel, pressure, alive, dropped, overflow,
                         states, diags, spec: DenseSlabSpec):
     """Freeze dead slots, migrate over faces, reduce global diagnostics:
@@ -327,6 +340,7 @@ def make_dense_halo_wcsph_step(mesh, spec: DenseSlabSpec, params: FluidParams,
     lspec = spec.local_spec
     k = KernelCoeffs.build(params.h)
 
+    @span("slab.step")
     def step(slabs: SlabState, materials=None):
         if materials_arg:
             mass, mu = materials.mass, materials.mu
@@ -410,6 +424,7 @@ def make_dense_halo_pcisph_step(mesh, spec: DenseSlabSpec,
     d0 = params.d0
     sw = spec.slab_width
 
+    @span("slab.step")
     def step(slabs: SlabState):
         pos, vel, press_in, alive, dropped, lay, planes = _frame(
             mesh, spec, slabs, boundary)
@@ -435,9 +450,11 @@ def make_dense_halo_pcisph_step(mesh, spec: DenseSlabSpec,
         pressure = [p * a if warm_start else torch.zeros_like(a)
                     for p, a in zip(press_in, alive)]
         f_p = [torch.zeros_like(p) for p in pos]
-        it, err = 0, None
-        while it < params.pci_max_iters and (
-                err is None or err.item() > params.pci_max_density_error_ratio):
+
+        @span("pcisph.iter")
+        def iteration():
+            """One correction iteration on every held shard (updates
+            `pressure` and `f_p`); the global density-error ratio."""
             p_star = []
             for s in range(n_sh):
                 entries, flat, valid, _, shift, park = lay[s]
@@ -474,8 +491,13 @@ def make_dense_halo_pcisph_step(mesh, spec: DenseSlabSpec,
                                               params.mass)
                 f_p[s] = torch.where(valid_f[s][:, None],
                                      gather_planes(list(fp), flat_f[s]), 0.0)
-            err = mesh.pmax(errs)[0]
-            it += 1
+            return mesh.pmax(errs)[0]
+
+        it, err = 0, None
+        with span("pcisph.loop"):
+            while it < params.pci_max_iters and pcisph_continue(err, params):
+                err = iteration()
+                it += 1
         step.iters = it
 
         states, diags = [], []

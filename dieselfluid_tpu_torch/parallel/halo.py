@@ -25,6 +25,11 @@ fit a fixed capacity (psum'd). The slot order of compaction and migration
 the slabs equal the JAX package's slot for slot.
 
 `distribute` and `collect` are host-side numpy, the JAX package's code.
+
+Spans (utils/profiling.py): `slab.step` (a step), `halo.frame` (the face
+packs and each slab's sources), `halo.exchange` (one ghost exchange),
+`halo.migrate` (the migration and the global reductions), and the PCISPH
+loop's (solvers/dense_step.py).
 """
 
 from __future__ import annotations
@@ -45,10 +50,12 @@ from dieselfluid_tpu_torch.neighbors.cellgrid import (
 from dieselfluid_tpu_torch.ops.cellops import spread_masked
 from dieselfluid_tpu_torch.ops.smoothing import tait_eos
 from dieselfluid_tpu_torch.parallel.mesh import AXIS
+from dieselfluid_tpu_torch.solvers.dense_step import pcisph_continue
 from dieselfluid_tpu_torch.solvers.integrate import (
     box_collide,
     semi_implicit_euler,
 )
+from dieselfluid_tpu_torch.utils.profiling import count, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,6 +99,7 @@ def _f32(x) -> torch.Tensor:
 
 def origin(lo: float, width: float, me: int, device) -> torch.Tensor:
     """lo + width * me in float32, rounded as the JAX package forms it."""
+    count("host_sync.halo.origin")
     return torch.tensor(width, dtype=torch.float32, device=device) * me + lo
 
 
@@ -204,11 +212,13 @@ def _face_packs(mesh, pos, alive, spec: SlabSpec, axis=AXIS):
 def _ghost_mask(mesh, packs, axis=AXIS):
     """The ghosts' live masks: the left neighbour's high face, then the
     right neighbour's low face (edge shards receive zeros)."""
-    fl = mesh.ppermute([hi_m for (_, _), (_, hi_m) in packs], axis, +1)
-    fr = mesh.ppermute([lo_m for (_, lo_m), _ in packs], axis, -1)
-    return [torch.cat([a, b], dim=0) for a, b in zip(fl, fr)]
+    with span("halo.exchange"):
+        fl = mesh.ppermute([hi_m for (_, _), (_, hi_m) in packs], axis, +1)
+        fr = mesh.ppermute([lo_m for (_, lo_m), _ in packs], axis, -1)
+        return [torch.cat([a, b], dim=0) for a, b in zip(fl, fr)]
 
 
+@span("halo.exchange")
 def _exchange(mesh, packs, arrays, axis=AXIS):
     """ppermute per-face packed channels to both neighbours. `arrays`: one
     list over the shards per channel; each output is (2 * halo_capacity,
@@ -340,6 +350,7 @@ def _boundary_density(bpos, bmask, parked, spec: SlabSpec,
 
 def _gravity(params: FluidParams, mass, device) -> torch.Tensor:
     """(3,) gravity * mass in float32 (mass: a number or a 0-d tensor)."""
+    count("host_sync.halo.gravity")
     return torch.tensor(params.gravity, dtype=torch.float32,
                         device=device) * mass
 
@@ -361,8 +372,9 @@ def _finish_step(mesh, pos, vel, alive, dropped, force, rho, pressure,
         new[1].append(torch.where(live, state.vel, vel[s]))
         new[2].append(pressure[s] * alive[s])   # dead slots: no pressure
         max_vels.append(diag.max_vel.detach())
-    out = _migrate(mesh, *new, alive, dropped, spec)
-    return out, _reduce(mesh, out, max_vels, spec.n_dev)
+    with span("halo.migrate"):
+        out = _migrate(mesh, *new, alive, dropped, spec)
+        return out, _reduce(mesh, out, max_vels, spec.n_dev)
 
 
 def _reduce(mesh, out, max_vels, n_sh: int):
@@ -421,12 +433,14 @@ def make_halo_step(mesh, spec: SlabSpec, params: FluidParams, k: int = 64,
         return tait_eos(rho, params.d0, params.p0, params.tait_gamma,
                         params.tait_w)
 
+    @span("slab.step")
     def step(slabs: SlabState):
         pos, vel, _, alive, dropped, bpos, bmask = _shard_args(
             mesh, slabs, boundary, spec.n_dev)
-        packs = _face_packs(mesh, pos, alive, spec)
-        srcs = _local_sources(mesh, pos, vel, alive, spec, packs, k, cg,
-                              bpos, bmask)
+        with span("halo.frame"):
+            packs = _face_packs(mesh, pos, alive, spec)
+            srcs = _local_sources(mesh, pos, vel, alive, spec, packs, k, cg,
+                                  bpos, bmask)
         rho = [F.density_with_self(q, nb, params, source_pos=pk)
                for nb, q, pk, _, _ in srcs]
         pressure = [eos(r) for r in rho]
@@ -473,13 +487,15 @@ def make_halo_pcisph_step(mesh, spec: SlabSpec, params: FluidParams,
     cg = make_cell_spec(spec, cell_capacity)
     park = spec.hi + 3.0 * spec.h
 
+    @span("slab.step")
     def step(slabs: SlabState):
         pos, vel, press_in, alive, dropped, bpos, bmask = _shard_args(
             mesh, slabs, boundary, spec.n_dev)
         n_sh = len(pos)
-        packs = _face_packs(mesh, pos, alive, spec)
-        srcs = _local_sources(mesh, pos, vel, alive, spec, packs, k, cg,
-                              bpos, bmask)
+        with span("halo.frame"):
+            packs = _face_packs(mesh, pos, alive, spec)
+            srcs = _local_sources(mesh, pos, vel, alive, spec, packs, k, cg,
+                                  bpos, bmask)
         rho = [F.density_with_self(q, nb, params, source_pos=pk)
                for nb, q, pk, _, _ in srcs]
         (halo_rho,) = _exchange(mesh, packs, (rho,))
@@ -507,9 +523,11 @@ def make_halo_pcisph_step(mesh, spec: SlabSpec, params: FluidParams,
         pressure = [p * a if warm_start else torch.zeros_like(a)
                     for p, a in zip(press_in, alive)]
         f_p = [torch.zeros_like(p) for p in pos]
-        it, err = 0, None
-        while it < params.pci_max_iters and (
-                err is None or err.item() > params.pci_max_density_error_ratio):
+
+        @span("pcisph.iter")
+        def iteration():
+            """One correction iteration on every held shard (updates
+            `pressure` and `f_p`); the global density-error ratio."""
             pos_star = [pos[s] + (vel[s] + (ext_force[s] + f_p[s])
                                   / params.mass * params.dt) * params.dt
                         for s in range(n_sh)]
@@ -543,8 +561,13 @@ def make_halo_pcisph_step(mesh, spec: SlabSpec, params: FluidParams,
                     source_pos=parked, source_rho=src_rff,
                     source_pressure=src_p)
             # GLOBAL density-error max: every slab exits together.
-            err = mesh.pmax(errs)[0]
-            it += 1
+            return mesh.pmax(errs)[0]
+
+        it, err = 0, None
+        with span("pcisph.loop"):
+            while it < params.pci_max_iters and pcisph_continue(err, params):
+                err = iteration()
+                it += 1
         step.iters = it
 
         forces = [e + f for e, f in zip(ext_force, f_p)]

@@ -65,6 +65,7 @@ from dieselfluid_tpu_torch.render.splat import (
     depth_min,
     pixel_radius,
 )
+from dieselfluid_tpu_torch.utils.profiling import span
 
 SOURCE = "dieselfluid_tpu_torch/csrc/splat_raster.cu"
 _PALLAS = "dieselfluid_tpu/render/splat_pallas.py"
@@ -470,37 +471,43 @@ def rasterize_fwd(planes: Planes, spec: TileSpec, sharpness: float,
                   depth_falloff: float, emit_normals: bool
                   ) -> List[torch.Tensor]:
     """K11 on CUDA slot planes, the plain version on CPU ones: the
-    accumulator tile planes, untracked."""
-    dev = _device_of(planes, spec)
-    if dev.type == "cpu":
-        return _raster_fwd_plain(planes, spec, sharpness, depth_falloff,
-                                 emit_normals)
-    outs = [torch.empty(spec.tile_shape, dtype=torch.float32, device=dev)
-            for _ in range(9 if emit_normals else 6)]
-    _launch(SPLAT_FWD, emit_normals, [planes[n] for n in CHANNELS], outs,
-            spec, sharpness, depth_falloff)
-    return outs
+    accumulator tile planes, untracked. One span `sweep.splat_fwd` a
+    call."""
+    with span("sweep." + SPLAT_FWD.name):
+        dev = _device_of(planes, spec)
+        if dev.type == "cpu":
+            return _raster_fwd_plain(planes, spec, sharpness, depth_falloff,
+                                     emit_normals)
+        outs = [torch.empty(spec.tile_shape, dtype=torch.float32,
+                            device=dev)
+                for _ in range(9 if emit_normals else 6)]
+        _launch(SPLAT_FWD, emit_normals, [planes[n] for n in CHANNELS],
+                outs, spec, sharpness, depth_falloff)
+        return outs
 
 
 def rasterize_bwd(planes: Planes, cts: Sequence[torch.Tensor],
                   spec: TileSpec, sharpness: float, depth_falloff: float,
                   emit_normals: bool) -> List[torch.Tensor]:
     """K12 on CUDA slot planes, the plain version on CPU ones: d/d(u, v, z,
-    r) of the accumulators against the cotangent tile planes."""
-    dev = _device_of(planes, spec)
-    for c in cts:
-        if c.device != dev or tuple(c.shape) != spec.tile_shape \
-                or c.dtype != torch.float32 or not c.is_contiguous():
-            raise ValueError("rasterizer cotangents must be contiguous "
-                             f"float32 {spec.tile_shape} on {dev}")
-    if dev.type == "cpu":
-        return _raster_bwd_plain(planes, cts, spec, sharpness, depth_falloff,
-                                 emit_normals)
-    outs = [torch.empty(spec.plane_shape, dtype=torch.float32, device=dev)
-            for _ in CHANNELS]
-    _launch(SPLAT_BWD, emit_normals, [planes[n] for n in CHANNELS]
-            + list(cts), outs, spec, sharpness, depth_falloff)
-    return outs
+    r) of the accumulators against the cotangent tile planes. One span
+    `sweep.splat_bwd` a call."""
+    with span("sweep." + SPLAT_BWD.name):
+        dev = _device_of(planes, spec)
+        for c in cts:
+            if c.device != dev or tuple(c.shape) != spec.tile_shape \
+                    or c.dtype != torch.float32 or not c.is_contiguous():
+                raise ValueError("rasterizer cotangents must be contiguous "
+                                 f"float32 {spec.tile_shape} on {dev}")
+        if dev.type == "cpu":
+            return _raster_bwd_plain(planes, cts, spec, sharpness,
+                                     depth_falloff, emit_normals)
+        outs = [torch.empty(spec.plane_shape, dtype=torch.float32,
+                            device=dev)
+                for _ in CHANNELS]
+        _launch(SPLAT_BWD, emit_normals, [planes[n] for n in CHANNELS]
+                + list(cts), outs, spec, sharpness, depth_falloff)
+        return outs
 
 
 class _Rasterize(torch.autograd.Function):

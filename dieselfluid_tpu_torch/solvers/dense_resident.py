@@ -12,6 +12,12 @@ solvers).
 The rebuild decision, a `lax.cond` in the JAX package, is a host branch
 here (`if need.item():`, one sync per step); the PCISPH correction loop
 reads one scalar per iteration (solvers/dense_step.py).
+
+Spans (utils/profiling.py): `resident.step` (a whole step),
+`resident.skin_test` (the rebuild decision's read), `resident.rebuild`
+(the gather and the new binning); host syncs counted as
+`host_sync.resident.skin_test` and `host_sync.resident.fallback` (the
+fallback's constants).
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from dieselfluid_tpu_torch.solvers.dense_step import (
     external_force_planes,
     pcisph_correction_loop,
 )
+from dieselfluid_tpu_torch.utils.profiling import count, span
 
 _BOX = ((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0))
 
@@ -169,12 +176,15 @@ def _integrate_collide(planes, fluid_occ, accels, params: FluidParams,
 def _fallback_step(ps: DensePlaneState, params: FluidParams, bounds,
                    restitution, friction):
     """Ballistic update (gravity + walls) of overflowed particles."""
+    count("host_sync.resident.fallback")
     g = torch.tensor(params.gravity, dtype=torch.float32,
                      device=ps.fb_vel.device)
     fb_vel = ps.fb_vel + g * params.dt
     fb_pos = ps.fb_pos + fb_vel * params.dt
     if bounds is not None:
+        count("host_sync.resident.fallback")
         lo = torch.tensor(bounds[0], dtype=torch.float32, device=g.device)
+        count("host_sync.resident.fallback")
         hi = torch.tensor(bounds[1], dtype=torch.float32, device=g.device)
         fhit = (fb_pos < lo) | (fb_pos > hi)
         fany = torch.any(fhit, dim=-1, keepdim=True)
@@ -197,28 +207,33 @@ def _advance(ps: DensePlaneState, new_planes, fluid_occ, params, spec,
     need = max_disp >= float(torch.tensor(skin * params.h,
                                           dtype=torch.float32))
     age = ps.age_total + 1
-    if not need.item():
+    with span("resident.skin_test"):
+        count("host_sync.resident.skin_test")
+        rebuild = need.item()
+    if not rebuild:
         return ps._replace(planes=new_planes, fb_pos=fb_pos, fb_vel=fb_vel,
                            age_total=age)
-    n_fluid = ps.fb_pos.shape[0]
-    out = gather_planes([new_planes[c] for c in
-                         ("x", "y", "z", "vx", "vy", "vz", "press")],
-                        ps.flat[:n_fluid])
-    valid_f = ps.valid[:n_fluid]
-    pos_f = torch.where(valid_f[:, None], out[:, 0:3], fb_pos)
-    vel_f = torch.where(valid_f[:, None], out[:, 3:6], fb_vel)
-    press_f = torch.where(valid_f, out[:, 6], 0.0)
-    pos, vel, press = _extend(pos_f, vel_f, press_f, ps.boundary_pos)
-    planes2, bnd2, flat2, valid2, ovf2 = _bin_and_build(
-        pos, vel, n_fluid, spec, press)
-    return ps._replace(
-        planes=planes2, bnd=bnd2,
-        ref_x=planes2["x"], ref_y=planes2["y"], ref_z=planes2["z"],
-        flat=flat2, valid=valid2, fb_pos=pos_f, fb_vel=vel_f,
-        overflow=torch.maximum(ps.overflow, ovf2.to(torch.int32)),
-        rebuilds=ps.rebuilds + 1, age_total=age)
+    with span("resident.rebuild"):
+        n_fluid = ps.fb_pos.shape[0]
+        out = gather_planes([new_planes[c] for c in
+                             ("x", "y", "z", "vx", "vy", "vz", "press")],
+                            ps.flat[:n_fluid])
+        valid_f = ps.valid[:n_fluid]
+        pos_f = torch.where(valid_f[:, None], out[:, 0:3], fb_pos)
+        vel_f = torch.where(valid_f[:, None], out[:, 3:6], fb_vel)
+        press_f = torch.where(valid_f, out[:, 6], 0.0)
+        pos, vel, press = _extend(pos_f, vel_f, press_f, ps.boundary_pos)
+        planes2, bnd2, flat2, valid2, ovf2 = _bin_and_build(
+            pos, vel, n_fluid, spec, press)
+        return ps._replace(
+            planes=planes2, bnd=bnd2,
+            ref_x=planes2["x"], ref_y=planes2["y"], ref_z=planes2["z"],
+            flat=flat2, valid=valid2, fb_pos=pos_f, fb_vel=vel_f,
+            overflow=torch.maximum(ps.overflow, ovf2.to(torch.int32)),
+            rebuilds=ps.rebuilds + 1, age_total=age)
 
 
+@span("resident.step")
 def dense_wcsph_resident_step(ps: DensePlaneState, params: FluidParams,
                               spec: DenseCellSpec, skin: float = 0.05,
                               bounds: Optional[Tuple] = _BOX,
@@ -245,6 +260,7 @@ def dense_wcsph_resident_step(ps: DensePlaneState, params: FluidParams,
                     restitution, friction)
 
 
+@span("resident.step")
 def dense_pcisph_resident_step(ps: DensePlaneState, params: FluidParams,
                                spec: DenseCellSpec, delta: float,
                                skin: float = 0.05,

@@ -7,7 +7,10 @@ particles join the planes as frozen fluid sources.
 
 The PCISPH correction loop, a `lax.while_loop` in the JAX package, is a
 Python loop here: each iteration reads one scalar (`err.item()`, a host
-sync) against `pci_max_iters` and `pci_max_density_error_ratio`.
+sync) against `pci_max_iters` and `pci_max_density_error_ratio`. Its spans
+(utils/profiling.py): `pcisph.loop` (the whole loop), `pcisph.iter` (one
+iteration's body), `pcisph.exit_test` (the read, counted as
+`host_sync.pcisph.exit_test`); the sharded loops use the same names.
 
 Gradients. The static-params WCSPH step is differentiable in the state
 through the fused force sweep, whose backward is its own adjoint sweep (K7).
@@ -62,6 +65,7 @@ from dieselfluid_tpu_torch.solvers.integrate import (
     collide,
     semi_implicit_euler,
 )
+from dieselfluid_tpu_torch.utils.profiling import count, span
 
 _BOX = ((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0))
 
@@ -183,6 +187,19 @@ def external_force_planes(visc_planes, params: FluidParams):
     return tuple(v + gm[ax] for ax, v in enumerate(visc_planes))
 
 
+def pcisph_continue(err: Optional[torch.Tensor],
+                    params: FluidParams) -> bool:
+    """The correction loop's exit test after an iteration: is the density
+    error ratio `err` (a 0-d device tensor; None before the first
+    iteration) above `pci_max_density_error_ratio`? One host read."""
+    if err is None:
+        return True
+    with span("pcisph.exit_test"):
+        count("host_sync.pcisph.exit_test")
+        return err.item() > params.pci_max_density_error_ratio
+
+
+@span("pcisph.loop")
 def pcisph_correction_loop(planes, fluid_occ, extf, press0, spec, k,
                            params: FluidParams, delta: float, mass=None,
                            d0=None):
@@ -208,25 +225,25 @@ def pcisph_correction_loop(planes, fluid_occ, extf, press0, spec, k,
                        device=mask_p.device)
     press, fps = press0, (zero, zero, zero)
     it, err = 0, None
-    while it < params.pci_max_iters and (
-            err is None or err.item() > params.pci_max_density_error_ratio):
-        star = {}
-        for ax, name in enumerate(("x", "y", "z")):
-            accel = (extf[ax] + fps[ax]) / mass
-            xs = poss[ax] + (vels[ax] + accel * dt) * dt
-            star[name] = torch.where(fluid_occ, xs, poss[ax])
-        star["mask"] = mask_p
-        rho_star = density_planes(star, spec, k, mass)
-        err_p = torch.where(fluid_occ, rho_star - d0, 0.0)
-        press = torch.where(
-            fluid_occ, torch.clamp(press + delta * err_p, min=0.0), 0.0)
-        # Prefolded pq = press / rho_ff^2; boundary slots have zero pressure
-        # so their pq is 0 whatever the divisor.
-        rff = torch.clamp(rho_star, min=0.5 * d0)
-        pq = torch.where(fluid_occ, press / (rff * rff), 0.0)
-        fps = pressure_force_pq_planes(planes, pq, spec, k, mass)
-        err = torch.max(err_p) / d0
-        it += 1
+    while it < params.pci_max_iters and pcisph_continue(err, params):
+        with span("pcisph.iter"):
+            star = {}
+            for ax, name in enumerate(("x", "y", "z")):
+                accel = (extf[ax] + fps[ax]) / mass
+                xs = poss[ax] + (vels[ax] + accel * dt) * dt
+                star[name] = torch.where(fluid_occ, xs, poss[ax])
+            star["mask"] = mask_p
+            rho_star = density_planes(star, spec, k, mass)
+            err_p = torch.where(fluid_occ, rho_star - d0, 0.0)
+            press = torch.where(
+                fluid_occ, torch.clamp(press + delta * err_p, min=0.0), 0.0)
+            # Prefolded pq = press / rho_ff^2; boundary slots have zero
+            # pressure so their pq is 0 whatever the divisor.
+            rff = torch.clamp(rho_star, min=0.5 * d0)
+            pq = torch.where(fluid_occ, press / (rff * rff), 0.0)
+            fps = pressure_force_pq_planes(planes, pq, spec, k, mass)
+            err = torch.max(err_p) / d0
+            it += 1
     return it, press, fps
 
 
@@ -240,6 +257,7 @@ def _dilate3x3(a: torch.Tensor) -> torch.Tensor:
             | p[2:, 2:])
 
 
+@span("pcisph.loop")
 def pcisph_skip_loop(planes, fluid_occ, extf, press0, rho_plane, spec, k,
                      params: FluidParams, delta: float, mass=None, d0=None):
     """The convergence-gated PCISPH correction loop (`column_skip`, the JAX
@@ -273,36 +291,36 @@ def pcisph_skip_loop(planes, fluid_occ, extf, press0, rho_plane, spec, k,
     press, fps, rho_star = press0, (zero, zero, zero), rho_plane
     active = torch.ones((nx, nyp), dtype=torch.int32, device=mask_p.device)
     it, err = 0, None
-    while it < params.pci_max_iters and (
-            err is None or err.item() > params.pci_max_density_error_ratio):
-        ar = act_rows_of(active, spec)
-        star = {}
-        for ax, name in enumerate(("x", "y", "z")):
-            accel = (extf[ax] + fps[ax]) / mass
-            xs = poss[ax] + (vels[ax] + accel * dt) * dt
-            star[name] = torch.where(fluid_occ, xs, poss[ax])
-        star["mask"] = mask_p
-        rho_new = density_planes_active(star, spec, k, mass, active)
-        # An active but empty column reads 0 here (garbage in JAX); the
-        # occupancy keeps the carried plane clean either way.
-        rho_star = torch.where(ar & occ, rho_new, rho_star)
-        err_p = torch.where(fluid_occ, rho_star - d0, 0.0)
-        upd = ar & fluid_occ
-        press = torch.where(upd, torch.clamp(press + delta * err_p, min=0.0),
-                            press)
-        rff = torch.clamp(rho_star, min=0.5 * d0)
-        pq = torch.where(fluid_occ, press / (rff * rff), 0.0)
-        new = pressure_force_pq_planes(planes, pq, spec, k, mass,
-                                       active=active)
-        fps = tuple(torch.where(ar, f, c) for f, c in zip(new, fps))
-        err_upd = torch.where(upd, err_p, 0.0)
-        err = torch.max(err_upd) / d0
-        e_col = torch.amax(err_upd.abs(), dim=(1, 2))
-        e_col = e_col.view(spec.px, spec.py)[1:nx + 1, 1:spec.ny + 1]
-        core = torch.nn.functional.pad(e_col, (0, nyp * p_sz - spec.ny))
-        core = core.view(nx, nyp, p_sz).amax(dim=2) > tol_abs
-        active = _dilate3x3(core).to(torch.int32)
-        it += 1
+    while it < params.pci_max_iters and pcisph_continue(err, params):
+        with span("pcisph.iter"):
+            ar = act_rows_of(active, spec)
+            star = {}
+            for ax, name in enumerate(("x", "y", "z")):
+                accel = (extf[ax] + fps[ax]) / mass
+                xs = poss[ax] + (vels[ax] + accel * dt) * dt
+                star[name] = torch.where(fluid_occ, xs, poss[ax])
+            star["mask"] = mask_p
+            rho_new = density_planes_active(star, spec, k, mass, active)
+            # An active but empty column reads 0 here (garbage in JAX); the
+            # occupancy keeps the carried plane clean either way.
+            rho_star = torch.where(ar & occ, rho_new, rho_star)
+            err_p = torch.where(fluid_occ, rho_star - d0, 0.0)
+            upd = ar & fluid_occ
+            press = torch.where(
+                upd, torch.clamp(press + delta * err_p, min=0.0), press)
+            rff = torch.clamp(rho_star, min=0.5 * d0)
+            pq = torch.where(fluid_occ, press / (rff * rff), 0.0)
+            new = pressure_force_pq_planes(planes, pq, spec, k, mass,
+                                           active=active)
+            fps = tuple(torch.where(ar, f, c) for f, c in zip(new, fps))
+            err_upd = torch.where(upd, err_p, 0.0)
+            err = torch.max(err_upd) / d0
+            e_col = torch.amax(err_upd.abs(), dim=(1, 2))
+            e_col = e_col.view(spec.px, spec.py)[1:nx + 1, 1:spec.ny + 1]
+            core = torch.nn.functional.pad(e_col, (0, nyp * p_sz - spec.ny))
+            core = core.view(nx, nyp, p_sz).amax(dim=2) > tol_abs
+            active = _dilate3x3(core).to(torch.int32)
+            it += 1
     return it, press, fps
 
 

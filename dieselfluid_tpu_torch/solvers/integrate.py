@@ -9,6 +9,7 @@ import torch
 
 from dieselfluid_tpu_torch.config import FluidParams
 from dieselfluid_tpu_torch.models.particles import FluidState, gravity_force
+from dieselfluid_tpu_torch.utils.profiling import count
 
 
 class StepDiagnostics(NamedTuple):
@@ -53,7 +54,9 @@ def box_collide(state: FluidState, lo=(-1.0, -1.0, -1.0),
                 friction: float = 0.1) -> FluidState:
     """Axis-aligned box: clamp positions, reflect and damp the velocity
     component that hit, and damp the tangential ones by `friction`."""
+    count("host_sync.integrate.box_collide")
     lo_t = torch.tensor(lo, dtype=torch.float32, device=state.pos.device)
+    count("host_sync.integrate.box_collide")
     hi_t = torch.tensor(hi, dtype=torch.float32, device=state.pos.device)
     hit = (state.pos < lo_t) | (state.pos > hi_t)
     any_hit = torch.any(hit, dim=-1, keepdim=True)

@@ -1,6 +1,8 @@
 """Runtime utilities: failure detection and rollback recovery (`guard`),
-step timers and trace capture (`profiling`), a simulation logger
-(`logging`)."""
+step timers, trace capture and the program's spans and host-sync counters
+(`profiling`: `trace_to` is the operator's switch; its Chrome trace and
+`profiling.summary()` carry the spans and the sync counts), a simulation
+logger (`logging`)."""
 
 from dieselfluid_tpu_torch.utils.logging import (  # noqa: F401
     get_logger,

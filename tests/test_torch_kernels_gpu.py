@@ -885,3 +885,106 @@ def test_sharded_train_step_on_spread_tables_equals_the_clamped_form(
         assert torch.equal(card.idx.cpu(), cpu.idx)
         assert torch.equal(card.mask.cpu(), cpu.mask)
         assert int((cpu.mask == 0).sum()) > 0
+
+
+@pytest.fixture(scope="module")
+def sync_paths(planes):
+    """One step each of the resident WCSPH and PCISPH solvers (skin 0: a
+    rebuild every step), the 4-slab dense WCSPH step and the 4-slab
+    cell-grid WCSPH step on the card, from a 16^3 dam break with seeded
+    velocities; each path warmed by one step."""
+    from dieselfluid_tpu_torch.parallel import dense_halo as pdh
+    from dieselfluid_tpu_torch.parallel import halo as th
+    from dieselfluid_tpu_torch.parallel.mesh import LocalMesh
+    from dieselfluid_tpu_torch.solvers.pcisph import compute_pci_delta
+
+    params, spec, _ = planes
+    dev = torch.device("cuda", 0)
+    s = dam_break_state(N3, params, "cpu")
+    vel = np.random.default_rng(11).normal(size=tuple(s.vel.shape))
+    s = s._replace(vel=torch.from_numpy(vel.astype(np.float32)))
+    s = s._replace(**{f: getattr(s, f).to(dev) for f in
+                      ("pos", "vel", "force", "density", "pressure")})
+    ps = tdr.plane_state_from_fluid(s, spec)
+    delta = compute_pci_delta(params, DX)
+    slab_state = dam_break_state(N3, params, "cpu", extent=0.75)
+    sspec = pdh.DenseSlabSpec.build(4, params.h, capacity=slab_state.n,
+                                    migrate_capacity=64, cell_capacity=16)
+    slabs = pdh.distribute_dense(slab_state, sspec, device=dev)
+    mesh = LocalMesh((4,), dev)
+    slab_step = pdh.make_dense_halo_wcsph_step(mesh, sspec, params)
+    cspec = th.SlabSpec(n_dev=4, capacity=slab_state.n,
+                        halo_capacity=slab_state.n, migrate_capacity=64,
+                        h=params.h)
+    cslabs = th.distribute(slab_state, cspec, device=dev)
+    cell_step = th.make_halo_step(mesh, cspec, params, k=64)
+    paths = {
+        "resident_wcsph": lambda: tdr.dense_wcsph_resident_step(
+            ps, params, spec, skin=0.0),
+        "resident_pcisph": lambda: tdr.dense_pcisph_resident_step(
+            ps, params, spec, delta, skin=0.0),
+        "slab_wcsph": lambda: slab_step(slabs),
+        "slab_cellgrid": lambda: cell_step(cslabs)}
+    for run in paths.values():
+        run()
+    torch.cuda.synchronize()
+    return paths
+
+
+@pytest.mark.parametrize("path", ["resident_wcsph", "resident_pcisph",
+                                  "slab_wcsph", "slab_cellgrid"])
+def test_host_sync_counters_equal_torchs_sync_warnings(sync_paths, path):
+    """One traced step under torch.cuda.set_sync_debug_mode("warn"): torch
+    warns once at each operation that makes the host wait for the device,
+    and the program's `host_sync.*` counters count as many. The mode is set
+    before the warnings are counted: its first setting in a process warns
+    by itself. In the profiler's events every program range has device
+    time, and the step's range holds the device time of every kernel and
+    copy the step ran, once."""
+    import traceback
+    import warnings
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dieselfluid_tpu_torch.utils import profiling
+
+    syncs = []
+
+    def keep(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing" in str(message):
+            syncs.append(f"{filename}:{lineno}\n"
+                         + "".join(traceback.format_stack(limit=8)[:-1]))
+
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = keep
+                sync_paths[path]()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    got = profiling.summary()
+    profiling.reset()
+    counted = {k: v for k, v in got["counters"].items()
+               if k.startswith("host_sync.")}
+    print(counted, *syncs, sep="\n")
+    assert len(syncs) == sum(counted.values()) > 0, counted
+    events = prof.events()
+    device_us = {}
+    for e in events:
+        if e.name in got["spans"] and e.device_type == DeviceType.CPU:
+            device_us[e.name] = device_us.get(e.name, 0.0) \
+                + e.device_time_total
+    assert set(device_us) == set(got["spans"])
+    assert all(us > 0.0 for us in device_us.values()), device_us
+    ran = sum(e.time_range.elapsed_us() for e in events
+              if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation)
+    top = "resident.step" if path.startswith("resident") else "slab.step"
+    assert device_us[top] == pytest.approx(ran, rel=1e-6), (device_us, ran)

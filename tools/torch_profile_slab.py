@@ -22,11 +22,12 @@ backward walk: the adds whose repeated indices queue on one address),
 the other index/gather/scatter kernels, cat (the ghost exchanges' and the
 joins' copies), memset/copy, the rest: elementwise and reductions), the
 ten costliest kernels, and the device ms/step of the halo's own work: the
-kernels issued inside dense_halo's ghost-column exchange
-(`_exchange_ghost_columns`, forward and in the backward's cotangent sync)
-and inside its ghost x shift (`_shift_ghost_x`), each call wrapped here in
-a `record_function` range, with their share of the busy and of the
-profiled wall time.
+kernels issued inside the program's `halo.exchange` spans (dense_halo's
+ghost-column exchange, forward and in the backward's cotangent sync) and
+`halo.shift` spans (its ghost x shift), with their share of the busy and
+of the profiled wall time; and per step the program's spans (their
+calls and host ms from utils/profiling.summary(), the device ms of the
+kernels under their ranges) and host-sync counts.
 
 `--root DIR` profiles the checkout at DIR (its package and its
 chip_smoke.py) with this script, so that two checkouts are read alike.
@@ -42,27 +43,13 @@ from pathlib import Path
 
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
 CASES = ("wcsph_sharded", "pcisph_sharded", "materials_grad_1m",
          "tiled_render_1080p", "train_8k")
 
-#: range name -> the dense_halo function whose calls it wraps.
-RANGES = {"ghost_exchange": "_exchange_ghost_columns",
-          "ghost_shift": "_shift_ghost_x"}
-
-
-def annotate_halo(dense_halo):
-    """Wrap each RANGES function of dense_halo (the steps look them up as
-    module globals) in a record_function range of its name."""
-    for label, attr in RANGES.items():
-        fn = getattr(dense_halo, attr)
-
-        def wrapped(*args, _fn=fn, _label=label, **kwargs):
-            with record_function(_label):
-                return _fn(*args, **kwargs)
-
-        setattr(dense_halo, attr, wrapped)
+#: The program's spans of the halo's own work.
+HALO_SPANS = ("halo.exchange", "halo.shift")
 
 
 def group(key: str) -> str:
@@ -93,13 +80,22 @@ def measure(name: str, run, steps: int, extra: dict):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / steps * 1e3
 
+    from dieselfluid_tpu_torch.utils import profiling
+
     wall_unprof = window()
+    # A checkout from before the program's spans (--root) records none.
+    recorded = hasattr(profiling, "summary")
+    if recorded:
+        profiling.reset()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall = window()
+    traced = (profiling.summary() if recorded
+              else {"spans": {}, "counters": {}})
     groups, kernels, busy, launches = {}, {}, 0.0, 0
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.key in RANGES:
+        # The spans' own device rows are ranges, not kernels.
+        if e.device_type != DeviceType.CUDA or e.key in traced["spans"]:
             continue
         t = e.self_device_time_total / 1e3 / steps
         groups[group(e.key)] = groups.get(group(e.key), 0.0) + t
@@ -107,11 +103,13 @@ def measure(name: str, run, steps: int, extra: dict):
         busy += t
         launches += e.count
     top = sorted(kernels.items(), key=lambda x: -x[1])[:10]
-    # The device time of the kernels each range's calls issued (their CPU
-    # ops' kernels, the ranges do not nest).
-    ranges = {name: sum(e.device_time_total for e in prof.events()
-                        if e.name == name and e.device_type == DeviceType.CPU)
-              / 1e3 / steps for name in RANGES}
+    # The device time of the kernels each span's calls issued (their CPU
+    # ops' kernels; a span does not nest in one of its own name).
+    device = {name: 0.0 for name in set(traced["spans"]) | set(HALO_SPANS)}
+    for e in prof.events():
+        if e.name in device and e.device_type == DeviceType.CPU:
+            device[e.name] += e.device_time_total / 1e3 / steps
+    ranges = {name: device[name] for name in HALO_SPANS}
     print(json.dumps({
         "case": name, **extra, "steps_profiled": steps,
         "wall_ms_per_step_unprofiled": wall_unprof,
@@ -125,7 +123,13 @@ def measure(name: str, run, steps: int, extra: dict):
         "halo_ms_per_step": ranges,
         "halo_share_of_busy": {n: t / busy for n, t in ranges.items()},
         "halo_share_of_profiled_wall": {n: t / wall
-                                        for n, t in ranges.items()}}),
+                                        for n, t in ranges.items()},
+        "spans_per_step": {
+            n: {"count": s["count"] / steps, "host_ms": s["host_ms"] / steps,
+                "device_ms": device[n]}
+            for n, s in traced["spans"].items()},
+        "host_syncs_per_step": {k: v / steps
+                                for k, v in traced["counters"].items()}}),
         flush=True)
 
 
@@ -149,7 +153,6 @@ def main(argv=None) -> int:
     from dieselfluid_tpu_torch.parallel.mesh import LocalMesh
 
     dev = torch.device("cuda", 0)
-    annotate_halo(dense_halo)
     print(chip_smoke.card_line(), flush=True)
     print(json.dumps({"root": str(Path(args.root).resolve()),
                       "package": dense_halo.__file__}), flush=True)
