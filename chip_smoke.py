@@ -23,8 +23,9 @@ Phases, each of which raises (and so exits nonzero) on failure:
      RASTER_BWD_REL_TOL per output);
   5. the serving path at full size: the 1M-particle (n3=100) dam break
      stepped by the plane-resident WCSPH and PCISPH solvers with the bench
-     parameters; the launch counters are reset just before each solver's
-     steps and read just after them;
+     parameters; the launch counters (the sweeps', the rasterizer's and
+     the resident epilogue's, plane_advance) are reset just before each
+     solver's steps and read just after them;
   6. health checks on both runs (finite, inside the box, no overflow,
      max|v| under the sound speed, mean y falls (PCISPH: by the end of
      burn-in), rho_max/d0 in [1.0, 1.2], PCISPH iterations in 1..5, every
@@ -37,6 +38,12 @@ Phases, each of which raises (and so exits nonzero) on failure:
      bound (bytes and operations of this data);
      then K10 there as in phase 3, timed under the all-ones and the
      quarter grid, with its bounds over the active columns;
+  7b. the resident epilogue kernel (plane_advance) on that state, in both
+     forms: the inputs one WCSPH and one PCISPH resident step hand it,
+     its planes and displacement max against the plain route's
+     (dense_resident._epilogue_plain) on the card, bit for bit; the
+     public call's ms, its launch alone, the plain route's ms and its
+     byte bound;
   8a. the sky bake of config 4 and the composite: bake_sky_cubemap((0.3,
      0.8, 0.5), size=48) on the card (ms) against the same call on the CPU
      (SKY_FLIP_SHARE_TOL, SKY_SH_REL_TOL), each face's min, max and mean;
@@ -212,6 +219,9 @@ OPS_PER_PAIR = {"density": 16, "force": 44, "force_p": 31,
 # K10, the gated sweeps, and the ungated sweep each gates (same functor).
 GATED_OF = {"density_active": "density", "pressure_active": "pressure",
             "pressure_pq_active": "pressure_pq"}
+# The resident epilogue kernel's name in the launch counts and the kernels
+# line (ops/plane_advance.py).
+PLANE_ADVANCE = "plane_advance"
 # The column_skip phase: per-step PCISPH at 1M, warm-started, burn-in and
 # timed steps; the gated loop's tracking of the ungated one over 3 steps
 # from one state (the JAX test's bounds, tests/test_pallas_dense.py:306-307).
@@ -326,25 +336,29 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 def captured_launches(call) -> list:
     """The kernel launches one public call makes, as (launch function,
-    args): the call runs once with the sweeps' and the rasterizer's launch
-    functions wrapped."""
+    args): the call runs once with the sweeps', the rasterizer's and the
+    resident epilogue's launch functions wrapped (the epilogue's C call
+    zeroes its 4-byte maximum, then launches)."""
+    from dieselfluid_tpu_torch.ops import plane_advance as pa
     from dieselfluid_tpu_torch.ops import sph_sweep as sw
     from dieselfluid_tpu_torch.render import splat_tiled as st
 
     rec = []
-    real_sw, real_st = sw.launch_kernel, st._launch
+    real_sw, real_st, real_pa = sw.launch_kernel, st._launch, pa._launcher
 
     def wrap(real):
         def launch(*args):
             rec.append((real, args))
-            real(*args)
+            return real(*args)
         return launch
 
     sw.launch_kernel, st._launch = wrap(real_sw), wrap(real_st)
+    pa._launcher = lambda: wrap(real_pa())
     try:
         call()
     finally:
         sw.launch_kernel, st._launch = real_sw, real_st
+        pa._launcher = real_pa
     return rec
 
 
@@ -677,6 +691,92 @@ def time_kernels(planes, spec, params, cts, plain_ms) -> dict:
     return out
 
 
+def plane_advance_inputs(ps, params, spec, delta) -> dict:
+    """form ("wcsph", "pcisph") -> the arguments one resident step of that
+    solver from `ps` hands its epilogue, as plane_advance.advance and
+    dense_resident._epilogue_plain take them (the steps' results are
+    dropped)."""
+    from dieselfluid_tpu_torch.solvers import dense_resident as tdr
+
+    got = {}
+    real = tdr._epilogue
+
+    def record(state, planes, forces, ext, *rest):
+        got["wcsph" if ext is None else "pcisph"] = (
+            planes, state.bnd, forces, ext,
+            (state.ref_x, state.ref_y, state.ref_z), *rest)
+        return real(state, planes, forces, ext, *rest)
+
+    tdr._epilogue = record
+    try:
+        tdr.dense_wcsph_resident_step(ps, params, spec, skin=SKIN)
+        tdr.dense_pcisph_resident_step(ps, params, spec, delta, skin=SKIN,
+                                       warm_start=True)
+    finally:
+        tdr._epilogue = real
+    check(set(got) == {"wcsph", "pcisph"},
+          f"plane_advance: the resident steps handed over {sorted(got)}")
+    return got
+
+
+def check_plane_advance(ps, params, spec, delta) -> dict:
+    """Phase 7b: form -> the epilogue kernel on the inputs of
+    plane_advance_inputs, its six planes and displacement max equal to the
+    plain route's on the card bit for bit: the public call's ms (median of
+    20), its launch alone (kernel_ms), the plain route's ms (median of 5),
+    its byte bound and CTAs per SM. Bound: the mask and the six carried
+    planes read and the six outputs written in full; bnd, the forces (and
+    the external forces) and the three reference planes read over the
+    128-slot blocks that hold an occupied slot; at the HBM rate."""
+    import ctypes
+
+    import torch
+    from dieselfluid_tpu_torch.ops import _build
+    from dieselfluid_tpu_torch.ops import plane_advance as pa
+    from dieselfluid_tpu_torch.solvers.dense_resident import _epilogue_plain
+
+    def bits(t):
+        return t.view(torch.int32)
+
+    mask = ps.planes["mask"]
+    plane_bytes = spec.size * 4
+    blocks = int((mask.view(-1, 128).amax(-1) > 0).sum())
+    ctas_per_sm = _build.load_library().dft_plane_advance_ctas_per_sm
+    ctas_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
+    ctas_per_sm.restype = ctypes.c_int
+    out = {}
+    for form, args in plane_advance_inputs(ps, params, spec, delta).items():
+        ext, bounds = args[3], args[6]
+        got, md = pa.advance(*args)
+        want, md_want = _epilogue_plain(*args)
+        for c in pa.OUT_NAMES:
+            check(torch.equal(bits(got[c]), bits(want[c])),
+                  f"plane_advance {form}: plane {c} differs from the plain "
+                  "route")
+        check(torch.equal(bits(md), bits(md_want)),
+              f"plane_advance {form}: max displacement {float(md)!r} != "
+              f"{float(md_want)!r}")
+        err = max(float((got[c] - want[c]).abs().max()) for c in pa.OUT_NAMES)
+        n_occ = 7 if ext is None else 10
+        ctas = ctas_per_sm(ext is not None, bounds is not None)
+        check(ctas > 0, f"occupancy query for plane_advance failed: {ctas}")
+        out[form] = {
+            "ms": cuda_ms(lambda: pa.advance(*args), reps=20, warmup=2),
+            "kernel_ms": kernel_ms(lambda: pa.advance(*args)),
+            "plain_ms": cuda_ms(lambda: _epilogue_plain(*args), reps=5),
+            "bound_ms": (13 * plane_bytes + n_occ * blocks * 128 * 4)
+            / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "max_abs_err": err,
+            "max_disp": float(md), "walls": bounds is not None,
+            "body": (f"plane_advance_kernel<"
+                     f"{'SplitAccel' if ext is not None else 'ForceAccel'}, "
+                     f"{'true' if bounds is not None else 'false'}>, 256 "
+                     f"threads, {ctas} CTAs/SM")}
+    log(f"plane_advance_1m ({blocks} of {spec.size // 128} blocks "
+        "occupied) " + json.dumps(out))
+    return out
+
+
 def gated_bounds(planes, spec, active) -> dict:
     """kernel_bounds for the K10 sweeps under `active`: the mask read over
     the rows of active columns, the activity grid, every output plane
@@ -946,20 +1046,24 @@ def run_cli(device) -> dict:
 
 
 def launch_counts() -> dict:
+    from dieselfluid_tpu_torch.ops import plane_advance as pa
     from dieselfluid_tpu_torch.ops import sph_sweep as sw
     from dieselfluid_tpu_torch.render import splat_tiled as st
 
     out = {k.name: k.launches for k in sw.SWEEPS + st.KERNELS}
     out.update({f"{k.name}9": k.launches9 for k in st.KERNELS})
+    out[PLANE_ADVANCE] = pa.launches
     return out
 
 
 def reset_all_launch_counts():
+    from dieselfluid_tpu_torch.ops import plane_advance as pa
     from dieselfluid_tpu_torch.ops.sph_sweep import reset_launch_counts
     from dieselfluid_tpu_torch.render import splat_tiled as st
 
     reset_launch_counts()
     st.reset_launch_counts()
+    pa.launches = 0
 
 
 def mean_y(ps, params, spec, n) -> float:
@@ -3182,6 +3286,7 @@ def main() -> int:
               f"this script ({e}); nothing was run", file=sys.stderr)
         return 2
     from dieselfluid_tpu_torch.ops import _build
+    from dieselfluid_tpu_torch.ops import plane_advance as pa
     from dieselfluid_tpu_torch.ops import sph_sweep as sw
     from dieselfluid_tpu_torch.render import splat_tiled as st
 
@@ -3223,6 +3328,10 @@ def main() -> int:
     for name in ("density", "force", "viscosity", "pressure_pq"):
         check(serving[name] > 0,
               f"kernel {name} was not launched by the serving path")
+    for label, run in (("WCSPH", wc), ("PCISPH", pc)):
+        check(run["launches"][PLANE_ADVANCE] > 0,
+              f"kernel {PLANE_ADVANCE} was not launched by the {label} "
+              "serving path")
 
     cts = seeded_cotangents(spec, device, 3)
     plain_ms = {}
@@ -3251,7 +3360,9 @@ def main() -> int:
                    "bound_by": gated_b[g][name][1],
                    "active_patches": int(grids[g].sum())}
                for g in ("ones", "quarter")} for name in GATED_OF}))
-    del ps, grids
+    del grids
+    advance = check_plane_advance(ps, params, spec, delta)
+    del ps
 
     # The training path, config 4: K1, K3, K5, K6, K8, K9, and K11, K12
     # in their 9-output form (the sky-lit render of its loss).
@@ -3327,6 +3438,21 @@ def main() -> int:
                         "kernel_ms": kms, "body": kernel_body(kern),
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": None})
+    # The epilogue kernel's row: the WCSPH form's times and bound (the
+    # PCISPH form's are on the plane_advance_1m line), errors over both.
+    adv = advance["wcsph"]
+    kernels.append({"name": PLANE_ADVANCE, "route": "cuda",
+                    "source": pa.SOURCE,
+                    "replaces": "the resident steps' epilogue torch passes "
+                                "(dense_resident._epilogue_plain)",
+                    "launches": sum(p.get(PLANE_ADVANCE, 0)
+                                    for p in main_paths),
+                    "max_abs_err": max(a["max_abs_err"]
+                                       for a in advance.values()),
+                    "ms": adv["ms"], "kernel_ms": adv["kernel_ms"],
+                    "body": adv["body"], "plain_ms": adv["plain_ms"],
+                    "bound_ms": adv["bound_ms"], "bound_by": "bytes",
+                    "library_ms": None})
     log(f"chip_smoke: {time.perf_counter() - t_start!r} s in all")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -13,9 +13,20 @@ The rebuild decision, a `lax.cond` in the JAX package, is a host branch
 here (`if need.item():`, one sync per step); the PCISPH correction loop
 reads one scalar per iteration (solvers/dense_step.py).
 
+The epilogue after the force sweeps (the accelerations, the integration,
+the wall collision and the largest displacement since the last rebuild)
+has two routes, picked by the planes' device (`_epilogue`):
+  * on the card, one launch of the hand-written kernel
+    (ops/plane_advance.py, csrc/plane_advance.cu), equal bit for bit to
+    the torch route there;
+  * on the CPU, the plain version: the torch passes of `_epilogue_plain`
+    (with `_integrate_collide`).
+
 Spans (utils/profiling.py): `resident.step` (a whole step),
-`resident.skin_test` (the rebuild decision's read), `resident.rebuild`
-(the gather and the new binning); host syncs counted as
+`resident.integrate` (the epilogue), `resident.skin_test` (the rebuild
+decision's read), `resident.rebuild` (the gather and the new binning);
+counters `plane_advance.kernel` / `plane_advance.plain` (the epilogue's
+route, once a step); host syncs counted as
 `host_sync.resident.skin_test` and `host_sync.resident.fallback` (the
 fallback's constants).
 """
@@ -28,6 +39,7 @@ import torch
 
 from dieselfluid_tpu_torch.config import FluidParams
 from dieselfluid_tpu_torch.models.particles import FluidState, gravity_force
+from dieselfluid_tpu_torch.ops import plane_advance
 from dieselfluid_tpu_torch.ops.cellops import (
     DenseCellSpec,
     build_planes,
@@ -173,6 +185,41 @@ def _integrate_collide(planes, fluid_occ, accels, params: FluidParams,
     return out
 
 
+def _epilogue_plain(planes, bnd, forces, ext, ref, params: FluidParams,
+                    bounds, restitution, friction):
+    """The epilogue as torch passes, on any device: (new planes, the largest
+    per-axis displacement of a fluid slot from `ref`, the positions at the
+    last rebuild). The accelerations are forces / mass + gravity, or
+    (ext + forces) / mass when `ext` is given."""
+    fluid_occ = (planes["mask"] > 0) & (bnd == 0)
+    if ext is None:
+        accels = [f / params.mass + g for f, g in zip(forces, params.gravity)]
+    else:
+        accels = [(e + f) / params.mass for e, f in zip(ext, forces)]
+    new_planes = _integrate_collide(planes, fluid_occ, accels, params,
+                                    bounds, restitution, friction)
+    disp = torch.maximum(torch.maximum(
+        torch.abs(new_planes["x"] - ref[0]),
+        torch.abs(new_planes["y"] - ref[1])),
+        torch.abs(new_planes["z"] - ref[2]))
+    return new_planes, torch.max(torch.where(fluid_occ, disp, 0.0))
+
+
+def _epilogue(ps: DensePlaneState, planes, forces, ext, params, bounds,
+              restitution, friction):
+    """The step after its force sweeps, by the planes' device: the kernel
+    on the card, the plain version elsewhere. (new x y z vx vy vz and mask
+    planes, largest displacement since the last rebuild)."""
+    args = (planes, ps.bnd, forces, ext, (ps.ref_x, ps.ref_y, ps.ref_z),
+            params, bounds, restitution, friction)
+    with span("resident.integrate"):
+        if planes["mask"].is_cuda:
+            count("plane_advance.kernel")
+            return plane_advance.advance(*args)
+        count("plane_advance.plain")
+        return _epilogue_plain(*args)
+
+
 def _fallback_step(ps: DensePlaneState, params: FluidParams, bounds,
                    restitution, friction):
     """Ballistic update (gravity + walls) of overflowed particles."""
@@ -194,16 +241,12 @@ def _fallback_step(ps: DensePlaneState, params: FluidParams, bounds,
     return fb_pos, fb_vel
 
 
-def _advance(ps: DensePlaneState, new_planes, fluid_occ, params, spec,
+def _advance(ps: DensePlaneState, new_planes, max_disp, params, spec,
              skin, bounds, restitution, friction) -> DensePlaneState:
-    """Fallback update, displacement trigger and (host-decided) rebuild."""
+    """Fallback update, displacement trigger and (host-decided) rebuild;
+    `max_disp` is the epilogue's largest displacement."""
     fb_pos, fb_vel = _fallback_step(ps, params, bounds, restitution,
                                     friction)
-    disp = torch.maximum(torch.maximum(
-        torch.abs(new_planes["x"] - ps.ref_x),
-        torch.abs(new_planes["y"] - ps.ref_y)),
-        torch.abs(new_planes["z"] - ps.ref_z))
-    max_disp = torch.max(torch.where(fluid_occ, disp, 0.0))
     need = max_disp >= float(torch.tensor(skin * params.h,
                                           dtype=torch.float32))
     age = ps.age_total + 1
@@ -245,18 +288,16 @@ def dense_wcsph_resident_step(ps: DensePlaneState, params: FluidParams,
     k = KernelCoeffs.build(params.h)
     planes = ps.planes
     occ = planes["mask"] > 0
-    fluid_occ = occ & (ps.bnd == 0)
     rho_plane = density_planes(planes, spec, k, params.mass)
     press_plane = torch.where(
         occ, tait_eos(rho_plane, params.d0, params.p0, params.tait_gamma,
                       params.tait_w), 0.0)
     forces = force_planes(planes, rho_plane, press_plane, spec, k,
                           params.mass, float(params.mu))
-    accels = [f / params.mass + g for f, g in zip(forces, params.gravity)]
-    new_planes = _integrate_collide(planes, fluid_occ, accels, params,
-                                    bounds, restitution, friction)
+    new_planes, max_disp = _epilogue(ps, planes, forces, None, params,
+                                     bounds, restitution, friction)
     new_planes["press"] = planes["press"]   # carried (PCISPH warm start)
-    return _advance(ps, new_planes, fluid_occ, params, spec, skin, bounds,
+    return _advance(ps, new_planes, max_disp, params, spec, skin, bounds,
                     restitution, friction)
 
 
@@ -288,9 +329,8 @@ def dense_pcisph_resident_step(ps: DensePlaneState, params: FluidParams,
         else zero
     it, press_plane, fps = pcisph_correction_loop(
         planes, fluid_occ, extf, press0, spec, k, params, delta)
-    accels = [(e + f) / params.mass for e, f in zip(extf, fps)]
-    new_planes = _integrate_collide(planes, fluid_occ, accels, params,
-                                    bounds, restitution, friction)
+    new_planes, max_disp = _epilogue(ps, planes, fps, extf, params, bounds,
+                                     restitution, friction)
     new_planes["press"] = press_plane if warm_start else zero
-    return _advance(ps, new_planes, fluid_occ, params, spec, skin, bounds,
+    return _advance(ps, new_planes, max_disp, params, spec, skin, bounds,
                     restitution, friction), it

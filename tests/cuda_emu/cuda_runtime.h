@@ -1,6 +1,7 @@
-// A CPU emulation of the CUDA features csrc/sph_sweep.cu and
-// csrc/splat_raster.cu use, for tests/test_torch_sweep_emulated*.py and
-// tests/test_torch_raster_emulated.py: one std::thread per CUDA thread, a
+// A CPU emulation of the CUDA features csrc/sph_sweep.cu,
+// csrc/splat_raster.cu and csrc/plane_advance.cu use, for
+// tests/test_torch_sweep_emulated*.py, tests/test_torch_raster_emulated.py
+// and tests/test_torch_plane_advance_emulated.py: one std::thread per CUDA thread, a
 // std::barrier for __syncthreads and per warp for the warp collectives,
 // shared memory as static storage, CTAs run one at a time, `emu_sms`
 // streaming multiprocessors of one resident CTA each. Arithmetic is the
@@ -99,6 +100,15 @@ inline unsigned __ballot_sync(unsigned, int p) {
 inline unsigned __reduce_or_sync(unsigned, unsigned v) {
   return emu_warp_collect(v, false);
 }
+inline unsigned __reduce_max_sync(unsigned, unsigned v) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  emu_warp_vals[w][l] = v;
+  emu_warp_bar[w]->arrive_and_wait();
+  unsigned r = 0;
+  for (int i = 0; i < 32; ++i) r = std::max(r, emu_warp_vals[w][i]);
+  emu_warp_bar[w]->arrive_and_wait();
+  return r;
+}
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline int __ffs(unsigned v) { return __builtin_ffs(static_cast<int>(v)); }
 inline void __threadfence() {}
@@ -114,6 +124,21 @@ inline unsigned atomicOr(unsigned* p, unsigned v) {
   const unsigned o = *p;
   *p |= v;
   return o;
+}
+inline unsigned atomicMax(unsigned* p, unsigned v) {
+  std::lock_guard<std::mutex> lock(emu_mu);
+  const unsigned o = *p;
+  *p = std::max(o, v);
+  return o;
+}
+inline unsigned __float_as_uint(float x) {
+  unsigned u;
+  std::memcpy(&u, &x, sizeof u);
+  return u;
+}
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  std::memset(p, v, n);
+  return cudaSuccess;
 }
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 inline float fmaxf(float a, float b) { return std::fmax(a, b); }

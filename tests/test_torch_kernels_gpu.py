@@ -988,3 +988,190 @@ def test_host_sync_counters_equal_torchs_sync_warnings(sync_paths, path):
               and not e.is_user_annotation)
     top = "resident.step" if path.startswith("resident") else "slab.step"
     assert device_us[top] == pytest.approx(ran, rel=1e-6), (device_us, ran)
+
+
+# ---------------------------------------------------------------------------
+# The resident step's epilogue kernel (ops/plane_advance.py)
+# ---------------------------------------------------------------------------
+
+def _resident_run(params, spec, ps, solver, steps, delta):
+    """`steps` resident steps at skin 0.05: each step's state and the
+    largest displacement its epilogue handed the rebuild decision."""
+    disps = []
+    real = tdr._advance
+
+    def advance(ps, new_planes, max_disp, *a, **kw):
+        disps.append(max_disp.clone())
+        return real(ps, new_planes, max_disp, *a, **kw)
+
+    tdr._advance = advance
+    try:
+        states = []
+        for _ in range(steps):
+            if solver == "wcsph":
+                ps = tdr.dense_wcsph_resident_step(ps, params, spec,
+                                                   skin=0.05)
+            else:
+                ps, _ = tdr.dense_pcisph_resident_step(ps, params, spec,
+                                                       delta, skin=0.05)
+            states.append(ps)
+    finally:
+        tdr._advance = real
+    return states, disps
+
+
+def _state_tensors(ps):
+    out = [ps.planes[k] for k in sorted(ps.planes)]
+    return out + [ps.bnd, ps.ref_x, ps.ref_y, ps.ref_z, ps.flat, ps.valid,
+                  ps.fb_pos, ps.fb_vel, ps.overflow, ps.rebuilds,
+                  ps.age_total]
+
+
+def _same_bits(a, b):
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("solver", ["wcsph", "pcisph"])
+def test_plane_advance_equals_the_torch_route_on_the_card(planes, solver,
+                                                          monkeypatch):
+    """Eight resident steps at skin 0.05 from a dam break with seeded
+    velocities, once through the kernel and once through the torch route
+    on the card: every plane, the largest displacement and the rebuild
+    decision of every step equal bit for bit, and the run rebuilds."""
+    from dieselfluid_tpu_torch.ops import plane_advance as pa
+    from dieselfluid_tpu_torch.solvers.pcisph import compute_pci_delta
+
+    params, spec, _ = planes
+    s = dam_break_state(N3, params, "cuda")
+    gen = torch.Generator().manual_seed(12)
+    s = s._replace(vel=torch.randn(tuple(s.vel.shape), generator=gen).cuda())
+    delta = compute_pci_delta(params, DX)
+    ps0 = tdr.plane_state_from_fluid(s, spec)
+    before = pa.launches
+    got = _resident_run(params, spec, ps0, solver, 8, delta)
+    assert pa.launches == before + 8
+    monkeypatch.setattr(pa, "advance", tdr._epilogue_plain)
+    want = _resident_run(params, spec, ps0, solver, 8, delta)
+    monkeypatch.undo()
+    assert pa.launches == before + 8
+    assert int(got[0][-1].rebuilds) >= 1
+    assert int(got[0][-1].rebuilds) < 8
+    for step, (g, w) in enumerate(zip(got[0], want[0])):
+        for a, b in zip(_state_tensors(g), _state_tensors(w)):
+            assert _same_bits(a, b), step
+    for g, w in zip(got[1], want[1]):
+        assert _same_bits(g, w)
+        assert float(g) > 0.0
+
+
+def test_plane_advance_counts_once_a_step_under_tracing(planes):
+    """Under a profiler each resident step counts the kernel's route once,
+    inside a `resident.integrate` span that holds the kernel's device
+    time; the plain route is never counted on the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dieselfluid_tpu_torch.solvers.pcisph import compute_pci_delta
+    from dieselfluid_tpu_torch.utils import profiling
+
+    params, spec, _ = planes
+    s = dam_break_state(N3, params, "cuda")
+    ps = tdr.plane_state_from_fluid(s, spec)
+    delta = compute_pci_delta(params, DX)
+    ps = tdr.dense_wcsph_resident_step(ps, params, spec)
+    torch.cuda.synchronize()
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            ps = tdr.dense_wcsph_resident_step(ps, params, spec)
+        ps, _ = tdr.dense_pcisph_resident_step(ps, params, spec, delta)
+        torch.cuda.synchronize()
+    got = profiling.summary()
+    profiling.reset()
+    assert got["counters"]["plane_advance.kernel"] == 4
+    assert "plane_advance.plain" not in got["counters"]
+    assert got["spans"]["resident.integrate"]["count"] == 4
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    assert sum("plane_advance_kernel" in n for n in names) == 4, names
+    us = sum(e.device_time_total for e in prof.events()
+             if e.name == "resident.integrate"
+             and e.device_type == DeviceType.CPU)
+    assert us > 0.0
+
+
+def test_plane_advance_at_1m_against_its_byte_bound(cuda):
+    """The kernel alone on the 1M dam break's plane state (n3 = 100, the
+    benchmark's dam1m spec), both acceleration forms: equal to the torch
+    route bit for bit; its ms by CUDA events over 20 launches against its
+    byte bound at 3.35 TB/s, the torch route's ms, and the launcher's host
+    us a call untraced (perf_counter, median of 200 calls), printed."""
+    import json
+    import statistics
+    import time
+
+    from dieselfluid_tpu_torch.ops import plane_advance as pa
+
+    dx = 2.0 * 0.5 / 100
+    params = FluidParams.for_spacing(dx)
+    off = params.h / 4.0
+    spec = tc.DenseCellSpec.for_domain((-1 - off,) * 3, (1 + off,) * 3,
+                                       params.h, capacity=16)
+    s = dam_break_state(100, params, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    s = s._replace(vel=0.05 * torch.randn(tuple(s.vel.shape), device=cuda,
+                                          generator=gen))
+    ps = tdr.plane_state_from_fluid(s, spec)
+    occ = ps.planes["mask"] > 0
+    forces = [torch.where(occ, 50.0 * torch.randn(
+        spec.plane_shape, device=cuda, generator=gen), 0.0)
+        for _ in range(6)]
+    ref = (ps.ref_x, ps.ref_y, ps.ref_z)
+    box = tdr._BOX
+    plane_bytes = ps.planes["mask"].numel() * 4
+    occ_share = float((ps.planes["mask"].view(-1, 128) > 0).any(-1)
+                      .float().mean())
+    report = {"device": torch.cuda.get_device_name(0),
+              "occupied_block_share": occ_share}
+    for form, ext in (("wcsph", None), ("pcisph", forces[3:])):
+        args = (ps.planes, ps.bnd, forces[:3], ext, ref, params, box, 0.3,
+                0.1)
+        got, md = pa.advance(*args)
+        want, md_want = tdr._epilogue_plain(*args)
+        for c in pa.OUT_NAMES:
+            assert _same_bits(got[c], want[c]), (form, c)
+        assert _same_bits(md, md_want), form
+        ms = {}
+        for route, fn in (("kernel", pa.advance),
+                          ("torch", tdr._epilogue_plain)):
+            fn(*args)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(20):
+                fn(*args)
+            end.record()
+            end.synchronize()
+            ms[route] = start.elapsed_time(end) / 20
+        host = []
+        for _ in range(200):
+            t0 = time.perf_counter()
+            pa.advance(*args)
+            host.append(time.perf_counter() - t0)
+            if len(host) % 20 == 0:
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        # The mask and the six carried planes read, and the six outputs
+        # written, in full; bnd, the forces and the references read over
+        # the occupied blocks.
+        n_occ_in = 7 if ext is None else 10
+        bound_ms = (13 + n_occ_in * occ_share) * plane_bytes / 3.35e12 * 1e3
+        report[form] = {"kernel_ms": ms["kernel"], "torch_ms": ms["torch"],
+                        "bound_ms": bound_ms,
+                        "host_us": statistics.median(host) * 1e6}
+    print("plane_advance 1M:", json.dumps(report))
+    assert 0.0 < occ_share < 0.5

@@ -127,7 +127,8 @@ def test_off_records_nothing_and_enters_no_range(setup, slab_setup,
 def test_resident_wcsph_spans_each_step(setup):
     _, got, ev = _traced(lambda: _wcsph(setup))
     spans = got["spans"]
-    for name in ("resident.step", "resident.rebuild", "resident.skin_test"):
+    for name in ("resident.step", "resident.rebuild", "resident.skin_test",
+                 "resident.integrate"):
         assert spans[name]["count"] == STEPS, name
         assert spans[name]["host_ms"] > 0.0
     assert _parents(ev, "resident.step") == {None: STEPS}
@@ -137,12 +138,27 @@ def test_resident_wcsph_spans_each_step(setup):
     for sweep in ("sweep.density", "sweep.force"):
         assert _parents(ev, sweep) == {"resident.step": STEPS}
     # Per step: the skin test, the fallback's gravity and walls, the Tait
-    # d0; per rebuild, dense_indices' two constants.
+    # d0; per rebuild, dense_indices' two constants; the epilogue's route.
     assert got["counters"] == {
         "host_sync.resident.skin_test": STEPS,
         "host_sync.resident.fallback": 3 * STEPS,
         "host_sync.smoothing.tait_eos": STEPS,
-        "host_sync.cellops.dense_indices": 2 * STEPS}
+        "host_sync.cellops.dense_indices": 2 * STEPS,
+        "plane_advance.plain": STEPS}
+
+
+@pytest.mark.parametrize("path", ["wcsph", "pcisph"])
+def test_resident_epilogue_takes_the_plain_route_on_cpu_planes(setup, path):
+    """CPU planes: each step's epilogue is the torch passes, counted once
+    as `plane_advance.plain` under a `resident.integrate` span inside
+    `resident.step`; the kernel's route is never counted."""
+    run = {"wcsph": lambda: _wcsph(setup), "pcisph": lambda: _pcisph(setup)}
+    _, got, ev = _traced(run[path])
+    assert got["counters"]["plane_advance.plain"] == STEPS
+    assert "plane_advance.kernel" not in got["counters"]
+    assert got["spans"]["resident.integrate"]["count"] == STEPS
+    assert got["spans"]["resident.integrate"]["host_ms"] > 0.0
+    assert _parents(ev, "resident.integrate") == {"resident.step": STEPS}
 
 
 @pytest.mark.parametrize("stop", ["tolerance", "max_iters"])
