@@ -238,6 +238,8 @@ RASTER_OPS_PER_PAIR = {"splat_fwd": 44, "splat_bwd": 104}
 # The sim -> render path (bench.py:326-383, config 3).
 SR_N3 = 80
 SR_WIDTH, SR_HEIGHT, SR_K = 1920, 1080, 8192
+# The bench camera (bench.py:349-350, :423-424): position, front, fov (deg).
+SR_CAMERA = ((0.0, 0.6, -2.8), (0.0, -0.35, 1.0), 55.0)
 # Card (kernels) vs CPU (plain) sim -> render position gradient at n3=16,
 # 256x144: the largest difference relative to the largest entry, and the
 # norm of the difference relative to the gradient's norm. Measured on an
@@ -1206,16 +1208,16 @@ def grad_setup(n3: int, device):
 def config4_render(device):
     """(camera, sky cube) of config 4's loss (bench.py:423-425): the bench
     camera at 1920:1080 and bake_sky_cubemap((0.3, 0.8, 0.5), size=48),
-    made once per device."""
-    from dieselfluid_tpu_torch.render.camera import Camera
-    from dieselfluid_tpu_torch.sky.bake import bake_sky_cubemap
+    made once per device by the port's config4_scene."""
+    from dieselfluid_tpu_torch.solvers.materials_grad import config4_scene
 
     key = str(device)
     if key not in _CONFIG4_RENDER:
-        cam = Camera.at((0.0, 0.6, -2.8), front=(0.0, -0.35, 1.0),
-                        fov_deg=55.0, aspect=1920.0 / 1080.0, device=device)
-        _CONFIG4_RENDER[key] = (cam, bake_sky_cubemap(SKY_SUN, SKY_SIZE,
-                                                      device=device))
+        position, front, fov = SR_CAMERA
+        _CONFIG4_RENDER[key] = config4_scene(
+            device, position=position, front=front, fov_deg=fov,
+            width=SR_WIDTH, height=SR_HEIGHT, sun=SKY_SUN,
+            cube_size=SKY_SIZE)
     return _CONFIG4_RENDER[key]
 
 
@@ -1225,17 +1227,28 @@ _CONFIG4_RENDER = {}
 def loss_and_grads(solver, params, state, spec, delta, w, mats,
                    standin: bool = False):
     """One differentiable step and its gradients (mu, d0, mass, pos) by
-    torch.autograd. PCISPH (config 4, bench.py:429-442): the unrolled step,
+    torch.autograd. PCISPH (config 4, bench.py:429-442): the port's entry
+    point, solvers.materials_grad.materials_grad_step: the unrolled step,
     then the sky-lit 1080p tiled render of the next positions at k = 8192
     (radius 0.7 dx, config4_render's camera and cube; K11 and K12 in their
     9-output form), loss sum(color^2). WCSPH, or with `standin`: the
     stand-in loss sum(next.pos * w). -> (loss, grads, {"overflow": tile
-    overflow (a 0-d tensor, None for the stand-in), "next_pos": ...})."""
+    overflow (a 0-d tensor, None for the stand-in)})."""
     import torch
-    from dieselfluid_tpu_torch.render.splat_tiled import splat_particles_tiled
     from dieselfluid_tpu_torch.solvers.dense_step import (
         dense_pcisph_step, dense_wcsph_step)
+    from dieselfluid_tpu_torch.solvers.materials_grad import (
+        materials_grad_step)
 
+    if solver == "pcisph" and not standin:
+        n3 = round(state.pos.shape[0] ** (1.0 / 3.0))   # the dam's cube
+        cam, env = config4_render(state.pos.device)
+        out = materials_grad_step(
+            state, params, spec, delta, mats, cam, env,
+            (2.0 / n3) * EXTENT * 0.7, width=SR_WIDTH, height=SR_HEIGHT,
+            k=SR_K, unroll_iters=UNROLL_ITERS)
+        return out.loss, (out.grad_mu, out.grad_d0, out.grad_mass,
+                          out.grad_pos), {"overflow": out.overflow}
     pos = state.pos.detach().clone().requires_grad_()
     st = state._replace(pos=pos)
     if solver == "pcisph":
@@ -1245,19 +1258,22 @@ def loss_and_grads(solver, params, state, spec, delta, w, mats,
         check(diag.iters == UNROLL_ITERS, f"unrolled iters {diag.iters}")
     else:
         nxt, _ = dense_wcsph_step(st, params, spec, materials=mats)
-    overflow = None
-    if solver == "pcisph" and not standin:
-        n3 = round(state.pos.shape[0] ** (1.0 / 3.0))   # the dam's cube
-        cam, env = config4_render(pos.device)
-        img, overflow = splat_particles_tiled(
-            nxt.pos, (2.0 / n3) * EXTENT * 0.7, cam, width=SR_WIDTH,
-            height=SR_HEIGHT, k=SR_K, return_overflow=True, env_cube=env)
-        loss = (img.color ** 2).sum()
-    else:
-        loss = (nxt.pos * w).sum()
+    loss = (nxt.pos * w).sum()
     grads = torch.autograd.grad(loss, [mats.mu, mats.d0, mats.mass, pos])
-    return loss.detach(), grads, {"overflow": overflow,
-                                  "next_pos": nxt.pos.detach()}
+    return loss.detach(), grads, {"overflow": None}
+
+
+def config4_next_pos(params, state, spec, delta, mats):
+    """The next positions of config 4's unrolled step (no gradient)."""
+    import torch
+    from dieselfluid_tpu_torch.solvers.dense_step import dense_pcisph_step
+
+    with torch.no_grad():
+        nxt, diag = dense_pcisph_step(state, params, spec, delta,
+                                      materials=mats, unroll_for_grad=True,
+                                      unroll_iters=UNROLL_ITERS)
+    check(diag.iters == UNROLL_ITERS, f"unrolled iters {diag.iters}")
+    return nxt.pos
 
 
 def grad_summary(loss, grads) -> dict:
@@ -1279,7 +1295,12 @@ def run_gradients(device, sync) -> dict:
 
     params, state, spec, delta, w = grad_setup(100, device)
     mats = Materials.from_params(params, device, requires_grad=True)
-    config4_render(device)                  # the bake is not the loss's
+    cam, _ = config4_render(device)         # the bake is not the loss's
+    # The tile occupancy of config 4's frame, from a no-grad step of the
+    # same state and materials: outside the counted launches.
+    _, _, peak, entries, ovf = tile_occupancy(
+        config4_next_pos(params, state, spec, delta, mats),
+        (2.0 / 100) * EXTENT * 0.7, cam)
     out = {"n": state.pos.shape[0], "unroll_iters": UNROLL_ITERS}
     reset_all_launch_counts()
     for solver in ("pcisph", "wcsph"):
@@ -1301,9 +1322,6 @@ def run_gradients(device, sync) -> dict:
                               if solver == "pcisph"
                               else "stand-in: sum(next.pos * w)"))
         if solver == "pcisph":
-            cam, _ = config4_render(device)
-            _, _, peak, entries, ovf = tile_occupancy(
-                info["next_pos"], (2.0 / 100) * EXTENT * 0.7, cam)
             check(ovf == int(info["overflow"]),
                   f"config 4: overflow {ovf} != {int(info['overflow'])}")
             res.update(tile_overflow=ovf, peak_tile_occupancy=peak,
@@ -1451,8 +1469,9 @@ def sr_setup(n3: int, device):
     from dieselfluid_tpu_torch.render.camera import Camera
 
     params, state, spec, _ = bench_setup(n3, device)
-    cam = Camera.at((0.0, 0.6, -2.8), front=(0.0, -0.35, 1.0), fov_deg=55.0,
-                    aspect=1920.0 / 1080.0, device=device)
+    position, front, fov = SR_CAMERA
+    cam = Camera.at(position, front=front, fov_deg=fov,
+                    aspect=SR_WIDTH / SR_HEIGHT, device=device)
     return params, state, spec, cam, (2.0 / n3) * EXTENT * 0.7
 
 

@@ -13,7 +13,7 @@ import torch
 
 from dieselfluid_tpu_torch.config import FluidParams
 from dieselfluid_tpu_torch.geometry.grid import Grid, kern_grid
-from dieselfluid_tpu_torch.utils.profiling import count
+from dieselfluid_tpu_torch.utils.constants import device_constant
 
 
 class FluidState(NamedTuple):
@@ -46,9 +46,9 @@ class FluidState(NamedTuple):
 def gravity_force(params: FluidParams, n: int, device,
                   mass=None) -> torch.Tensor:
     """(n, 3) gravity * mass, the force every frame starts from; `mass` (a
-    traced Materials scalar) overrides params.mass."""
-    count("host_sync.particles.gravity_force")
-    g = torch.tensor(params.gravity, dtype=torch.float32, device=device)
+    traced Materials scalar) overrides params.mass. Gravity is a device
+    constant, made once per params and device."""
+    g = device_constant(params.gravity, device, "particles.gravity_force")
     m = params.mass if mass is None else mass
     return (g * m).expand(n, 3).contiguous()
 

@@ -22,7 +22,7 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 
-from dieselfluid_tpu_torch.utils.profiling import count
+from dieselfluid_tpu_torch.utils.constants import device_constant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,15 +99,14 @@ def dense_indices(pos: torch.Tensor, spec: DenseCellSpec):
     Particles past a cell's capacity are dropped and counted; their `flat`
     is clamped onto the cell's last slot, which it ALIASES — every gather
     through `flat` must be masked with `valid`, and a step spreads the
-    masked entries (`spread_masked`) before its gathers."""
+    masked entries (`spread_masked`) before its gathers. The grid's corner
+    and last cell are device constants, made once per spec and device."""
     c = spec.capacity
     dev = pos.device
-    count("host_sync.cellops.dense_indices")
-    lo = torch.tensor(spec.lo, dtype=torch.float32, device=dev)
+    lo = device_constant(spec.lo, dev, "cellops.dense_indices")
     ijk = torch.floor((pos - lo) / spec.cell).to(torch.int32)
-    count("host_sync.cellops.dense_indices")
-    hi = torch.tensor([spec.nx - 1, spec.ny - 1, spec.nz - 1],
-                      dtype=torch.int32, device=dev)
+    hi = device_constant((spec.nx - 1, spec.ny - 1, spec.nz - 1), dev,
+                         "cellops.dense_indices", torch.int32)
     ijk = torch.minimum(torch.clamp(ijk, min=0), hi).to(torch.int64)
     cid = (ijk[:, 0] * spec.ny + ijk[:, 1]) * spec.nz + ijk[:, 2]
 

@@ -39,14 +39,15 @@ class SplatImage(NamedTuple):
 
 
 def _maximum(x: torch.Tensor, c: float) -> torch.Tensor:
-    """max(x, c) with jnp.maximum's half gradient at a tie."""
-    return torch.maximum(x, x.new_tensor(c))
+    """max(x, c) with jnp.maximum's half gradient at a tie. The bound is
+    filled on x's device (a fill, not a copy from the host: no sync)."""
+    return torch.maximum(x, x.new_full((), c))
 
 
 def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """jnp.clip's value and gradient (half at a bound): torch.clamp's
     gradient at an exact bound differs."""
-    return torch.minimum(_maximum(x, lo), x.new_tensor(hi))
+    return torch.minimum(_maximum(x, lo), x.new_full((), hi))
 
 
 def focal_length(fov_deg: float, height: int) -> float:
@@ -59,7 +60,8 @@ def focal_length(fov_deg: float, height: int) -> float:
 
 def _project(cam: Camera, pos: torch.Tensor, width: int, height: int):
     """Particle positions -> pixel centers (u, v), view depth, and the focal
-    length in pixels (a float32 0-d tensor).
+    length in pixels (a float32 0-d tensor, filled on the positions'
+    device).
 
     The view transform sums its four products pairwise, (v0 x + v1 y) +
     (v2 z + v3), each rounded, as the JAX package's einsum does on the CPU:
@@ -71,8 +73,8 @@ def _project(cam: Camera, pos: torch.Tensor, width: int, height: int):
     v = ((view[:3, 0] * p[0] + view[:3, 1] * p[1])
          + (view[:3, 2] * p[2] + view[:3, 3]))
     depth = v[:, 2]                                   # along +front
-    fy = torch.tensor(focal_length(cam.fov_deg, height), dtype=torch.float32,
-                      device=pos.device)
+    fy = torch.full((), focal_length(cam.fov_deg, height),
+                    dtype=torch.float32, device=pos.device)
     fx = fy
     safe_z = _maximum(depth, 1e-4)
     u = width / 2.0 + v[:, 0] / safe_z * fx

@@ -65,6 +65,7 @@ from dieselfluid_tpu_torch.render.splat import (
     depth_min,
     pixel_radius,
 )
+from dieselfluid_tpu_torch.utils.constants import device_constant
 from dieselfluid_tpu_torch.utils.profiling import span
 
 SOURCE = "dieselfluid_tpu_torch/csrc/splat_raster.cu"
@@ -562,10 +563,13 @@ plain = SimpleNamespace(rasterize_fwd=_raster_fwd_plain,
 
 def tile_entries(pos: torch.Tensor, radius, cam: Camera, spec: TileSpec):
     """Project and bin: (slot planes, (flat, valid), overflow, zmin) of the
-    frame `splat_particles_tiled` rasterizes."""
+    frame `splat_particles_tiled` rasterizes. A Python `radius` is filled
+    on the positions' device (no host sync)."""
     n = pos.shape[0]
-    radius = torch.broadcast_to(torch.as_tensor(
-        radius, dtype=torch.float32, device=pos.device), (n,))
+    if not torch.is_tensor(radius):
+        radius = pos.new_full((), radius)
+    radius = torch.broadcast_to(
+        radius.to(dtype=torch.float32, device=pos.device), (n,))
     u, v, depth, focal = _project(cam, pos, spec.width, spec.height)
     in_front = depth > 1e-3
     pix_r = pixel_radius(radius, focal, depth, spec.patch)
@@ -584,7 +588,8 @@ def shade_tiles(accs: Sequence[torch.Tensor], spec: TileSpec,
     weighted-blended mean color over the coverage and the background, and
     the weighted mean depth (+ zmin). With `env_cube` (the 9-output
     accumulators) the blended normal is normalized per pixel and lit by the
-    cube's SH9 projection."""
+    cube's SH9 projection. A Python `background` is a device constant,
+    made once per color and device."""
     emit_normals = env_cube is not None
 
     def to_image(t):
@@ -617,8 +622,10 @@ def shade_tiles(accs: Sequence[torch.Tensor], spec: TileSpec,
         # Only where there is fluid: empty pixels keep the background.
         mean_col = torch.where(den_i[..., None] > 1e-8, lit, mean_col)
     alpha = 1.0 - torch.exp(-to_image(accs[4]))
-    bg = torch.as_tensor(background, dtype=torch.float32,
-                         device=accs[0].device)
+    bg = (background.to(dtype=torch.float32, device=accs[0].device)
+          if torch.is_tensor(background)
+          else device_constant(background, accs[0].device,
+                               "splat_tiled.background"))
     color = mean_col * alpha[..., None] + bg * (1.0 - alpha[..., None])
     mean_z = to_image(accs[5]) / den_safe + zmin
     return SplatImage(color=color, alpha=alpha, depth=mean_z)

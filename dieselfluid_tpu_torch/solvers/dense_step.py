@@ -65,6 +65,7 @@ from dieselfluid_tpu_torch.solvers.integrate import (
     collide,
     semi_implicit_euler,
 )
+from dieselfluid_tpu_torch.utils.constants import device_constant
 from dieselfluid_tpu_torch.utils.profiling import count, span
 
 _BOX = ((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0))
@@ -88,7 +89,8 @@ def _material_scalars(params: FluidParams, materials):
 
 
 def _gravity(params: FluidParams, device) -> torch.Tensor:
-    return torch.tensor(params.gravity, dtype=torch.float32, device=device)
+    """Gravity as a device constant, made once per params and device."""
+    return device_constant(params.gravity, device, "dense_step.gravity")
 
 
 def _boundary_extended(state: FluidState):

@@ -9,7 +9,7 @@ import torch
 
 from dieselfluid_tpu_torch.config import FluidParams
 from dieselfluid_tpu_torch.models.particles import FluidState, gravity_force
-from dieselfluid_tpu_torch.utils.profiling import count
+from dieselfluid_tpu_torch.utils.constants import device_constant
 
 
 class StepDiagnostics(NamedTuple):
@@ -53,11 +53,10 @@ def box_collide(state: FluidState, lo=(-1.0, -1.0, -1.0),
                 hi=(1.0, 1.0, 1.0), restitution: float = 0.3,
                 friction: float = 0.1) -> FluidState:
     """Axis-aligned box: clamp positions, reflect and damp the velocity
-    component that hit, and damp the tangential ones by `friction`."""
-    count("host_sync.integrate.box_collide")
-    lo_t = torch.tensor(lo, dtype=torch.float32, device=state.pos.device)
-    count("host_sync.integrate.box_collide")
-    hi_t = torch.tensor(hi, dtype=torch.float32, device=state.pos.device)
+    component that hit, and damp the tangential ones by `friction`. The
+    corners are device constants, made once per box and device."""
+    lo_t = device_constant(lo, state.pos.device, "integrate.box_collide")
+    hi_t = device_constant(hi, state.pos.device, "integrate.box_collide")
     hit = (state.pos < lo_t) | (state.pos > hi_t)
     any_hit = torch.any(hit, dim=-1, keepdim=True)
     pos = torch.minimum(torch.maximum(state.pos, lo_t), hi_t)

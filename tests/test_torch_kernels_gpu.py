@@ -990,6 +990,135 @@ def test_host_sync_counters_equal_torchs_sync_warnings(sync_paths, path):
     assert device_us[top] == pytest.approx(ran, rel=1e-6), (device_us, ran)
 
 
+def test_materials_grad_step_waits_for_nothing(planes):
+    """Configuration 4's training step (solvers/materials_grad.py) on a
+    16^3 dam break at 256x144, after one warm step: under
+    torch.cuda.set_sync_debug_mode("warn") torch warns at no operation and
+    the program counts no host sync, one `materials_grad.steps`. In the
+    profiler's events the three phases' ranges (the backward's on the
+    autograd engine's thread too) hold the device time of every kernel
+    and copy the step ran, once; the backward's is not zero."""
+    import warnings
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dieselfluid_tpu_torch.models.materials import Materials
+    from dieselfluid_tpu_torch.solvers import materials_grad as mg
+    from dieselfluid_tpu_torch.solvers.pcisph import compute_pci_delta
+    from dieselfluid_tpu_torch.utils import profiling
+
+    params, spec, _ = planes
+    dev = torch.device("cuda", 0)
+    s = dam_break_state(N3, params, dev)
+    gen = np.random.default_rng(12)
+    s = s._replace(vel=torch.from_numpy(gen.normal(
+        scale=0.05, size=tuple(s.vel.shape)).astype(np.float32)).to(dev))
+    mats = Materials.from_params(params, dev, requires_grad=True)
+    cam, cube = mg.config4_scene(dev, position=(0.0, 0.6, -2.8),
+                                 front=(0.0, -0.35, 1.0), fov_deg=55.0,
+                                 width=256, height=144, sun=(0.3, 0.8, 0.5),
+                                 cube_size=8)
+
+    def step():
+        return mg.materials_grad_step(
+            s, params, spec, compute_pci_delta(params, DX), mats, cam, cube,
+            0.7 * DX, width=256, height=144, k=1024, unroll_iters=3)
+
+    step()
+    torch.cuda.synchronize()
+    syncs = []
+
+    def keep(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing" in str(message):
+            syncs.append(f"{filename}:{lineno}")
+
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = keep
+                out = step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    got = profiling.summary()
+    profiling.reset()
+    assert syncs == [] and got["counters"] == {"materials_grad.steps": 1}
+    assert all(torch.isfinite(t).all() for t in out)
+    device_us = {}
+    for e in prof.events():
+        if e.name.startswith("materials_grad.") \
+                and e.device_type == DeviceType.CPU:
+            device_us[e.name] = device_us.get(e.name, 0.0) \
+                + e.device_time_total
+    ran = sum(e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation)
+    assert device_us["materials_grad.backward"] > 0.0, device_us
+    assert sum(device_us.values()) == pytest.approx(ran, rel=1e-6), (
+        device_us, ran)
+
+
+def test_materials_grad_graph_replays_the_step(planes):
+    """MaterialsGradGraph on two 16^3 starts in turn, twice: each replay's
+    loss, gradients and overflow are the step's own on that start, and a
+    replay follows a change of the materials' values made in place. The
+    same kernels run in the same order, but the backward's index adds sum
+    in no fixed order on the card: the loss and the positions' gradient
+    within 1e-5 of their norm, each material's gradient within 1e-3 of
+    itself plus four times the step's own difference between two runs."""
+    from dieselfluid_tpu_torch.models.materials import Materials
+    from dieselfluid_tpu_torch.solvers import materials_grad as mg
+    from dieselfluid_tpu_torch.solvers.pcisph import compute_pci_delta
+
+    params, spec, _ = planes
+    dev = torch.device("cuda", 0)
+    base = dam_break_state(N3, params, dev)
+    gen = np.random.default_rng(13)
+    starts = [base._replace(
+        pos=base.pos + torch.from_numpy(gen.uniform(
+            -0.1 * DX, 0.1 * DX, size=tuple(base.pos.shape)).astype(
+                np.float32)).to(dev),
+        vel=torch.from_numpy(gen.normal(scale=0.05, size=tuple(
+            base.vel.shape)).astype(np.float32)).to(dev)) for _ in range(2)]
+    mats = Materials.from_params(params, dev, requires_grad=True)
+    cam, cube = mg.config4_scene(dev, position=(0.0, 0.6, -2.8),
+                                 front=(0.0, -0.35, 1.0), fov_deg=55.0,
+                                 width=256, height=144, sun=(0.3, 0.8, 0.5),
+                                 cube_size=8)
+    args = (params, spec, compute_pci_delta(params, DX), mats, cam, cube,
+            0.7 * DX)
+    kw = dict(width=256, height=144, k=1024, unroll_iters=3)
+    graph = mg.MaterialsGradGraph(*args, **kw)
+
+    def same(st):
+        got = mg.MaterialsGrad(*[t.clone() for t in graph(st)])
+        want = mg.materials_grad_step(st, *args, **kw)
+        again = mg.materials_grad_step(st, *args, **kw)
+        assert int(got.overflow) == int(want.overflow)
+        for name in ("loss", "grad_mu", "grad_d0", "grad_mass", "grad_pos"):
+            g, w, a = (getattr(o, name).double() for o in (got, want, again))
+            assert torch.isfinite(g).all(), name
+            err = float((g - w).norm())
+            if name in ("loss", "grad_pos"):
+                assert err <= 1e-5 * float(w.norm()), (name, err)
+            else:
+                assert err <= 1e-3 * abs(float(w)) + 4.0 * abs(
+                    float(a - w)), (name, float(g), float(w), float(a))
+
+    for st in starts + starts:
+        same(st)
+    assert graph.graph is not None
+    with torch.no_grad():
+        mats.mu.mul_(2.0)
+    same(starts[0])
+
+
 # ---------------------------------------------------------------------------
 # The resident step's epilogue kernel (ops/plane_advance.py)
 # ---------------------------------------------------------------------------

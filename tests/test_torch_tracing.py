@@ -15,6 +15,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from dieselfluid_tpu_torch.config import FluidParams
+from dieselfluid_tpu_torch.models.materials import Materials
 from dieselfluid_tpu_torch.models.particles import dam_break_state
 from dieselfluid_tpu_torch.neighbors.calibrate import lattice_rest_density
 from dieselfluid_tpu_torch.ops import cellops as tc
@@ -22,7 +23,9 @@ from dieselfluid_tpu_torch.parallel import dense_halo as pdh
 from dieselfluid_tpu_torch.parallel import halo as th
 from dieselfluid_tpu_torch.parallel.mesh import LocalMesh
 from dieselfluid_tpu_torch.solvers import dense_resident as tdr
+from dieselfluid_tpu_torch.solvers import materials_grad as mg
 from dieselfluid_tpu_torch.solvers.pcisph import compute_pci_delta
+from dieselfluid_tpu_torch.utils import constants as C
 from dieselfluid_tpu_torch.utils import profiling as P
 
 torch.set_num_threads(1)
@@ -79,10 +82,37 @@ def _slab(slab_setup):
     return step(slabs)
 
 
+@pytest.fixture(scope="module")
+def grad_setup(setup):
+    """Configuration 4's training step at the 8^3 lattice: the state, the
+    traced Materials, the camera and sky cube of a 128x72 frame."""
+    params, spec, _, delta = setup
+    s = dam_break_state(N3, params, "cpu")
+    gen = torch.Generator().manual_seed(5)
+    s = s._replace(pos=s.pos + 0.1 * DX * (2.0 * torch.rand(
+        s.pos.shape, generator=gen) - 1.0),
+        vel=0.05 * torch.randn(s.vel.shape, generator=gen))
+    cam, cube = mg.config4_scene("cpu", position=(0.0, 0.6, -2.8),
+                                 front=(0.0, -0.35, 1.0), fov_deg=55.0,
+                                 width=128, height=72, sun=(0.3, 0.8, 0.5),
+                                 cube_size=8)
+    mats = Materials.from_params(params, "cpu", requires_grad=True)
+    return params, spec, delta, s, mats, cam, cube
+
+
+def _grad(grad_setup):
+    params, spec, delta, s, mats, cam, cube = grad_setup
+    return mg.materials_grad_step(s, params, spec, delta, mats, cam, cube,
+                                  0.7 * DX, width=128, height=72, k=128,
+                                  unroll_iters=3)
+
+
 def _traced(run):
     """run() under a torch profiler: (its value, the recorder's summary,
-    the profiler's events)."""
+    the profiler's events). The device constants are made anew inside it,
+    so that each one's making is counted once."""
     P.reset()
+    C.clear()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         out = run()
     got = P.summary()
@@ -138,12 +168,13 @@ def test_resident_wcsph_spans_each_step(setup):
     for sweep in ("sweep.density", "sweep.force"):
         assert _parents(ev, sweep) == {"resident.step": STEPS}
     # Per step: the skin test, the fallback's gravity and walls, the Tait
-    # d0; per rebuild, dense_indices' two constants; the epilogue's route.
+    # d0; dense_indices' two device constants, made once (the first
+    # rebuild); the epilogue's route.
     assert got["counters"] == {
         "host_sync.resident.skin_test": STEPS,
         "host_sync.resident.fallback": 3 * STEPS,
         "host_sync.smoothing.tait_eos": STEPS,
-        "host_sync.cellops.dense_indices": 2 * STEPS,
+        "host_sync.cellops.dense_indices": 2,
         "plane_advance.plain": STEPS}
 
 
@@ -201,14 +232,15 @@ def test_slab_step_spans_the_halo(slab_setup):
         assert got["spans"][name]["count"] == sum(
             _parents(ev, name).values()), name
     # Per shard: its origin in the layout and in the migration, the park
-    # slot, dense_indices' two constants, the Tait d0, gravity in the
-    # force and after the integration, the box's two corners.
+    # slot, the Tait d0, gravity in the force. Made once for all shards
+    # (device constants): dense_indices' two, gravity after the
+    # integration, the box's two corners.
     assert got["counters"] == {
         "host_sync.halo.origin": 8, "host_sync.halo.park": 4,
-        "host_sync.cellops.dense_indices": 8,
+        "host_sync.cellops.dense_indices": 2,
         "host_sync.smoothing.tait_eos": 4, "host_sync.halo.gravity": 4,
-        "host_sync.particles.gravity_force": 4,
-        "host_sync.integrate.box_collide": 8}
+        "host_sync.particles.gravity_force": 1,
+        "host_sync.integrate.box_collide": 2}
 
 
 def test_cellgrid_slab_step_spans_the_halo(slab_setup):
@@ -227,20 +259,67 @@ def test_cellgrid_slab_step_spans_the_halo(slab_setup):
     # Per shard: its origin in the frame and in the migration, the cell
     # grid's three constants for the sources' and the queries' cells and
     # its stencil's two, the Tait d0, the pressure force's two density
-    # floors and the viscosity's one, gravity in the force and after the
-    # integration, the box's two corners.
+    # floors and the viscosity's one, gravity in the force. Made once for
+    # all shards (device constants): gravity after the integration, the
+    # box's two corners.
     assert got["counters"] == {
         "host_sync.halo.origin": 8, "host_sync.cellgrid.cell_coords": 24,
         "host_sync.cellgrid.stencil": 8, "host_sync.smoothing.tait_eos": 4,
         "host_sync.field.floor_eps": 12, "host_sync.halo.gravity": 4,
-        "host_sync.particles.gravity_force": 4,
-        "host_sync.integrate.box_collide": 8}
+        "host_sync.particles.gravity_force": 1,
+        "host_sync.integrate.box_collide": 2}
 
 
-@pytest.mark.parametrize("path", ["wcsph", "pcisph", "slab"])
-def test_span_names_in_the_profilers_events(setup, slab_setup, path):
+def test_materials_grad_spans_each_phase(grad_setup):
+    """One training step: its three phases once each at the top, the
+    forward's sweeps under the forward, the rasterizer's forward under the
+    render, the backward sweeps and the rasterizer's backward under the
+    backward (the CPU's autograd runs on the calling thread); one
+    `materials_grad.steps`; and the device constants it makes, each
+    counted once as it is made."""
+    _, got, ev = _traced(lambda: _grad(grad_setup))
+    for name in ("materials_grad.forward", "materials_grad.render",
+                 "materials_grad.backward"):
+        assert _parents(ev, name) == {None: 1}, name
+        assert got["spans"][name]["count"] == 1
+        assert got["spans"][name]["host_ms"] > 0.0
+    assert _parents(ev, "sweep.density") == {"materials_grad.forward": 4}
+    assert _parents(ev, "sweep.viscosity") == {"materials_grad.forward": 1}
+    assert _parents(ev, "sweep.pressure") == {"materials_grad.forward": 3}
+    assert _parents(ev, "sweep.splat_fwd") == {"materials_grad.render": 1}
+    for sweep, n in (("sweep.density_bwd", 4), ("sweep.viscosity_bwd", 1),
+                     ("sweep.pressure_bwd", 3), ("sweep.splat_bwd", 1)):
+        assert _parents(ev, sweep) == {"materials_grad.backward": n}, sweep
+    # The binning's corner and last cell, gravity (made for the force; the
+    # integration's reset reads the same constant), the box's two corners,
+    # the render's background.
+    assert got["counters"] == {
+        "materials_grad.steps": 1,
+        "host_sync.cellops.dense_indices": 2,
+        "host_sync.dense_step.gravity": 1,
+        "host_sync.integrate.box_collide": 2,
+        "host_sync.splat_tiled.background": 1}
+
+
+def test_materials_grad_makes_no_host_sync_once_its_constants_exist(
+        grad_setup):
+    """A step after the first makes no host sync: its counters hold the
+    step alone."""
+    _grad(grad_setup)
+    P.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        _grad(grad_setup)
+    got = P.summary()
+    P.reset()
+    assert got["counters"] == {"materials_grad.steps": 1}
+
+
+@pytest.mark.parametrize("path", ["wcsph", "pcisph", "slab", "grad"])
+def test_span_names_in_the_profilers_events(setup, slab_setup, grad_setup,
+                                            path):
     run = {"wcsph": lambda: _wcsph(setup), "pcisph": lambda: _pcisph(setup),
-           "slab": lambda: _slab(slab_setup)}[path]
+           "slab": lambda: _slab(slab_setup),
+           "grad": lambda: _grad(grad_setup)}[path]
     _, got, ev = _traced(run)
     names = {e.name for e in ev[0]}
     assert got["spans"] and set(got["spans"]) <= names
@@ -266,10 +345,12 @@ def _flat(x):
     return [torch.tensor(x)] if isinstance(x, (int, float)) else []
 
 
-@pytest.mark.parametrize("path", ["wcsph", "pcisph", "slab"])
-def test_traced_steps_equal_untraced_bit_for_bit(setup, slab_setup, path):
+@pytest.mark.parametrize("path", ["wcsph", "pcisph", "slab", "grad"])
+def test_traced_steps_equal_untraced_bit_for_bit(setup, slab_setup,
+                                                 grad_setup, path):
     run = {"wcsph": lambda: _wcsph(setup), "pcisph": lambda: _pcisph(setup),
-           "slab": lambda: _slab(slab_setup)}[path]
+           "slab": lambda: _slab(slab_setup),
+           "grad": lambda: _grad(grad_setup)}[path]
     plain = _flat(run())
     traced = _flat(_traced(run)[0])
     assert len(plain) == len(traced) > 0

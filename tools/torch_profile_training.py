@@ -16,7 +16,9 @@ unroll_for_grad=True, unroll_iters=3), and the stand-in through
 dense_wcsph_step(materials=m), then backward to the Materials and the
 positions (chip_smoke.grad_setup, loss_and_grads). Per solver, after one
 warm-up: `reps` forward+backward runs unprofiled (host clock, synchronized:
-median and each run), then `reps` under torch.profiler. Prints one JSON
+median and each run), `reps` more back to back with no host read (the
+host's ms to queue each, the card's ms between their events), then `reps`
+under torch.profiler. Prints one JSON
 line per solver: ms per forward+backward unprofiled and profiled,
 device-busy ms (CUDA kernel self time per forward+backward), the idle
 share of the profiled wall (1 - busy / wall), kernel launches, sweep and
@@ -105,9 +107,22 @@ def profile_root(root: str, reps: int) -> int:
             t0 = time.perf_counter()
             loss, grads = run()
             walls.append((time.perf_counter() - t0) * 1e3)
-        launches = {s.name: s.launches / reps for s in sw.SWEEPS
+        # Back to back with no host read: the host's ms to queue a call
+        # and the card's ms between the calls' events.
+        queue, events = [], [torch.cuda.Event(enable_timing=True)]
+        events[0].record()
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            cs.loss_and_grads(solver, params, state, spec, delta, w, mats)
+            queue.append((time.perf_counter() - t0) * 1e3)
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+        torch.cuda.synchronize()
+        queued = [events[i - 1].elapsed_time(events[i])
+                  for i in range(1, len(events))]
+        launches = {s.name: s.launches / (2 * reps) for s in sw.SWEEPS
                     if s.launches}
-        launches.update({k.name: k.launches / reps for k in st.KERNELS
+        launches.update({k.name: k.launches / (2 * reps) for k in st.KERNELS
                          if k.launches})
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -128,6 +143,7 @@ def profile_root(root: str, reps: int) -> int:
             "solver": solver, "root": root, "reps": reps,
             "fwd_bwd_ms_unprofiled": float(np.median(walls)),
             "fwd_bwd_ms_runs": walls, "fwd_bwd_ms_profiled": wall,
+            "queue_ms_runs": queue, "queued_device_ms_runs": queued,
             "device_busy_ms": busy, "idle_share_of_profiled_wall":
                 1 - busy / wall,
             "kernel_launches": n_kernels / reps, "sweep_launches": launches,
