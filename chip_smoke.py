@@ -23,9 +23,11 @@ Phases, each of which raises (and so exits nonzero) on failure:
      RASTER_BWD_REL_TOL per output);
   5. the serving path at full size: the 1M-particle (n3=100) dam break
      stepped by the plane-resident WCSPH and PCISPH solvers with the bench
-     parameters; the launch counters (the sweeps', the rasterizer's and
-     the resident epilogue's, plane_advance) are reset just before each
-     solver's steps and read just after them;
+     parameters; the launch counters (the sweeps', the rasterizer's, the
+     resident epilogue's, plane_advance, and the PCISPH iteration's,
+     pcisph_predict and pcisph_update) are reset just before each solver's
+     steps and read just after them (each of the last two: one launch an
+     iteration);
   6. health checks on both runs (finite, inside the box, no overflow,
      max|v| under the sound speed, mean y falls (PCISPH: by the end of
      burn-in), rho_max/d0 in [1.0, 1.2], PCISPH iterations in 1..5, every
@@ -43,6 +45,14 @@ Phases, each of which raises (and so exits nonzero) on failure:
      its planes and displacement max against the plain route's
      (dense_resident._epilogue_plain) on the card, bit for bit; the
      public call's ms, its launch alone, the plain route's ms and its
+     byte bound;
+  7c. the PCISPH iteration's plane-math kernels (pcisph_iter) on that
+     state: the inputs one resident PCISPH step hands the prediction and
+     the update in its first iteration (new outputs, every slot written)
+     and in its second (the first one's outputs, written beside the fluid
+     slots only), its outputs against the torch passes'
+     (pcisph_iter.predict_plain, update_plain) on the card, bit for bit;
+     each public call's ms, its launch alone, the torch passes' ms and its
      byte bound;
   8a. the sky bake of config 4 and the composite: bake_sky_cubemap((0.3,
      0.8, 0.5), size=48) on the card (ms) against the same call on the CPU
@@ -222,6 +232,9 @@ GATED_OF = {"density_active": "density", "pressure_active": "pressure",
 # The resident epilogue kernel's name in the launch counts and the kernels
 # line (ops/plane_advance.py).
 PLANE_ADVANCE = "plane_advance"
+# The PCISPH iteration's kernels' names in the launch counts (one count
+# each; ops/pcisph_iter.py).
+PCISPH_ITER = ("pcisph_predict", "pcisph_update")
 # The column_skip phase: per-step PCISPH at 1M, warm-started, burn-in and
 # timed steps; the gated loop's tracking of the ungated one over 3 steps
 # from one state (the JAX test's bounds, tests/test_pallas_dense.py:306-307).
@@ -339,14 +352,17 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 def captured_launches(call) -> list:
     """The kernel launches one public call makes, as (launch function,
     args): the call runs once with the sweeps', the rasterizer's and the
-    resident epilogue's launch functions wrapped (the epilogue's C call
-    zeroes its 4-byte maximum, then launches)."""
+    resident epilogue's and the PCISPH iteration's launch functions
+    wrapped (the epilogue's and the update's C calls zero their 4-byte
+    maximum, then launch)."""
+    from dieselfluid_tpu_torch.ops import pcisph_iter as pi
     from dieselfluid_tpu_torch.ops import plane_advance as pa
     from dieselfluid_tpu_torch.ops import sph_sweep as sw
     from dieselfluid_tpu_torch.render import splat_tiled as st
 
     rec = []
     real_sw, real_st, real_pa = sw.launch_kernel, st._launch, pa._launcher
+    real_pi = pi._launcher
 
     def wrap(real):
         def launch(*args):
@@ -356,11 +372,12 @@ def captured_launches(call) -> list:
 
     sw.launch_kernel, st._launch = wrap(real_sw), wrap(real_st)
     pa._launcher = lambda: wrap(real_pa())
+    pi._launcher = lambda symbol: wrap(real_pi(symbol))
     try:
         call()
     finally:
         sw.launch_kernel, st._launch = real_sw, real_st
-        pa._launcher = real_pa
+        pa._launcher, pi._launcher = real_pa, real_pi
     return rec
 
 
@@ -779,6 +796,119 @@ def check_plane_advance(ps, params, spec, delta) -> dict:
     return out
 
 
+def pcisph_iter_inputs(ps, params, spec, delta) -> dict:
+    """name -> the arguments one warm-started resident PCISPH step from
+    `ps` hands the iteration's kernels, as pcisph_iter.predict, .update and
+    their torch passes take them: "predict_fill" and "update_fill" those of
+    the first iteration (new outputs), "predict" and "update" those of the
+    second (the first one's outputs, the update's carried pressure its own
+    output plane). The step runs at a zero tolerance, so that it iterates
+    past the first; its result is dropped."""
+    from dieselfluid_tpu_torch.ops import pcisph_iter as pi
+    from dieselfluid_tpu_torch.solvers import dense_resident as tdr
+
+    got = {}
+    real_p, real_u = pi.predict, pi.update
+
+    def predict(*args):
+        got.setdefault("predict" if args[6] is not None else "predict_fill",
+                       args)
+        return real_p(*args)
+
+    def update(*args):
+        got.setdefault("update" if args[5] is not None else "update_fill",
+                       args)
+        return real_u(*args)
+
+    pi.predict, pi.update = predict, update
+    try:
+        tdr.dense_pcisph_resident_step(
+            ps, params.replace(pci_max_density_error_ratio=0.0), spec, delta,
+            skin=SKIN, warm_start=True)
+    finally:
+        pi.predict, pi.update = real_p, real_u
+    want = {"predict_fill", "predict", "update_fill", "update"}
+    check(set(got) == want,
+          f"pcisph_iter: the resident step handed over {sorted(got)}")
+    return got
+
+
+def check_pcisph_iter(ps, params, spec, delta) -> dict:
+    """Phase 7c: name -> the iteration's kernel on the inputs of
+    pcisph_iter_inputs, its outputs equal to the torch passes' on the card
+    bit for bit (a form without fill: on the words of four slots that hold
+    a fluid slot, every other word left as it was): the public call's ms
+    (median of 20), its launch alone (kernel_ms), the torch passes' ms
+    (median of 5), its byte bound and CTAs per SM. Bound: the bool fluid
+    plane (a byte a slot) read in full; with fill, the prediction's
+    carried positions read and every output plane written in full; every
+    other plane read or written over the 32-byte sectors that hold a fluid
+    slot; at the HBM rate."""
+    import ctypes
+
+    import torch
+    from dieselfluid_tpu_torch.ops import _build
+    from dieselfluid_tpu_torch.ops import pcisph_iter as pi
+
+    def bits(t):
+        return t.view(torch.int32)
+
+    ctas_per_sm = _build.load_library().dft_pcisph_iter_ctas_per_sm
+    ctas_per_sm.argtypes = [ctypes.c_int]
+    ctas_per_sm.restype = ctypes.c_int
+    # name -> (call, torch passes, which, planes in full, planes over the
+    # fluid sectors)
+    kernels = {"predict_fill": (pi.predict, pi.predict_plain, 0, 6, 9),
+               "predict": (pi.predict, pi.predict_plain, 0, 0, 15),
+               "update_fill": (pi.update, pi.update_plain, 1, 2, 2),
+               "update": (pi.update, pi.update_plain, 1, 0, 4)}
+    out = {}
+    for name, args in pcisph_iter_inputs(ps, params, spec, delta).items():
+        kern, plain, which, n_full, n_occ = kernels[name]
+        is_predict = name.startswith("predict")
+        fluid = args[1] if is_predict else args[0]
+        plane_bytes = fluid.numel() * 4
+        sectors = int(fluid.view(-1, 8).any(-1).sum())
+        words = fluid.view(-1, 4).any(-1, keepdim=True).expand(-1, 4) \
+            .reshape(fluid.shape)
+        if name == "predict":
+            held = [args[6][c].clone() for c in pi.STAR_NAMES]
+        elif name == "update":
+            held = [o.clone() for o in args[5]]
+        want = plain(*args)
+        got = kern(*args)
+        if is_predict:
+            pairs = [(c, got[c], want[c]) for c in pi.STAR_NAMES]
+        else:
+            pairs = list(zip(("press", "pq", "max_err"), got, want))
+        if name in ("predict", "update"):
+            pairs = [(c, g, torch.where(words, w, h) if w.dim() else w)
+                     for (c, g, w), h in zip(pairs, held + [None])]
+        for c, g, w in pairs:
+            check(torch.equal(bits(g), bits(w)),
+                  f"pcisph_iter {name}: {c} differs from the torch passes")
+        err = max(float((g - w).abs().max()) for _, g, w in pairs)
+        ctas = ctas_per_sm(which)
+        check(ctas > 0, f"occupancy query for pcisph_iter failed: {ctas}")
+        kernel = "pcisph_predict_kernel" if is_predict \
+            else "pcisph_update_kernel"
+        fill = name.endswith("_fill")
+        out[name] = {
+            "ms": cuda_ms(lambda: kern(*args), reps=20, warmup=2),
+            "kernel_ms": kernel_ms(lambda: kern(*args)),
+            "plain_ms": cuda_ms(lambda: plain(*args), reps=5),
+            "bound_ms": (plane_bytes / 4 + n_full * plane_bytes
+                         + n_occ * sectors * 32) / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "max_abs_err": err,
+            "body": (f"{kernel}, fill {int(fill)}, 256 threads, {ctas} "
+                     "CTAs/SM")}
+        if not is_predict:
+            out[name]["max_err"] = float(got[2])
+    log(f"pcisph_iter_1m ({sectors} of {fluid.numel() // 8} 32-byte "
+        "sectors hold a fluid slot) " + json.dumps(out))
+    return out
+
+
 def gated_bounds(planes, spec, active) -> dict:
     """kernel_bounds for the K10 sweeps under `active`: the mask read over
     the rows of active columns, the activity grid, every output plane
@@ -1048,6 +1178,7 @@ def run_cli(device) -> dict:
 
 
 def launch_counts() -> dict:
+    from dieselfluid_tpu_torch.ops import pcisph_iter as pi
     from dieselfluid_tpu_torch.ops import plane_advance as pa
     from dieselfluid_tpu_torch.ops import sph_sweep as sw
     from dieselfluid_tpu_torch.render import splat_tiled as st
@@ -1055,10 +1186,12 @@ def launch_counts() -> dict:
     out = {k.name: k.launches for k in sw.SWEEPS + st.KERNELS}
     out.update({f"{k.name}9": k.launches9 for k in st.KERNELS})
     out[PLANE_ADVANCE] = pa.launches
+    out.update(pi.launches)
     return out
 
 
 def reset_all_launch_counts():
+    from dieselfluid_tpu_torch.ops import pcisph_iter as pi
     from dieselfluid_tpu_torch.ops import plane_advance as pa
     from dieselfluid_tpu_torch.ops.sph_sweep import reset_launch_counts
     from dieselfluid_tpu_torch.render import splat_tiled as st
@@ -1066,6 +1199,7 @@ def reset_all_launch_counts():
     reset_launch_counts()
     st.reset_launch_counts()
     pa.launches = 0
+    pi.launches.update(dict.fromkeys(pi.launches, 0))
 
 
 def mean_y(ps, params, spec, n) -> float:
@@ -1187,6 +1321,10 @@ def run_pcisph(params, state, spec, delta, sync):
                           "pcisph_1m_resident", out)
     check(all(1 <= i <= params.pci_max_iters for i in iters),
           f"pcisph: iterations outside 1..{params.pci_max_iters}")
+    for name in PCISPH_ITER:
+        check(out["launches"][name] == sum(iters),
+              f"pcisph: {out['launches'][name]} launches of {name} for "
+              f"{sum(iters)} iterations")
     return ps, out
 
 
@@ -3305,6 +3443,7 @@ def main() -> int:
               f"this script ({e}); nothing was run", file=sys.stderr)
         return 2
     from dieselfluid_tpu_torch.ops import _build
+    from dieselfluid_tpu_torch.ops import pcisph_iter as pi
     from dieselfluid_tpu_torch.ops import plane_advance as pa
     from dieselfluid_tpu_torch.ops import sph_sweep as sw
     from dieselfluid_tpu_torch.render import splat_tiled as st
@@ -3351,6 +3490,9 @@ def main() -> int:
         check(run["launches"][PLANE_ADVANCE] > 0,
               f"kernel {PLANE_ADVANCE} was not launched by the {label} "
               "serving path")
+    for name in PCISPH_ITER:
+        check(pc["launches"][name] > 0,
+              f"kernel {name} was not launched by the PCISPH serving path")
 
     cts = seeded_cotangents(spec, device, 3)
     plain_ms = {}
@@ -3381,6 +3523,7 @@ def main() -> int:
                for g in ("ones", "quarter")} for name in GATED_OF}))
     del grids
     advance = check_plane_advance(ps, params, spec, delta)
+    iter_k = check_pcisph_iter(ps, params, spec, delta)
     del ps
 
     # The training path, config 4: K1, K3, K5, K6, K8, K9, and K11, K12
@@ -3472,6 +3615,25 @@ def main() -> int:
                     "body": adv["body"], "plain_ms": adv["plain_ms"],
                     "bound_ms": adv["bound_ms"], "bound_by": "bytes",
                     "library_ms": None})
+    # The iteration's kernels' rows: each in its later iterations' form,
+    # which writes beside the fluid slots only (the first iteration's form,
+    # which writes every slot, is on the pcisph_iter_1m line); each with
+    # its own launches.
+    for name, row, replaces in (
+            ("pcisph_predict", iter_k["predict"],
+             "the correction loop's prediction torch passes "
+             "(pcisph_iter.predict_plain)"),
+            ("pcisph_update", iter_k["update"],
+             "the correction loop's pressure update torch passes "
+             "(pcisph_iter.update_plain)")):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": pi.SOURCE, "replaces": replaces,
+                        "launches": sum(p.get(name, 0) for p in main_paths),
+                        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                        "kernel_ms": row["kernel_ms"], "body": row["body"],
+                        "plain_ms": row["plain_ms"],
+                        "bound_ms": row["bound_ms"], "bound_by": "bytes",
+                        "library_ms": None})
     log(f"chip_smoke: {time.perf_counter() - t_start!r} s in all")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -11,7 +11,8 @@ solvers).
 
 The rebuild decision, a `lax.cond` in the JAX package, is a host branch
 here (`if need.item():`, one sync per step); the PCISPH correction loop
-reads one scalar per iteration (solvers/dense_step.py).
+reads one scalar per iteration (solvers/dense_step.py), and its plane math
+takes the same two routes as the epilogue below (ops/pcisph_iter.py).
 
 The epilogue after the force sweeps (the accelerations, the integration,
 the wall collision and the largest displacement since the last rebuild)
@@ -323,6 +324,9 @@ def dense_pcisph_resident_step(ps: DensePlaneState, params: FluidParams,
     visc = viscosity_force_planes(planes, rho_plane, spec, k, params.mass,
                                   float(params.mu))
     extf = external_force_planes(visc, params)
+    # Only extf outlives these sweeps: the loop and the rebuild run
+    # without the density and viscosity planes held.
+    del rho_plane, visc
     zero = torch.zeros(spec.plane_shape, dtype=torch.float32,
                        device=occ.device)
     press0 = torch.where(fluid_occ, planes["press"], 0.0) if warm_start \

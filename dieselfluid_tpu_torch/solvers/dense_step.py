@@ -10,7 +10,10 @@ Python loop here: each iteration reads one scalar (`err.item()`, a host
 sync) against `pci_max_iters` and `pci_max_density_error_ratio`. Its spans
 (utils/profiling.py): `pcisph.loop` (the whole loop), `pcisph.iter` (one
 iteration's body), `pcisph.exit_test` (the read, counted as
-`host_sync.pcisph.exit_test`); the sharded loops use the same names.
+`host_sync.pcisph.exit_test`); the sharded loops use the same names. An
+iteration's plane math (ops/pcisph_iter.py) runs as two kernels on the card
+and as torch passes on the CPU; each iteration counts its route,
+`pcisph_iter.kernel` or `pcisph_iter.plain`.
 
 Gradients. The static-params WCSPH step is differentiable in the state
 through the fused force sweep, whose backward is its own adjoint sweep (K7).
@@ -41,6 +44,7 @@ from torch.utils.checkpoint import checkpoint
 
 from dieselfluid_tpu_torch.config import FluidParams
 from dieselfluid_tpu_torch.models.particles import FluidState
+from dieselfluid_tpu_torch.ops import pcisph_iter
 from dieselfluid_tpu_torch.ops.cellops import (
     DenseCellSpec,
     build_planes,
@@ -201,6 +205,34 @@ def pcisph_continue(err: Optional[torch.Tensor],
         return err.item() > params.pci_max_density_error_ratio
 
 
+def _plane_math(fluid_occ, mass, d0, grad_from):
+    """(predict, update, route counter, mass, d0) of a correction loop:
+    on CUDA planes the pcisph_iter kernels (`pcisph_iter.kernel`), which
+    take the mass and d0 as Python numbers, so 0-d tensors (traced
+    Materials) are read here, once a loop (`host_sync.pcisph.materials`);
+    where a tensor of `grad_from` (the loop's inputs) requires grad, their
+    outputs are tied to it by a node whose backward raises
+    (pcisph_iter.forward_only). On CPU planes the torch passes
+    (`pcisph_iter.plain`) with them as given. The loop counts the route
+    once an iteration."""
+    if not fluid_occ.is_cuda:
+        return (pcisph_iter.predict_plain, pcisph_iter.update_plain,
+                "pcisph_iter.plain", mass, d0)
+    predict, update = pcisph_iter.predict, pcisph_iter.update
+    if torch.is_grad_enabled():
+        tracked = [t for t in (mass, d0, *grad_from)
+                   if torch.is_tensor(t) and t.requires_grad]
+        if tracked:
+            predict, update = pcisph_iter.forward_only(predict, update,
+                                                       tracked)
+    if torch.is_tensor(mass) or torch.is_tensor(d0):
+        count("host_sync.pcisph.materials")
+        mass, d0 = torch.stack([
+            torch.as_tensor(v, dtype=torch.float32, device=fluid_occ.device)
+            for v in (mass, d0)]).tolist()
+    return predict, update, "pcisph_iter.kernel", mass, d0
+
+
 @span("pcisph.loop")
 def pcisph_correction_loop(planes, fluid_occ, extf, press0, spec, k,
                            params: FluidParams, delta: float, mass=None,
@@ -208,43 +240,37 @@ def pcisph_correction_loop(planes, fluid_occ, extf, press0, spec, k,
     """The plane-resident PCISPH correction loop shared by the per-step and
     resident solvers: per iteration, predict positions in plane form,
     sweep density at them, accumulate pressure, sweep the prefolded pressure
-    force. Two sweeps and elementwise plane math per iteration; the exit test
-    reads one scalar on the host.
+    force. Two sweeps and two passes of plane math per iteration
+    (ops/pcisph_iter.py: a kernel each on the card, whose later iterations
+    write into the first one's planes); the exit test reads one scalar on
+    the host.
 
     `mass` and `d0` default to the params' and may be 0-d tensors (traced
     Materials): a gradient through them then reaches the prefolded pressure
     sweep, whose backward raises, as reverse mode through the JAX
-    while_loop does.
+    while_loop does. On the card the plane math takes their values; a
+    gradient through its kernels raises too (_plane_math).
 
     Returns (iterations, pressure plane, (fpx, fpy, fpz) planes)."""
     mass = params.mass if mass is None else mass
     d0 = params.d0 if d0 is None else d0
-    dt = params.dt
-    mask_p = planes["mask"]
-    vels = (planes["vx"], planes["vy"], planes["vz"])
-    poss = (planes["x"], planes["y"], planes["z"])
+    predict, update, route, mass_n, d0_n = _plane_math(
+        fluid_occ, mass, d0, (press0, *extf, *planes.values()))
     zero = torch.zeros(spec.plane_shape, dtype=torch.float32,
-                       device=mask_p.device)
-    press, fps = press0, (zero, zero, zero)
+                       device=fluid_occ.device)
+    press, fps, star, out = press0, (zero, zero, zero), None, None
     it, err = 0, None
     while it < params.pci_max_iters and pcisph_continue(err, params):
         with span("pcisph.iter"):
-            star = {}
-            for ax, name in enumerate(("x", "y", "z")):
-                accel = (extf[ax] + fps[ax]) / mass
-                xs = poss[ax] + (vels[ax] + accel * dt) * dt
-                star[name] = torch.where(fluid_occ, xs, poss[ax])
-            star["mask"] = mask_p
+            count(route)
+            star = predict(planes, fluid_occ, extf, fps, mass_n, params.dt,
+                           star)
             rho_star = density_planes(star, spec, k, mass)
-            err_p = torch.where(fluid_occ, rho_star - d0, 0.0)
-            press = torch.where(
-                fluid_occ, torch.clamp(press + delta * err_p, min=0.0), 0.0)
-            # Prefolded pq = press / rho_ff^2; boundary slots have zero
-            # pressure so their pq is 0 whatever the divisor.
-            rff = torch.clamp(rho_star, min=0.5 * d0)
-            pq = torch.where(fluid_occ, press / (rff * rff), 0.0)
+            press, pq, err_max = update(fluid_occ, rho_star, press, d0_n,
+                                        delta, out)
+            out = (press, pq)
             fps = pressure_force_pq_planes(planes, pq, spec, k, mass)
-            err = torch.max(err_p) / d0
+            err = err_max / d0
             it += 1
     return it, press, fps
 
@@ -280,28 +306,25 @@ def pcisph_skip_loop(planes, fluid_occ, extf, press0, rho_plane, spec, k,
     Returns (iterations, pressure plane, (fpx, fpy, fpz) planes)."""
     mass = params.mass if mass is None else mass
     d0 = params.d0 if d0 is None else d0
-    dt = params.dt
     mask_p = planes["mask"]
     occ = mask_p > 0
-    vels = (planes["vx"], planes["vy"], planes["vz"])
-    poss = (planes["x"], planes["y"], planes["z"])
     p_sz = min(8, spec.ny)
     nx, nyp = active_patch_shape(spec)
     tol_abs = 0.1 * params.pci_max_density_error_ratio * d0
     zero = torch.zeros(spec.plane_shape, dtype=torch.float32,
                        device=mask_p.device)
     press, fps, rho_star = press0, (zero, zero, zero), rho_plane
+    predict, _, route, mass_n, _ = _plane_math(
+        fluid_occ, mass, d0, (press0, rho_plane, *extf, *planes.values()))
+    star = None
     active = torch.ones((nx, nyp), dtype=torch.int32, device=mask_p.device)
     it, err = 0, None
     while it < params.pci_max_iters and pcisph_continue(err, params):
         with span("pcisph.iter"):
+            count(route)
             ar = act_rows_of(active, spec)
-            star = {}
-            for ax, name in enumerate(("x", "y", "z")):
-                accel = (extf[ax] + fps[ax]) / mass
-                xs = poss[ax] + (vels[ax] + accel * dt) * dt
-                star[name] = torch.where(fluid_occ, xs, poss[ax])
-            star["mask"] = mask_p
+            star = predict(planes, fluid_occ, extf, fps, mass_n, params.dt,
+                           star)
             rho_new = density_planes_active(star, spec, k, mass, active)
             # An active but empty column reads 0 here (garbage in JAX); the
             # occupancy keeps the carried plane clean either way.

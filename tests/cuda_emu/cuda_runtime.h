@@ -1,7 +1,8 @@
 // A CPU emulation of the CUDA features csrc/sph_sweep.cu,
-// csrc/splat_raster.cu and csrc/plane_advance.cu use, for
-// tests/test_torch_sweep_emulated*.py, tests/test_torch_raster_emulated.py
-// and tests/test_torch_plane_advance_emulated.py: one std::thread per CUDA thread, a
+// csrc/splat_raster.cu, csrc/plane_advance.cu and csrc/pcisph_iter.cu use,
+// for tests/test_torch_sweep_emulated*.py, tests/test_torch_raster_emulated.py,
+// tests/test_torch_plane_advance_emulated.py and
+// tests/test_torch_pcisph_iter_emulated.py: one std::thread per CUDA thread, a
 // std::barrier for __syncthreads and per warp for the warp collectives,
 // shared memory as static storage, CTAs run one at a time, `emu_sms`
 // streaming multiprocessors of one resident CTA each. Arithmetic is the
@@ -145,6 +146,7 @@ inline float fmaxf(float a, float b) { return std::fmax(a, b); }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
 using std::max;
 using std::min;
 

@@ -1,7 +1,8 @@
 """The port's sm_90a kernels against their plain torch versions, and
 autograd through them on the card: the stencil sweeps, forward and backward
-(K1-K9 of PERF.md), the active-gated sweeps (K10), and the tile rasterizer
-forward and backward (K11, K12).
+(K1-K9 of PERF.md), the active-gated sweeps (K10), the tile rasterizer
+forward and backward (K11, K12), the resident step's epilogue
+(plane_advance) and the PCISPH iteration's plane math (pcisph_iter).
 
 Needs a CUDA device; every test skips with the reason where
 torch.cuda.is_available() is false. On the card (the machine there has no
@@ -1304,3 +1305,293 @@ def test_plane_advance_at_1m_against_its_byte_bound(cuda):
                         "host_us": statistics.median(host) * 1e6}
     print("plane_advance 1M:", json.dumps(report))
     assert 0.0 < occ_share < 0.5
+
+
+# ---------------------------------------------------------------------------
+# The PCISPH iteration's plane-math kernels (ops/pcisph_iter.py)
+# ---------------------------------------------------------------------------
+
+def _dam1m(cuda, seed):
+    """The benchmark's dam1m: the n3 = 100 dam break with N(0, 0.05^2)
+    velocities from `seed`, its spec, its plane state and PCISPH delta."""
+    from dieselfluid_tpu_torch.solvers.pcisph import compute_pci_delta
+
+    dx = 2.0 * 0.5 / 100
+    params = lattice_rest_density(dx, FluidParams.for_spacing(dx))
+    off = params.h / 4.0
+    spec = tc.DenseCellSpec.for_domain((-1 - off,) * 3, (1 + off,) * 3,
+                                       params.h, capacity=16)
+    s = dam_break_state(100, params, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    s = s._replace(vel=0.05 * torch.randn(tuple(s.vel.shape), device=cuda,
+                                          generator=gen))
+    return params, spec, tdr.plane_state_from_fluid(s, spec), \
+        compute_pci_delta(params, dx)
+
+
+def _loop_run(params, spec, ps, delta, steps):
+    """`steps` warm-started resident PCISPH steps at skin 0.05: each step's
+    state and what its correction loop returned (iterations, pressure
+    plane, force planes)."""
+    from dieselfluid_tpu_torch.solvers import dense_resident
+
+    loops = []
+    real = dense_resident.pcisph_correction_loop
+
+    def loop(*a, **kw):
+        out = real(*a, **kw)
+        loops.append(out)
+        return out
+
+    dense_resident.pcisph_correction_loop = loop
+    try:
+        states = []
+        for _ in range(steps):
+            ps, _ = tdr.dense_pcisph_resident_step(ps, params, spec, delta,
+                                                   skin=0.05)
+            states.append(ps)
+    finally:
+        dense_resident.pcisph_correction_loop = real
+    return states, loops
+
+
+def test_pcisph_iter_equals_the_torch_route_on_the_card(cuda, monkeypatch):
+    """Twelve warm-started resident PCISPH steps on the 1M dam break, once
+    with the iteration's plane math through the kernels and once through
+    the torch passes on the card: every step's iteration count, pressure
+    plane and three force planes, and every state, equal bit for bit; each
+    kernel launches once an iteration."""
+    from dieselfluid_tpu_torch.ops import pcisph_iter as pi
+
+    params, spec, ps0, delta = _dam1m(cuda, 21)
+    before = dict(pi.launches)
+    got = _loop_run(params, spec, ps0, delta, 12)
+    iters = [it for it, _, _ in got[1]]
+    ran = {k: before[k] + sum(iters) for k in before}
+    assert pi.launches == ran
+    monkeypatch.setattr(pi, "predict", pi.predict_plain)
+    monkeypatch.setattr(pi, "update", pi.update_plain)
+    want = _loop_run(params, spec, ps0, delta, 12)
+    monkeypatch.undo()
+    assert pi.launches == ran
+    for step, ((gi, gp, gf), (wi, wp, wf)) in enumerate(zip(got[1],
+                                                            want[1])):
+        assert gi == wi, step
+        assert _same_bits(gp, wp), step
+        for a, b in zip(gf, wf):
+            assert _same_bits(a, b), step
+    for step, (g, w) in enumerate(zip(got[0], want[0])):
+        for a, b in zip(_state_tensors(g), _state_tensors(w)):
+            assert _same_bits(a, b), step
+
+
+def test_pcisph_iter_takes_traced_materials_on_the_card(cuda, monkeypatch):
+    """Three per-step PCISPH frames (dense_pcisph_step's plane loop) on a
+    64,000-particle dam break with Materials that require grad: the plane
+    math takes the kernels, counted once an iteration, with the mass and
+    d0 read once a loop (`host_sync.pcisph.materials`), and equals the
+    torch passes on the same numbers bit for bit (each frame's iterations
+    and state); a gradient through the frame still raises, in the
+    prefolded pressure sweep's backward."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dieselfluid_tpu_torch.models.materials import Materials
+    from dieselfluid_tpu_torch.ops import pcisph_iter as pi
+    from dieselfluid_tpu_torch.solvers import dense_step as tds
+    from dieselfluid_tpu_torch.solvers.pcisph import compute_pci_delta
+    from dieselfluid_tpu_torch.utils import profiling
+
+    dx = 2.0 * 0.5 / 40
+    params = lattice_rest_density(dx, FluidParams.for_spacing(dx))
+    off = params.h / 4.0
+    spec = tc.DenseCellSpec.for_domain((-1 - off,) * 3, (1 + off,) * 3,
+                                       params.h, capacity=16)
+    delta = compute_pci_delta(params, dx)
+    s0 = dam_break_state(40, params, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(24)
+    s0 = s0._replace(vel=0.05 * torch.randn(tuple(s0.vel.shape),
+                                            device=cuda, generator=gen))
+    mats = Materials.from_params(params, cuda, requires_grad=True)
+
+    def run():
+        s, frames = s0, []
+        for _ in range(3):
+            s, diag = tds.dense_pcisph_step(s, params, spec, delta,
+                                            materials=mats)
+            frames.append((int(diag.iters), s))
+        return frames
+
+    before = dict(pi.launches)
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = run()
+    counters = profiling.summary()["counters"]
+    profiling.reset()
+    iters = sum(it for it, _ in got)
+    assert iters >= 3
+    assert counters["pcisph_iter.kernel"] == iters
+    assert "pcisph_iter.plain" not in counters
+    assert counters["host_sync.pcisph.materials"] == 3
+    assert pi.launches == {k: before[k] + iters for k in before}
+    monkeypatch.setattr(pi, "predict", pi.predict_plain)
+    monkeypatch.setattr(pi, "update", pi.update_plain)
+    want = run()
+    monkeypatch.undo()
+    for step, ((gi, gs), (wi, ws)) in enumerate(zip(got, want)):
+        assert gi == wi, step
+        for f in ("pos", "vel", "density", "pressure"):
+            assert _same_bits(getattr(gs, f), getattr(ws, f)), (step, f)
+    assert got[0][1].pos.requires_grad
+    with pytest.raises(NotImplementedError):
+        got[0][1].pos.sum().backward()
+
+
+def test_pcisph_iter_counts_once_an_iteration_under_tracing(planes):
+    """Under a profiler each correction iteration counts the kernels'
+    route once, launches each kernel once inside its operator range, and
+    the kernels' device time counts under the `pcisph.iter` span; the
+    plain route is never counted on the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dieselfluid_tpu_torch.solvers.pcisph import compute_pci_delta
+    from dieselfluid_tpu_torch.utils import profiling
+
+    params, spec, _ = planes
+    s = dam_break_state(N3, params, "cuda")
+    ps = tdr.plane_state_from_fluid(s, spec)
+    delta = compute_pci_delta(params, DX)
+    ps, _ = tdr.dense_pcisph_resident_step(ps, params, spec, delta)
+    torch.cuda.synchronize()
+    profiling.reset()
+    iters = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            ps, it = tdr.dense_pcisph_resident_step(ps, params, spec, delta)
+            iters.append(it)
+        torch.cuda.synchronize()
+    got = profiling.summary()
+    profiling.reset()
+    assert got["counters"]["pcisph_iter.kernel"] == sum(iters)
+    assert "pcisph_iter.plain" not in got["counters"]
+    assert got["spans"]["pcisph.iter"]["count"] == sum(iters)
+    events = prof.events()
+    names = [e.name for e in events if e.device_type == DeviceType.CUDA]
+    for kernel in ("pcisph_predict_kernel", "pcisph_update_kernel"):
+        assert sum(kernel in n for n in names) == sum(iters), names
+    for op in ("pcisph_predict", "pcisph_update"):
+        ranges = [e for e in events if e.name == op
+                  and e.device_type == DeviceType.CPU]
+        assert len(ranges) == sum(iters), op
+        assert sum(e.device_time_total for e in ranges) > 0.0, op
+    us = sum(e.device_time_total for e in events
+             if e.name == "pcisph.iter" and e.device_type == DeviceType.CPU)
+    assert us > 0.0
+
+
+def test_pcisph_iter_at_1m_against_its_byte_bound(cuda):
+    """Both kernels alone on the 1M dam break's plane state with the inputs
+    of a correction iteration, each in its first iteration's form (new
+    outputs, every slot written) and in a later one's (into those outputs,
+    beside the fluid slots only): equal to the torch passes bit for bit
+    (the later form on the words of four slots that hold a fluid slot,
+    every other word left as it was); each one's ms by CUDA events over 20
+    launches against its byte bound at 3.35 TB/s, the torch passes' ms,
+    and the launcher's host us a call untraced (perf_counter, median of
+    200 calls), printed."""
+    import json
+    import statistics
+    import time
+
+    from dieselfluid_tpu_torch.ops import pcisph_iter as pi
+    from dieselfluid_tpu_torch.ops.sph_sweep import (density_planes,
+                                                     viscosity_force_planes)
+    from dieselfluid_tpu_torch.solvers.dense_step import (
+        external_force_planes)
+
+    params, spec, ps, delta = _dam1m(cuda, 22)
+    k = KernelCoeffs.build(params.h)
+    pl = ps.planes
+    fluid = (pl["mask"] > 0) & (ps.bnd == 0)
+    rho = density_planes(pl, spec, k, params.mass)
+    extf = external_force_planes(
+        viscosity_force_planes(pl, rho, spec, k, params.mass,
+                               float(params.mu)), params)
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    fps = [torch.where(fluid, 50.0 * torch.randn(
+        spec.plane_shape, device=cuda, generator=gen), 0.0)
+        for _ in range(3)]
+    press = torch.where(fluid, 100.0 * torch.rand(
+        spec.plane_shape, device=cuda, generator=gen), 0.0)
+    zero = [torch.zeros_like(f) for f in fps]
+    star = pi.predict(pl, fluid, extf, zero, params.mass, params.dt)
+    rho_star = density_planes(star, spec, k, params.mass)
+    out = pi.update(fluid, rho_star, press, params.d0, delta)[:2]
+    calls = {
+        "predict_fill": ((pl, fluid, extf, fps, params.mass, params.dt),
+                         pi.predict, pi.predict_plain),
+        "predict": ((pl, fluid, extf, fps, params.mass, params.dt, star),
+                    pi.predict, pi.predict_plain),
+        "update_fill": ((fluid, rho_star, press, params.d0, delta),
+                        pi.update, pi.update_plain),
+        "update": ((fluid, rho_star, out[0], params.d0, delta, out),
+                   pi.update, pi.update_plain)}
+    plane_bytes = fluid.numel() * 4
+    occ_share = float(fluid.view(-1, 128).any(-1).float().mean())
+    sector_share = float(fluid.view(-1, 8).any(-1).float().mean())
+    words = fluid.view(-1, 4).any(-1, keepdim=True).expand(-1, 4) \
+        .reshape(fluid.shape)
+    # Read in full: the fluid plane (1 byte a slot); with fill, the
+    # prediction's carried positions, and written in full: every output
+    # plane. Read or written over the 32-byte sectors that hold a fluid
+    # slot: every other plane.
+    full = {"predict_fill": 6, "predict": 0, "update_fill": 2, "update": 0}
+    over_occ = {"predict_fill": 9, "predict": 15, "update_fill": 2,
+                "update": 4}
+    report = {"device": torch.cuda.get_device_name(0),
+              "occupied_block_share": occ_share,
+              "fluid_sector_share": sector_share}
+    for name, (args, kern, plain) in calls.items():
+        held = ([t.clone() for t in out] if name == "update" else
+                [star[c].clone() for c in pi.STAR_NAMES]
+                if name == "predict" else None)
+        want = plain(*args)
+        got = kern(*args)
+        if name.startswith("update"):
+            pairs = list(zip(got[:2], want[:2]))
+            assert _same_bits(got[2], want[2]), name
+        else:
+            pairs = [(got[c], want[c]) for c in pi.STAR_NAMES]
+        if held is not None:
+            pairs = [(g, torch.where(words, w, h))
+                     for (g, w), h in zip(pairs, held)]
+        for a, b in pairs:
+            assert _same_bits(a, b), name
+        ms = {}
+        for route, fn in (("kernel", kern), ("torch", plain)):
+            fn(*args)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(20):
+                fn(*args)
+            end.record()
+            end.synchronize()
+            ms[route] = start.elapsed_time(end) / 20
+        host = []
+        for _ in range(200):
+            t0 = time.perf_counter()
+            kern(*args)
+            host.append(time.perf_counter() - t0)
+            if len(host) % 20 == 0:
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        n_bytes = (plane_bytes / 4 + full[name] * plane_bytes
+                   + over_occ[name] * sector_share * plane_bytes)
+        report[name] = {"kernel_ms": ms["kernel"], "torch_ms": ms["torch"],
+                        "bound_ms": n_bytes / 3.35e12 * 1e3,
+                        "host_us": statistics.median(host) * 1e6}
+    print("pcisph_iter 1M:", json.dumps(report))
+    assert 0.0 < sector_share < occ_share < 0.5

@@ -214,6 +214,29 @@ def test_resident_pcisph_counts_each_iteration_and_exit_test(setup, stop):
     assert _parents(ev, "pcisph.exit_test") == {"pcisph.loop": reads}
     assert _parents(ev, "sweep.pressure_pq") == {"pcisph.iter": sum(iters)}
     assert _parents(ev, "resident.rebuild") == {"resident.step": STEPS}
+    # The iteration's plane math takes the torch passes on CPU planes,
+    # counted once an iteration.
+    assert got["counters"]["pcisph_iter.plain"] == sum(iters)
+    assert "pcisph_iter.kernel" not in got["counters"]
+
+
+@pytest.mark.parametrize("loop", ["plane", "skip", "materials"])
+def test_per_step_pcisph_counts_each_iterations_route(setup, loop):
+    """dense_pcisph_step's plane loop, its column_skip loop and its plane
+    loop on traced Materials count the iteration's plane-math route once
+    an iteration: the torch passes, `pcisph_iter.plain`, on the CPU."""
+    from dieselfluid_tpu_torch.solvers import dense_step as tds
+
+    params, spec, _, delta = setup
+    s = dam_break_state(N3, params, "cpu")
+    kw = {"plane": {}, "skip": {"column_skip": True},
+          "materials": {"materials": Materials.from_params(params, "cpu")}}
+    (_, diag), got, ev = _traced(lambda: tds.dense_pcisph_step(
+        s, params, spec, delta, **kw[loop]))
+    assert diag.iters >= 1
+    assert got["counters"]["pcisph_iter.plain"] == diag.iters
+    assert "pcisph_iter.kernel" not in got["counters"]
+    assert _parents(ev, "pcisph.iter") == {"pcisph.loop": diag.iters}
 
 
 def test_slab_step_spans_the_halo(slab_setup):
