@@ -43,7 +43,7 @@ Phases, each of which raises (and so exits nonzero) on failure:
   7b. the resident epilogue kernel (plane_advance) on that state, in both
      forms: the inputs one WCSPH and one PCISPH resident step hand it,
      its planes and displacement max against the plain route's
-     (dense_resident._epilogue_plain) on the card, bit for bit; the
+     (plane_advance.advance_plain) on the card, bit for bit; the
      public call's ms, its launch alone, the plain route's ms and its
      byte bound;
   7c. the PCISPH iteration's plane-math kernels (pcisph_iter) on that
@@ -192,6 +192,7 @@ nonzero and prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -351,33 +352,23 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 def captured_launches(call) -> list:
     """The kernel launches one public call makes, as (launch function,
-    args): the call runs once with the sweeps', the rasterizer's and the
-    resident epilogue's and the PCISPH iteration's launch functions
-    wrapped (the epilogue's and the update's C calls zero their 4-byte
-    maximum, then launch)."""
-    from dieselfluid_tpu_torch.ops import pcisph_iter as pi
-    from dieselfluid_tpu_torch.ops import plane_advance as pa
-    from dieselfluid_tpu_torch.ops import sph_sweep as sw
-    from dieselfluid_tpu_torch.render import splat_tiled as st
+    args): the call runs once with the one launch function of every
+    hand-written kernel wrapped (the epilogue's and the update's C calls
+    zero their 4-byte maximum, then launch)."""
+    from dieselfluid_tpu_torch.ops import _build
 
     rec = []
-    real_sw, real_st, real_pa = sw.launch_kernel, st._launch, pa._launcher
-    real_pi = pi._launcher
+    real = _build.launch
 
-    def wrap(real):
-        def launch(*args):
-            rec.append((real, args))
-            return real(*args)
-        return launch
+    def launch(*args, **kwargs):
+        rec.append((functools.partial(real, **kwargs), args))
+        return real(*args, **kwargs)
 
-    sw.launch_kernel, st._launch = wrap(real_sw), wrap(real_st)
-    pa._launcher = lambda: wrap(real_pa())
-    pi._launcher = lambda symbol: wrap(real_pi(symbol))
+    _build.launch = launch
     try:
         call()
     finally:
-        sw.launch_kernel, st._launch = real_sw, real_st
-        pa._launcher, pi._launcher = real_pa, real_pi
+        _build.launch = real
     return rec
 
 
@@ -713,7 +704,7 @@ def time_kernels(planes, spec, params, cts, plain_ms) -> dict:
 def plane_advance_inputs(ps, params, spec, delta) -> dict:
     """form ("wcsph", "pcisph") -> the arguments one resident step of that
     solver from `ps` hands its epilogue, as plane_advance.advance and
-    dense_resident._epilogue_plain take them (the steps' results are
+    plane_advance.advance_plain take them (the steps' results are
     dropped)."""
     from dieselfluid_tpu_torch.solvers import dense_resident as tdr
 
@@ -752,7 +743,6 @@ def check_plane_advance(ps, params, spec, delta) -> dict:
     import torch
     from dieselfluid_tpu_torch.ops import _build
     from dieselfluid_tpu_torch.ops import plane_advance as pa
-    from dieselfluid_tpu_torch.solvers.dense_resident import _epilogue_plain
 
     def bits(t):
         return t.view(torch.int32)
@@ -767,7 +757,7 @@ def check_plane_advance(ps, params, spec, delta) -> dict:
     for form, args in plane_advance_inputs(ps, params, spec, delta).items():
         ext, bounds = args[3], args[6]
         got, md = pa.advance(*args)
-        want, md_want = _epilogue_plain(*args)
+        want, md_want = pa.advance_plain(*args)
         for c in pa.OUT_NAMES:
             check(torch.equal(bits(got[c]), bits(want[c])),
                   f"plane_advance {form}: plane {c} differs from the plain "
@@ -782,7 +772,7 @@ def check_plane_advance(ps, params, spec, delta) -> dict:
         out[form] = {
             "ms": cuda_ms(lambda: pa.advance(*args), reps=20, warmup=2),
             "kernel_ms": kernel_ms(lambda: pa.advance(*args)),
-            "plain_ms": cuda_ms(lambda: _epilogue_plain(*args), reps=5),
+            "plain_ms": cuda_ms(lambda: pa.advance_plain(*args), reps=5),
             "bound_ms": (13 * plane_bytes + n_occ * blocks * 128 * 4)
             / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "max_abs_err": err,
@@ -1177,29 +1167,27 @@ def run_cli(device) -> dict:
         shutil.rmtree(out, ignore_errors=True)
 
 
-def launch_counts() -> dict:
+def kernel_records() -> tuple:
+    """Every hand-written kernel's record (ops/_build.Kernel)."""
     from dieselfluid_tpu_torch.ops import pcisph_iter as pi
     from dieselfluid_tpu_torch.ops import plane_advance as pa
     from dieselfluid_tpu_torch.ops import sph_sweep as sw
     from dieselfluid_tpu_torch.render import splat_tiled as st
 
-    out = {k.name: k.launches for k in sw.SWEEPS + st.KERNELS}
+    return sw.SWEEPS + st.KERNELS + (pa.KERNEL,) + pi.KERNELS
+
+
+def launch_counts() -> dict:
+    from dieselfluid_tpu_torch.render import splat_tiled as st
+
+    out = {k.name: k.launches for k in kernel_records()}
     out.update({f"{k.name}9": k.launches9 for k in st.KERNELS})
-    out[PLANE_ADVANCE] = pa.launches
-    out.update(pi.launches)
     return out
 
 
 def reset_all_launch_counts():
-    from dieselfluid_tpu_torch.ops import pcisph_iter as pi
-    from dieselfluid_tpu_torch.ops import plane_advance as pa
-    from dieselfluid_tpu_torch.ops.sph_sweep import reset_launch_counts
-    from dieselfluid_tpu_torch.render import splat_tiled as st
-
-    reset_launch_counts()
-    st.reset_launch_counts()
-    pa.launches = 0
-    pi.launches.update(dict.fromkeys(pi.launches, 0))
+    for k in kernel_records():
+        k.reset()
 
 
 def mean_y(ps, params, spec, n) -> float:
@@ -3405,9 +3393,10 @@ def kernel_body(kern) -> str:
     import ctypes
 
     from dieselfluid_tpu_torch.ops import _build
+    from dieselfluid_tpu_torch.render import splat_tiled as st
 
     lib = _build.load_library()
-    if hasattr(kern, "symbols"):          # a rasterizer kernel
+    if isinstance(kern, st.RasterKernel):
         fn, threads = lib.dft_splat_ctas_per_sm, ctypes.c_int(0)
         fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -3417,7 +3406,7 @@ def kernel_body(kern) -> str:
         fn, smem = lib.dft_sweep_ctas_per_sm, ctypes.c_int(0)
         fn.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        per_sm = fn(kern.symbol.encode(), CAPACITY, ctypes.byref(smem))
+        per_sm = fn(kern.symbols[0].encode(), CAPACITY, ctypes.byref(smem))
         extra = f", {smem.value} B shared at cap {CAPACITY}"
     check(per_sm > 0, f"occupancy query for {kern.name} failed: {per_sm}")
     return f"{kern.body}{extra}, {per_sm} CTAs/SM"
@@ -3606,7 +3595,7 @@ def main() -> int:
     kernels.append({"name": PLANE_ADVANCE, "route": "cuda",
                     "source": pa.SOURCE,
                     "replaces": "the resident steps' epilogue torch passes "
-                                "(dense_resident._epilogue_plain)",
+                                "(plane_advance.advance_plain)",
                     "launches": sum(p.get(PLANE_ADVANCE, 0)
                                     for p in main_paths),
                     "max_abs_err": max(a["max_abs_err"]

@@ -1,4 +1,4 @@
-"""Build and load the CUDA kernels of this package (nvcc + ctypes).
+"""Build, load and launch the CUDA kernels of this package (nvcc + ctypes).
 
 The sources in `dieselfluid_tpu_torch/csrc/*.cu` have a plain C interface and
 include no PyTorch header, so `nvcc` builds them in seconds: one `nvcc -c`
@@ -10,18 +10,29 @@ renames).
 
 Nothing is built or loaded when the module is imported: `load_library()`
 runs at the first CUDA launch. A missing `nvcc` or a failed build raises.
+
+Every hand-written kernel is a `Kernel` record (the sweeps, the rasterizer,
+the resident epilogue and the PCISPH iteration's two) and every launch goes
+through `launch`: it binds a C launcher once, at its first launch, and runs
+it on the current stream inside an operator range named after the kernel
+(the profiler links a kernel only to an operator's range, not to a user
+range like the program's spans; while no profiler runs the range records
+nothing). `check_planes` is the inputs' one check.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional, Sequence, Tuple
+
+import torch
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -111,3 +122,93 @@ def load_library() -> ctypes.CDLL:
     if _lib is None:
         _lib = ctypes.CDLL(str(build()))
     return _lib
+
+
+@dataclasses.dataclass
+class Kernel:
+    """A hand-written kernel: `name` names its operator range; `symbols`
+    are its C launchers (one per form), each taking `argtypes`, then the
+    stream, and returning a cudaError; `launches` counts its CUDA launches
+    in this process, and `form_launches` each form's share of them."""
+
+    name: str
+    symbols: Tuple[str, ...]
+    argtypes: Tuple[type, ...]
+    launches: int = dataclasses.field(default=0, kw_only=True)
+    form_launches: List[int] = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        self.form_launches = [0] * len(self.symbols)
+
+    def reset(self):
+        self.launches = 0
+        self.form_launches = [0] * len(self.symbols)
+
+
+#: symbol -> its bound C function.
+_bound: dict = {}
+#: An operator's profiler range, as torch's compiled kernels take one.
+_op_range = torch._C._profiler._RecordFunctionFast
+
+
+def _function(symbol: str, argtypes: Tuple[type, ...]):
+    fn = _bound.get(symbol)
+    if fn is None:
+        fn = getattr(load_library(), symbol)
+        fn.argtypes = list(argtypes) + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _bound[symbol] = fn
+    return fn
+
+
+def launch(kernel: Kernel, device: torch.device, *args, form: int = 0):
+    """Run `kernel`'s launcher `symbols[form]` on `args` and the current
+    stream of `device` (a card), inside an operator range named after the
+    kernel, and count the launch. A nonzero cudaError raises."""
+    symbol = kernel.symbols[form]
+    fn = _function(symbol, kernel.argtypes)
+    with torch.cuda.device(device), _op_range(kernel.name):
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    if err != 0:
+        raise RuntimeError(f"{symbol} launch failed: cudaError {err}")
+    kernel.launches += 1
+    kernel.form_launches[form] += 1
+
+
+def pointers(tensors: Sequence[Optional[torch.Tensor]]) -> ctypes.Array:
+    """A C array of the tensors' addresses (None: a null pointer)."""
+    return (ctypes.c_void_p * len(tensors))(
+        *[0 if t is None else t.data_ptr() for t in tensors])
+
+
+def check_planes(planes: Sequence[torch.Tensor], shape: Tuple[int, ...],
+                 what: str, aligned: bool = False,
+                 flags: Optional[torch.Tensor] = None,
+                 dtype_error: type = TypeError) -> torch.device:
+    """The one device of `planes`, each a contiguous float32 tensor of
+    `shape` (`dtype_error` for another dtype, a ValueError for the rest);
+    `flags`, when given, a contiguous bool plane of `shape` there too.
+    `aligned`: the kernel reads four slots at a time, so each plane starts
+    on four slots' bytes (16 for float32, 4 for bool) and `shape` holds a
+    multiple of 4 slots."""
+    dev = planes[0].device
+    shape = tuple(shape)
+    typed = [(p, torch.float32) for p in planes]
+    if flags is not None:
+        typed.append((flags, torch.bool))
+    for p, dtype in typed:
+        if p.device != dev:
+            raise ValueError(f"{what} planes on {p.device} and {dev}")
+        if p.dtype != dtype:
+            raise dtype_error(f"{what} planes must be {dtype}, got "
+                              f"{p.dtype}")
+        if tuple(p.shape) != shape:
+            raise ValueError(f"{what} plane shape {tuple(p.shape)} != "
+                             f"{shape}")
+        if not p.is_contiguous():
+            raise ValueError(f"{what} planes must be contiguous")
+        if aligned and (p.data_ptr() % (4 * p.element_size())
+                        or p.numel() % 4):
+            raise ValueError(f"{what} needs planes aligned to 4 slots, of "
+                             "a multiple of 4 slots")
+    return dev

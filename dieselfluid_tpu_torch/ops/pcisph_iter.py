@@ -1,27 +1,20 @@
-"""The PCISPH correction iteration's plane math as two CUDA kernels.
+"""The PCISPH correction iteration's plane math, and its two kernels on the
+card.
 
 Between its two sweeps, an iteration of the plane-resident correction loop
-(solvers/dense_step.py) predicts the positions the density sweep reads, and
-after it updates the pressure, the prefolded pq plane the pressure sweep
-reads and the largest density error the exit test reads. On the card each
-is one launch of csrc/pcisph_iter.cu (built with the sweeps by
-ops/_build.py): `predict` runs `pcisph_predict_kernel`, `update` runs
+(solvers/dense_step.py) predicts the positions the density sweep reads
+(`predict`), and after it updates the pressure, the prefolded pq plane the
+pressure sweep reads and the largest density error the exit test reads
+(`update`). On CUDA planes each is one launch of csrc/pcisph_iter.cu
+(built with the sweeps by ops/_build.py): `pcisph_predict_kernel` and
 `pcisph_update_kernel`. Each reads the loop's bool `fluid_occ` plane in
 full and its other inputs only over the slots beside a fluid one. A loop's
 first call of each makes new outputs and writes every slot; its later calls
 take those outputs back (`star`, `out`) and write only beside a fluid slot,
-since the other slots already hold what they would get. Their planes and
-the error max equal the torch passes on the card bit for bit (the kernels'
-header says how); the torch passes, `predict_plain` and `update_plain`,
-stay the plain version, which the CPU runs.
-
-The C functions and their argument types are bound once, at their first
-launch; each launch adds one to its kernel's count in `launches`. A launch
-sits in an operator range named after its kernel (an operator's range, as
-the sweeps' autograd Function has, not a user range like the program's
-spans): while a torch profiler runs, the trace links a kernel only to an
-operator, so the kernel's device time then counts under the `pcisph.iter`
-span around it; while none runs, the range records nothing.
+since the other slots already hold what they would get. Elsewhere they are
+the torch passes `predict_plain` and `update_plain`: the plain version,
+which the kernels' planes and error max equal on the card bit for bit (the
+kernels' header says how). `prepare` readies both for one loop.
 """
 
 from __future__ import annotations
@@ -32,31 +25,19 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from dieselfluid_tpu_torch.ops import _build
+from dieselfluid_tpu_torch.utils.profiling import count
+
 SOURCE = "dieselfluid_tpu_torch/csrc/pcisph_iter.cu"
-PREDICT, UPDATE = "dft_pcisph_predict", "dft_pcisph_update"
 #: The star planes `predict` writes, in its output order.
 STAR_NAMES = ("x", "y", "z")
 
-#: CUDA launches of each kernel in this process, by its operator range.
-launches = {"pcisph_predict": 0, "pcisph_update": 0}
+_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int)
+PREDICT = _build.Kernel("pcisph_predict", ("dft_pcisph_predict",), _ARGS)
+UPDATE = _build.Kernel("pcisph_update", ("dft_pcisph_update",), _ARGS)
+KERNELS = (PREDICT, UPDATE)
 
-_fns: dict = {}
 _F32 = torch.float32
-#: An operator's profiler range, as torch's compiled kernels take one.
-_op_range = torch._C._profiler._RecordFunctionFast
-
-
-def _launcher(symbol: str):
-    fn = _fns.get(symbol)
-    if fn is None:
-        from dieselfluid_tpu_torch.ops._build import load_library
-
-        fn = getattr(load_library(), symbol)
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fns[symbol] = fn
-    return fn
 
 
 def predict_constants(mass: float, dt: float) -> ctypes.Array:
@@ -72,50 +53,18 @@ def update_constants(d0: float, delta: float) -> ctypes.Array:
     return (ctypes.c_float * 3)(d0, delta, 0.5 * d0)
 
 
-def _checked(fluid_occ: torch.Tensor, planes: Sequence[torch.Tensor],
-             outs: Sequence[int], name: str) -> list:
-    """The launch's pointers: `fluid_occ` a contiguous bool plane on one
-    card, `planes` contiguous float32 planes of its size on that card, all
-    16-byte aligned (the bool plane 4-byte) and of a multiple of 4 slots;
-    `outs` pointers appended as they are."""
-    n, idx = fluid_occ.numel(), fluid_occ.get_device()
-    if fluid_occ.dtype is not torch.bool or not fluid_occ.is_contiguous() \
-            or idx < 0:
-        raise ValueError(f"{name} needs a contiguous bool fluid plane on a "
-                         "card")
-    for p in planes:
-        if p.dtype is not _F32 or p.numel() != n or not p.is_contiguous() \
-                or p.get_device() != idx:
-            raise ValueError(f"{name} needs contiguous float32 planes of {n} "
-                             "slots on one card")
-    ptrs = [p.data_ptr() for p in planes] + list(outs)
-    if any(p & 15 for p in ptrs) or fluid_occ.data_ptr() & 3 or n & 3:
-        raise ValueError(f"{name} needs 16-byte aligned planes of a multiple "
-                         "of 4 slots")
-    return [fluid_occ.data_ptr()] + ptrs
-
-
-def _launch(symbol: str, kernel: str, fluid_occ: torch.Tensor, ptrs: list,
-            consts: ctypes.Array, fill: bool) -> None:
-    dev = fluid_occ.device
-    with torch.cuda.device(dev), _op_range(kernel):
-        err = _launcher(symbol)((ctypes.c_void_p * len(ptrs))(*ptrs), consts,
-                                fluid_occ.numel(), fill,
-                                torch._C._cuda_getCurrentRawStream(dev.index))
-    if err != 0:
-        raise RuntimeError(f"{symbol} launch failed: cudaError {err}")
-    launches[kernel] += 1
-
-
 def predict(planes: Dict[str, torch.Tensor], fluid_occ: torch.Tensor,
             extf: Sequence[torch.Tensor], fps: Sequence[torch.Tensor],
             mass: float, dt: float,
             star: Optional[Dict[str, torch.Tensor]] = None
             ) -> Dict[str, torch.Tensor]:
-    """One launch of the prediction on CUDA planes: the star planes x y z
-    with `planes`' mask. `star` None: new planes (views of one
+    """The prediction: the star planes x y z with `planes`' mask. On CUDA
+    planes one launch of its kernel; `star` None: new planes (views of one
     allocation), every slot written; else the star planes an earlier call
-    of this loop returned, written again beside the fluid slots only."""
+    of this loop returned, written again beside the fluid slots only.
+    Elsewhere `predict_plain`."""
+    if not fluid_occ.is_cuda:
+        return predict_plain(planes, fluid_occ, extf, fps, mass, dt, star)
     ins = [planes[c] for c in ("x", "y", "z", "vx", "vy", "vz")]
     ins += list(extf) + list(fps)
     if star is None:
@@ -124,9 +73,12 @@ def predict(planes: Dict[str, torch.Tensor], fluid_occ: torch.Tensor,
                            dtype=_F32, device=fluid_occ.device).split(rows)
     else:
         outs = [star[c] for c in STAR_NAMES]
-    ptrs = _checked(fluid_occ, ins + list(outs), [], "pcisph_predict")
-    _launch(PREDICT, "pcisph_predict", fluid_occ, ptrs,
-            predict_constants(mass, dt), star is None)
+    dev = _build.check_planes(ins + list(outs), fluid_occ.shape,
+                              PREDICT.name, aligned=True, flags=fluid_occ,
+                              dtype_error=ValueError)
+    _build.launch(PREDICT, dev, _build.pointers([fluid_occ, *ins, *outs]),
+                  predict_constants(mass, dt), fluid_occ.numel(),
+                  star is None)
     return dict(zip(STAR_NAMES, outs), mask=planes["mask"])
 
 
@@ -134,21 +86,26 @@ def update(fluid_occ: torch.Tensor, rho_star: torch.Tensor,
            press: torch.Tensor, d0: float, delta: float,
            out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One launch of the update on CUDA planes: (the new pressure plane,
-    the pq plane, the largest density error over the plane, a 0-d tensor).
-    `out` None: new planes, allocations of their own (the pressure
-    outlives the loop, pq does not), every slot written; else the two
-    planes an earlier call of this loop returned, written again beside the
-    fluid slots only (`press` may be the first of them)."""
+    """The update: (the new pressure plane, the pq plane, the largest
+    density error over the plane, a 0-d tensor). On CUDA planes one launch
+    of its kernel; `out` None: new planes, allocations of their own (the
+    pressure outlives the loop, pq does not), every slot written; else the
+    two planes an earlier call of this loop returned, written again beside
+    the fluid slots only (`press` may be the first of them). Elsewhere
+    `update_plain`."""
+    if not fluid_occ.is_cuda:
+        return update_plain(fluid_occ, rho_star, press, d0, delta, out)
     fill = out is None
     if fill:
         out = tuple(torch.empty(fluid_occ.shape, dtype=_F32,
                                 device=fluid_occ.device) for _ in range(2))
-    max_err = torch.empty((), dtype=_F32, device=fluid_occ.device)
-    ptrs = _checked(fluid_occ, [rho_star, press, *out],
-                    [max_err.data_ptr()], "pcisph_update")
-    _launch(UPDATE, "pcisph_update", fluid_occ, ptrs,
-            update_constants(d0, delta), fill)
+    dev = _build.check_planes([rho_star, press, *out], fluid_occ.shape,
+                              UPDATE.name, aligned=True, flags=fluid_occ,
+                              dtype_error=ValueError)
+    max_err = torch.empty((), dtype=_F32, device=dev)
+    _build.launch(UPDATE, dev, _build.pointers([fluid_occ, rho_star, press,
+                                                *out, max_err]),
+                  update_constants(d0, delta), fluid_occ.numel(), fill)
     return out[0], out[1], max_err
 
 
@@ -186,6 +143,32 @@ def forward_only(predict_fn, update_fn, grad_from: Sequence[torch.Tensor]):
         return press, pq, max_err
 
     return predict_tied, update_tied
+
+
+def prepare(fluid_occ: torch.Tensor, mass, d0,
+            grad_from: Sequence[torch.Tensor]):
+    """(predict, update, mass, d0) for one correction loop on `fluid_occ`'s
+    planes. On CUDA planes the kernels take the mass and d0 as Python
+    numbers, so 0-d tensors (traced Materials) are read here, once a loop
+    (`host_sync.pcisph.materials`); where one of them or a tensor of
+    `grad_from` (the loop's inputs) requires grad, the outputs are tied to
+    it by a node whose backward raises (`forward_only`). Elsewhere `predict`
+    and `update` with them as given."""
+    if not fluid_occ.is_cuda:
+        return predict, update, mass, d0
+    predict_fn, update_fn = predict, update
+    if torch.is_grad_enabled():
+        tracked = [t for t in (mass, d0, *grad_from)
+                   if torch.is_tensor(t) and t.requires_grad]
+        if tracked:
+            predict_fn, update_fn = forward_only(predict_fn, update_fn,
+                                                 tracked)
+    if torch.is_tensor(mass) or torch.is_tensor(d0):
+        count("host_sync.pcisph.materials")
+        mass, d0 = torch.stack([
+            torch.as_tensor(v, dtype=torch.float32, device=fluid_occ.device)
+            for v in (mass, d0)]).tolist()
+    return predict_fn, update_fn, mass, d0
 
 
 def predict_plain(planes, fluid_occ, extf, fps, mass, dt, star=None):

@@ -1,62 +1,38 @@
-"""The plane-resident step's epilogue as one CUDA kernel.
+"""The plane-resident step's epilogue, and its kernel on the card.
 
 After its force sweeps, a resident step (solvers/dense_resident.py) turns
 forces into accelerations, integrates, collides with the box walls and
-measures each fluid slot's displacement since the last rebuild. On the
-card that is one launch of `plane_advance_kernel` in
+measures each fluid slot's displacement since the last rebuild: `advance`.
+On CUDA planes that is one launch of `plane_advance_kernel` in
 csrc/plane_advance.cu (built with the sweeps by ops/_build.py): it reads
 the mask in full, the rest of its inputs only over occupied slots, and
-copies the carried planes through everywhere else. Its planes and the
-displacement max equal the solver's torch route on the card bit for bit
-(the kernel's header says how); the torch route stays the plain version,
-which the CPU runs.
-
-`advance` launches it. The C function and its argument types are bound
-once, at the first launch; each launch adds one to `launches`. The launch
-sits in an operator range named `plane_advance` (an operator's range, as
-the sweeps' autograd Function has, not a user range like the program's
-spans): while a torch profiler runs, the trace links a kernel only to an
-operator, so the kernel's device time then counts under the spans around
-it; while none runs, the range records nothing.
+copies the carried planes through everywhere else. Elsewhere it is
+`advance_plain`, the torch passes: the plain version, which the kernel's
+planes and displacement max equal on the card bit for bit (the kernel's
+header says how).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from dieselfluid_tpu_torch.config import FluidParams
+from dieselfluid_tpu_torch.ops import _build
 
 SOURCE = "dieselfluid_tpu_torch/csrc/plane_advance.cu"
-SYMBOL = "dft_plane_advance"
 #: The carried planes the kernel writes, in its output order.
 OUT_NAMES = ("x", "y", "z", "vx", "vy", "vz")
 
-#: CUDA launches of the kernel in this process.
-launches = 0
+KERNEL = _build.Kernel("plane_advance", ("dft_plane_advance",),
+                       (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                        ctypes.c_int, ctypes.c_int))
 
-_fn = None
 _F32 = torch.float32
-_Pointers = ctypes.c_void_p * 24
 _Constants = ctypes.c_float * 13
-#: An operator's profiler range, as torch's compiled kernels take one.
-_op_range = torch._C._profiler._RecordFunctionFast
-
-
-def _launcher():
-    global _fn
-    if _fn is None:
-        from dieselfluid_tpu_torch.ops._build import load_library
-
-        fn = getattr(load_library(), SYMBOL)
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
 
 
 def _constants(params: FluidParams, bounds, restitution: float,
@@ -74,49 +50,85 @@ def advance(planes: Dict[str, torch.Tensor], bnd: torch.Tensor,
             forces: Sequence[torch.Tensor],
             ext: Optional[Sequence[torch.Tensor]],
             ref: Sequence[torch.Tensor], params: FluidParams,
-            bounds: Optional[Tuple], restitution: float, friction: float
+            bounds: Optional[Tuple], restitution: float, friction: float,
+            integrate: Optional[Callable] = None
             ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-    """One launch of the epilogue on CUDA planes: (the new x y z vx vy vz
-    planes with `planes`' mask, the largest displacement of a fluid slot
-    from `ref`, a 0-d tensor). The accelerations are forces / mass +
-    gravity, or (ext + forces) / mass when `ext` is given (PCISPH's
-    external forces); `bounds` None leaves the walls out. Every plane is a
-    contiguous float32 tensor of the mask's size on one card; the six new
-    planes are views of one allocation."""
-    global launches
+    """The epilogue: (the new x y z vx vy vz planes with `planes`' mask, the
+    largest displacement of a fluid slot from `ref`, a 0-d tensor). The
+    accelerations are forces / mass + gravity, or (ext + forces) / mass
+    when `ext` is given (PCISPH's external forces); `bounds` None leaves
+    the walls out. On CUDA planes one launch of the kernel, whose planes
+    must be contiguous float32 of the mask's shape on one card (the six
+    new planes are views of one allocation); elsewhere `advance_plain`,
+    with `integrate` in place of its integration and wall collision when
+    given."""
     mask = planes["mask"]
+    if not mask.is_cuda:
+        return advance_plain(planes, bnd, forces, ext, ref, params, bounds,
+                             restitution, friction, integrate)
     ins = [mask, bnd] + [planes[c] for c in OUT_NAMES] + list(forces) \
-        + (list(ext) if ext is not None else []) + list(ref)
-    dev = mask.device
-    idx = dev.index
-    n = mask.numel()
-    for p in ins:
-        if p.dtype is not _F32 or p.numel() != n or not p.is_contiguous() \
-                or p.get_device() != idx:
-            raise ValueError("plane_advance needs contiguous float32 planes "
-                             f"of {n} slots on one card")
+        + (list(ext) if ext is not None else [None] * 3) + list(ref)
+    dev = _build.check_planes([p for p in ins if p is not None], mask.shape,
+                              "plane_advance", aligned=True,
+                              dtype_error=ValueError)
     # One allocation for the six output planes, stacked.
     rows = mask.shape[0]
     outs = torch.empty((6 * rows,) + tuple(mask.shape[1:]), dtype=_F32,
                        device=dev).split(rows)
     max_disp = torch.empty((), dtype=_F32, device=dev)
-    ptrs = [p.data_ptr() for p in ins]
-    if ext is None:
-        ptrs[11:11] = [0, 0, 0]
-    base = outs[0].data_ptr()
-    ptrs += [base + 4 * n * k for k in range(6)]
-    ptrs.append(max_disp.data_ptr())
-    if any(p & 15 for p in ptrs) or n & 3:
-        raise ValueError("plane_advance needs 16-byte aligned planes of a "
-                         "multiple of 4 slots")
-    with torch.cuda.device(dev), _op_range("plane_advance"):
-        err = _launcher()(_Pointers(*ptrs),
-                          _constants(params, bounds, restitution, friction),
-                          n, ext is not None, bounds is not None,
-                          torch._C._cuda_getCurrentRawStream(idx))
-    if err != 0:
-        raise RuntimeError(f"{SYMBOL} launch failed: cudaError {err}")
-    launches += 1
+    _build.launch(KERNEL, dev, _build.pointers(ins + list(outs) + [max_disp]),
+                  _constants(params, bounds, restitution, friction),
+                  mask.numel(), ext is not None, bounds is not None)
     x, y, z, vx, vy, vz = outs
     return ({"x": x, "y": y, "z": z, "vx": vx, "vy": vy, "vz": vz,
              "mask": mask}, max_disp)
+
+
+def _integrate_collide(planes, fluid_occ, accels, params: FluidParams,
+                       bounds, restitution, friction):
+    """Semi-implicit Euler + wall collision in plane form; fluid slots only
+    (boundary and empty slots keep their values)."""
+    dt = params.dt
+    new_pos, new_vel, hits = [], [], []
+    for ax, (xn, vn) in enumerate((("x", "vx"), ("y", "vy"), ("z", "vz"))):
+        v = planes[vn] + accels[ax] * dt
+        x = planes[xn] + v * dt
+        if bounds is not None:
+            lo, hi = bounds[0][ax], bounds[1][ax]
+            hit = (x < lo) | (x > hi)
+            x = torch.clamp(x, lo, hi)
+            v = torch.where(hit, -restitution * v, v)
+            hits.append(hit)
+        new_pos.append(x)
+        new_vel.append(v)
+    if bounds is not None:
+        any_hit = hits[0] | hits[1] | hits[2]
+        for ax in range(3):
+            new_vel[ax] = torch.where(any_hit & ~hits[ax],
+                                      (1.0 - friction) * new_vel[ax],
+                                      new_vel[ax])
+    out = {}
+    for ax, (xn, vn) in enumerate((("x", "vx"), ("y", "vy"), ("z", "vz"))):
+        out[xn] = torch.where(fluid_occ, new_pos[ax], planes[xn])
+        out[vn] = torch.where(fluid_occ, new_vel[ax], planes[vn])
+    out["mask"] = planes["mask"]
+    return out
+
+
+def advance_plain(planes, bnd, forces, ext, ref, params: FluidParams,
+                  bounds, restitution, friction,
+                  integrate: Optional[Callable] = None):
+    """The epilogue as torch passes, on any device: `advance`'s result.
+    `integrate`, when given, takes `_integrate_collide`'s place."""
+    fluid_occ = (planes["mask"] > 0) & (bnd == 0)
+    if ext is None:
+        accels = [f / params.mass + g for f, g in zip(forces, params.gravity)]
+    else:
+        accels = [(e + f) / params.mass for e, f in zip(ext, forces)]
+    new_planes = (integrate or _integrate_collide)(
+        planes, fluid_occ, accels, params, bounds, restitution, friction)
+    disp = torch.maximum(torch.maximum(
+        torch.abs(new_planes["x"] - ref[0]),
+        torch.abs(new_planes["y"] - ref[1])),
+        torch.abs(new_planes["z"] - ref[2]))
+    return new_planes, torch.max(torch.where(fluid_occ, disp, 0.0))

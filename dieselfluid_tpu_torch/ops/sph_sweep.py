@@ -98,6 +98,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from dieselfluid_tpu_torch.ops import _build
 from dieselfluid_tpu_torch.ops.cellops import DenseCellSpec
 from dieselfluid_tpu_torch.ops.smoothing import KernelCoeffs
 from dieselfluid_tpu_torch.utils.profiling import span
@@ -358,26 +359,32 @@ def _fold_force(ins: Planes, with_iv: bool) -> Planes:
 
 
 @dataclasses.dataclass
-class Sweep:
-    """One instantiation of the stencil sweep: its input channels, its C
-    launcher, the kernel body it runs, and its launch count (CUDA launches
-    only). A `gated` sweep takes the int32 activity grid as well (K10).
-    Its last constant is the scale the kernel's epilogue applies; its
-    outputs are final (0 wherever the mask is not > 0, the scale applied),
-    so nothing is applied around the kernel, and it reads no input at a
-    slot whose mask is not > 0. `fold`, when given, builds the pair's
-    channels from the input planes for the plain version; the kernel folds
-    as it stages."""
+class Sweep(_build.Kernel):
+    """One instantiation of the stencil sweep: a kernel record
+    (ops/_build.py) with its input channels and the kernel body it runs. A
+    `gated` sweep takes the int32 activity grid as well (K10). Its last
+    constant is the scale the kernel's epilogue applies; its outputs are
+    final (0 wherever the mask is not > 0, the scale applied), so nothing
+    is applied around the kernel, and it reads no input at a slot whose
+    mask is not > 0. `fold`, when given, builds the pair's channels from
+    the input planes for the plain version; the kernel folds as it
+    stages."""
 
-    name: str
-    symbol: str
     in_names: Tuple[str, ...]
     n_out: int
     replaces: str
     body: str
     gated: bool = False
     fold: Optional[Callable[[Planes], Planes]] = None
-    launches: int = 0
+
+
+def _args(n_consts: int, gated: bool = False) -> tuple:
+    """A sweep launcher's argument types: the input and output pointer
+    arrays, nx ny sub capacity, its float constants, the activity grid
+    when gated, the work counter."""
+    return ((ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 4
+            + (ctypes.c_float,) * n_consts
+            + (ctypes.c_void_p,) * (2 if gated else 1))
 
 
 _PALLAS = "dieselfluid_tpu/ops/pallas_sph.py"
@@ -393,49 +400,54 @@ def _body(pair: str, stage: str = "", gated: bool = False) -> str:
 
 _FORCE_P_BODY = _body("ForceFoldPair<false>", "ForceFold<false>")
 
-DENSITY = Sweep("density", "dft_density_sweep", ("x", "y", "z", "mask"), 1,
+DENSITY = Sweep("density", ("dft_density_sweep",), _args(3),
+                ("x", "y", "z", "mask"), 1,
                 f"{_PALLAS}:473", _body("DensityPair"))
-FORCE = Sweep("force", "dft_force_sweep",
+FORCE = Sweep("force", ("dft_force_sweep",), _args(7),
               ("x", "y", "z", "vx", "vy", "vz", "mask", "rho", "press"), 3,
               f"{_PALLAS}:593", _body("ForceFoldPair<true>", "ForceFold<true>"),
               fold=functools.partial(_fold_force, with_iv=True))
-FORCE_P = Sweep("force_p", "dft_force_p_sweep",
+FORCE_P = Sweep("force_p", ("dft_force_p_sweep",), _args(5),
                 ("x", "y", "z", "mask", "rho", "press"), 3, f"{_PALLAS}:593",
                 _FORCE_P_BODY,
                 fold=functools.partial(_fold_force, with_iv=False))
-VISC = Sweep("viscosity", "dft_visc_sweep",
+VISC = Sweep("viscosity", ("dft_visc_sweep",), _args(4),
              ("x", "y", "z", "vx", "vy", "vz", "mask", "rho"), 3,
              f"{_PALLAS}:752", _body("ViscPair"))
-PRESS_PQ = Sweep("pressure_pq", "dft_press_pq_sweep",
+PRESS_PQ = Sweep("pressure_pq", ("dft_press_pq_sweep",), _args(4),
                  ("x", "y", "z", "mask", "pq"), 3, f"{_PALLAS}:825",
                  _body("PressPqPair"))
-PRESS = Sweep("pressure", "dft_press_sweep",
+PRESS = Sweep("pressure", ("dft_press_sweep",), _args(4),
               ("x", "y", "z", "mask", "rho", "press"), 3, f"{_PALLAS}:684",
               _FORCE_P_BODY)
-DENSITY_BWD = Sweep("density_bwd", "dft_density_bwd_sweep",
+DENSITY_BWD = Sweep("density_bwd", ("dft_density_bwd_sweep",), _args(3),
                     DENSITY.in_names + ("ct_0",), 3, f"{_PALLAS}:484",
                     _body("DensityBwdPair"))
-PRESS_BWD = Sweep("pressure_bwd", "dft_press_bwd_sweep",
+PRESS_BWD = Sweep("pressure_bwd", ("dft_press_bwd_sweep",), _args(4),
                   PRESS.in_names + _CT3, 5, f"{_PALLAS}:699",
                   _body("PressBwdFoldPair", "PressBwdFold"))
-VISC_BWD = Sweep("viscosity_bwd", "dft_visc_bwd_sweep",
+VISC_BWD = Sweep("viscosity_bwd", ("dft_visc_bwd_sweep",), _args(4),
                  VISC.in_names + _CT3, 7, f"{_PALLAS}:765",
                  _body("ViscBwdFoldPair", "ViscBwdFold"))
-FORCE_BWD = Sweep("force_bwd", "dft_force_bwd_sweep",
+FORCE_BWD = Sweep("force_bwd", ("dft_force_bwd_sweep",), _args(7),
                   FORCE.in_names + _CT3, 8, f"{_PALLAS}:624",
                   _body("ForceBwdFoldPair<true>", "ForceBwdFold"))
-FORCE_P_BWD = Sweep("force_p_bwd", "dft_force_p_bwd_sweep",
+FORCE_P_BWD = Sweep("force_p_bwd", ("dft_force_p_bwd_sweep",), _args(5),
                     PRESS.in_names + _CT3, 5, f"{_PALLAS}:624",
                     _body("ForceBwdFoldPair<false>", "PressBwdFold"))
 # K10: the gated forms (the gate is `_sweep`'s `active=`, :216-251).
-DENSITY_ACTIVE = Sweep("density_active", "dft_density_active_sweep",
+DENSITY_ACTIVE = Sweep("density_active", ("dft_density_active_sweep",),
+                       _args(3, gated=True),
                        DENSITY.in_names, 1, f"{_PALLAS}:855",
                        _body("DensityPair", gated=True), gated=True)
-PRESS_ACTIVE = Sweep("pressure_active", "dft_press_active_sweep",
+PRESS_ACTIVE = Sweep("pressure_active", ("dft_press_active_sweep",),
+                     _args(4, gated=True),
                      PRESS.in_names, 3, f"{_PALLAS}:862",
                      _body("ForceFoldPair<false>", "ForceFold<false>", True),
                      gated=True)
-PRESS_PQ_ACTIVE = Sweep("pressure_pq_active", "dft_press_pq_active_sweep",
+PRESS_PQ_ACTIVE = Sweep("pressure_pq_active",
+                        ("dft_press_pq_active_sweep",),
+                        _args(4, gated=True),
                         PRESS_PQ.in_names, 3, f"{_PALLAS}:825",
                         _body("PressPqPair", gated=True), gated=True)
 
@@ -448,7 +460,7 @@ SWEEPS = (DENSITY, FORCE, FORCE_P, VISC, PRESS_PQ, PRESS, DENSITY_BWD,
 
 def reset_launch_counts():
     for s in SWEEPS:
-        s.launches = 0
+        s.reset()
 
 
 def _sweep_plain(pair: Callable, ins: Planes, n_out: int,
@@ -531,60 +543,22 @@ def _check_active(active: torch.Tensor, spec: DenseCellSpec, device):
         raise ValueError("activity grid must be contiguous")
 
 
-def _check_planes(ins: Sequence[torch.Tensor], spec: DenseCellSpec):
-    dev = ins[0].device
-    for p in ins:
-        if p.device != dev:
-            raise ValueError(f"sweep inputs on {p.device} and {dev}")
-        if p.dtype != torch.float32:
-            raise TypeError(f"sweep planes must be float32, got {p.dtype}")
-        if tuple(p.shape) != spec.plane_shape:
-            raise ValueError(f"plane shape {tuple(p.shape)} != "
-                             f"{spec.plane_shape}")
-        if not p.is_contiguous():
-            raise ValueError("sweep planes must be contiguous")
-
-
-def launch_kernel(sweep: Sweep, ins: Sequence[torch.Tensor],
-                  outs: Sequence[torch.Tensor], spec: DenseCellSpec,
-                  consts: Sequence[float],
-                  active: Optional[torch.Tensor], work: torch.Tensor):
-    """Launch `sweep`'s kernel on checked CUDA input planes (in its channel
-    order) into the zero-filled output planes `outs`, on the current
-    stream, with `work`, its launch's counter (two int32 words, zero, left
-    zero by the kernel), and count the launch. _sweep_cuda's launch;
-    chip_smoke.py times it alone."""
-    from dieselfluid_tpu_torch.ops._build import load_library
-
-    if spec.nx * spec.ny >= 2 ** 31 or spec.sub - 2 > 65535:
-        raise ValueError(f"domain too large for the sweep grid: {spec}")
-    ptrs = ([active.data_ptr()] if sweep.gated else []) + [work.data_ptr()]
-    fn = getattr(load_library(), sweep.symbol)
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-                   + [ctypes.c_float] * len(consts)
-                   + [ctypes.c_void_p] * (len(ptrs) + 1))
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(ins[0].device):
-        in_ptrs = (ctypes.c_void_p * len(ins))(*[p.data_ptr() for p in ins])
-        out_ptrs = (ctypes.c_void_p * len(outs))(
-            *[o.data_ptr() for o in outs])
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(in_ptrs, out_ptrs, spec.nx, spec.ny, spec.sub,
-                 spec.capacity, *consts, *ptrs, stream)
-    if err != 0:
-        raise RuntimeError(f"{sweep.symbol} launch failed: cudaError {err}")
-    sweep.launches += 1
-
-
 def _sweep_cuda(sweep: Sweep, ins: Sequence[torch.Tensor],
                 spec: DenseCellSpec, consts: Sequence[float],
                 active: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+    """One launch of `sweep`'s kernel on checked CUDA input planes (in its
+    channel order) into zero-filled output planes, with a zeroed two-word
+    work counter of its own (the kernel leaves it zero)."""
+    if spec.nx * spec.ny >= 2 ** 31 or spec.sub - 2 > 65535:
+        raise ValueError(f"domain too large for the sweep grid: {spec}")
     dev = ins[0].device
-    with torch.cuda.device(dev):
-        outs = [torch.zeros(spec.plane_shape, dtype=torch.float32,
-                            device=dev) for _ in range(sweep.n_out)]
-        work = torch.zeros(2, dtype=torch.int32, device=dev)
-    launch_kernel(sweep, ins, outs, spec, consts, active, work)
+    outs = [torch.zeros(spec.plane_shape, dtype=torch.float32, device=dev)
+            for _ in range(sweep.n_out)]
+    work = torch.zeros(2, dtype=torch.int32, device=dev)
+    gate = [active.data_ptr()] if sweep.gated else []
+    _build.launch(sweep, dev, _build.pointers(ins), _build.pointers(outs),
+                  spec.nx, spec.ny, spec.sub, spec.capacity, *consts, *gate,
+                  work.data_ptr())
     return outs
 
 
@@ -600,7 +574,7 @@ def _run_plain(sweep: Sweep, pair: Callable, ins: Planes,
     kernel reads none at an empty slot, the plain adjoint pair reads a
     candidate's whatever its mask)."""
     arrs = [ins[n] for n in sweep.in_names]
-    _check_planes(arrs, spec)
+    _build.check_planes(arrs, spec.plane_shape, "sweep")
     named = {n: _mask_where(ins["mask"], v) if n.startswith("ct_") else v
              for n, v in zip(sweep.in_names, arrs)}
     if sweep.fold is not None:
@@ -627,7 +601,7 @@ def _run(sweep: Sweep, pair: Callable, ins: Planes, spec: DenseCellSpec,
         if dev.type == "cpu":
             return _run_plain(sweep, pair, ins, spec, consts, active)
         arrs = [ins[n] for n in sweep.in_names]
-        _check_planes(arrs, spec)
+        _build.check_planes(arrs, spec.plane_shape, "sweep")
         if dev.type != "cuda":
             raise ValueError(f"no sweep kernel for device {dev}")
         if sweep.gated:

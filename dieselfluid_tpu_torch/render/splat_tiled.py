@@ -56,6 +56,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from dieselfluid_tpu_torch.ops import _build
 from dieselfluid_tpu_torch.render.camera import Camera
 from dieselfluid_tpu_torch.render.sh import eval_sh9, project_sh9
 from dieselfluid_tpu_torch.render.splat import (
@@ -134,25 +135,28 @@ class TileSpec:
 
 
 @dataclasses.dataclass
-class RasterKernel:
-    """One rasterizer kernel: its C launchers (6 and 9 outputs), the kernel
-    body they run, and its launch count (CUDA launches only), with the
-    9-output (env-lit) form's share of it."""
+class RasterKernel(_build.Kernel):
+    """One rasterizer kernel: a kernel record (ops/_build.py) whose two
+    forms are its 6- and 9-output launchers, the kernel body they run, and
+    the 9-output (env-lit) form's share of its launches."""
 
-    name: str
-    symbols: Tuple[str, str]
     replaces: str
     body: str
-    launches: int = 0
-    launches9: int = 0
+
+    @property
+    def launches9(self) -> int:
+        return self.form_launches[1]
 
 
+#: in, out, n_tiles, k, half, sharpness, falloff.
+_ARGS = ((ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 3
+         + (ctypes.c_float,) * 2)
 SPLAT_FWD = RasterKernel("splat_fwd", ("dft_splat_fwd6", "dft_splat_fwd9"),
-                         f"{_PALLAS}:348",
+                         _ARGS, f"{_PALLAS}:348",
                          "splat_fwd_kernel<kNormals>: tiles split by pixel "
                          "column, per-warp slot lists")
 SPLAT_BWD = RasterKernel("splat_bwd", ("dft_splat_bwd6", "dft_splat_bwd9"),
-                         f"{_PALLAS}:372",
+                         _ARGS, f"{_PALLAS}:372",
                          "splat_bwd_kernel<kNormals>: a CTA per 128-slot "
                          "chunk, zeros past the occupied prefix, slots "
                          "ranked onto lanes by box size")
@@ -161,8 +165,7 @@ KERNELS = (SPLAT_FWD, SPLAT_BWD)
 
 def reset_launch_counts():
     for kern in KERNELS:
-        kern.launches = 0
-        kern.launches9 = 0
+        kern.reset()
 
 
 # ---------------------------------------------------------------------------
@@ -334,19 +337,9 @@ def _splat_pair_bwd(u, v, z, r, px_c, py_c, cts: Sequence[torch.Tensor],
 # ---------------------------------------------------------------------------
 
 
-def _check_planes(planes: Planes, spec: TileSpec):
-    dev = planes["r"].device
-    for n in CHANNELS:
-        p = planes[n]
-        if p.device != dev:
-            raise ValueError(f"slot planes on {p.device} and {dev}")
-        if p.dtype != torch.float32:
-            raise TypeError(f"slot planes must be float32, got {p.dtype}")
-        if tuple(p.shape) != spec.plane_shape:
-            raise ValueError(f"slot plane shape {tuple(p.shape)} != "
-                             f"{spec.plane_shape}")
-        if not p.is_contiguous():
-            raise ValueError("slot planes must be contiguous")
+def _check_planes(planes: Planes, spec: TileSpec) -> torch.device:
+    return _build.check_planes([planes[n] for n in CHANNELS],
+                               spec.plane_shape, "slot")
 
 
 def _box_pairs(planes: Planes, slots: torch.Tensor, spec: TileSpec):
@@ -438,31 +431,8 @@ def _raster_bwd_plain(planes: Planes, cts: Sequence[torch.Tensor],
 # ---------------------------------------------------------------------------
 
 
-def _launch(kern: RasterKernel, emit_normals: bool,
-            ins: Sequence[torch.Tensor], outs: Sequence[torch.Tensor],
-            spec: TileSpec, sharpness: float, depth_falloff: float):
-    from dieselfluid_tpu_torch.ops._build import load_library
-
-    fn = getattr(load_library(), kern.symbols[1 if emit_normals else 0])
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
-                   + [ctypes.c_float] * 2 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(ins[0].device):
-        in_ptrs = (ctypes.c_void_p * len(ins))(*[p.data_ptr() for p in ins])
-        out_ptrs = (ctypes.c_void_p * len(outs))(
-            *[o.data_ptr() for o in outs])
-        err = fn(in_ptrs, out_ptrs, spec.n_tiles, spec.k, spec.patch // 2,
-                 sharpness, depth_falloff,
-                 torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{kern.symbols} launch failed: cudaError {err}")
-    kern.launches += 1
-    kern.launches9 += int(emit_normals)
-
-
 def _device_of(planes: Planes, spec: TileSpec) -> torch.device:
-    _check_planes(planes, spec)
-    dev = planes["r"].device
+    dev = _check_planes(planes, spec)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"no rasterizer kernel for device {dev}")
     return dev
@@ -482,8 +452,11 @@ def rasterize_fwd(planes: Planes, spec: TileSpec, sharpness: float,
         outs = [torch.empty(spec.tile_shape, dtype=torch.float32,
                             device=dev)
                 for _ in range(9 if emit_normals else 6)]
-        _launch(SPLAT_FWD, emit_normals, [planes[n] for n in CHANNELS],
-                outs, spec, sharpness, depth_falloff)
+        _build.launch(SPLAT_FWD, dev,
+                      _build.pointers([planes[n] for n in CHANNELS]),
+                      _build.pointers(outs), spec.n_tiles, spec.k,
+                      spec.patch // 2, sharpness, depth_falloff,
+                      form=int(emit_normals))
         return outs
 
 
@@ -495,19 +468,21 @@ def rasterize_bwd(planes: Planes, cts: Sequence[torch.Tensor],
     `sweep.splat_bwd` a call."""
     with span("sweep." + SPLAT_BWD.name):
         dev = _device_of(planes, spec)
-        for c in cts:
-            if c.device != dev or tuple(c.shape) != spec.tile_shape \
-                    or c.dtype != torch.float32 or not c.is_contiguous():
-                raise ValueError("rasterizer cotangents must be contiguous "
-                                 f"float32 {spec.tile_shape} on {dev}")
+        if _build.check_planes(cts, spec.tile_shape, "cotangent",
+                               dtype_error=ValueError) != dev:
+            raise ValueError(f"rasterizer cotangents must be on {dev}")
         if dev.type == "cpu":
             return _raster_bwd_plain(planes, cts, spec, sharpness,
                                      depth_falloff, emit_normals)
         outs = [torch.empty(spec.plane_shape, dtype=torch.float32,
                             device=dev)
                 for _ in CHANNELS]
-        _launch(SPLAT_BWD, emit_normals, [planes[n] for n in CHANNELS]
-                + list(cts), outs, spec, sharpness, depth_falloff)
+        _build.launch(SPLAT_BWD, dev,
+                      _build.pointers([planes[n] for n in CHANNELS]
+                                      + list(cts)),
+                      _build.pointers(outs), spec.n_tiles, spec.k,
+                      spec.patch // 2, sharpness, depth_falloff,
+                      form=int(emit_normals))
         return outs
 
 

@@ -11,25 +11,16 @@ solvers).
 
 The rebuild decision, a `lax.cond` in the JAX package, is a host branch
 here (`if need.item():`, one sync per step); the PCISPH correction loop
-reads one scalar per iteration (solvers/dense_step.py), and its plane math
-takes the same two routes as the epilogue below (ops/pcisph_iter.py).
-
-The epilogue after the force sweeps (the accelerations, the integration,
-the wall collision and the largest displacement since the last rebuild)
-has two routes, picked by the planes' device (`_epilogue`):
-  * on the card, one launch of the hand-written kernel
-    (ops/plane_advance.py, csrc/plane_advance.cu), equal bit for bit to
-    the torch route there;
-  * on the CPU, the plain version: the torch passes of `_epilogue_plain`
-    (with `_integrate_collide`).
+reads one scalar per iteration (solvers/dense_step.py). The epilogue after
+the force sweeps (the accelerations, the integration, the wall collision
+and the largest displacement since the last rebuild) is
+ops/plane_advance.py: a kernel on the card, torch passes elsewhere.
 
 Spans (utils/profiling.py): `resident.step` (a whole step),
 `resident.integrate` (the epilogue), `resident.skin_test` (the rebuild
 decision's read), `resident.rebuild` (the gather and the new binning);
-counters `plane_advance.kernel` / `plane_advance.plain` (the epilogue's
-route, once a step); host syncs counted as
-`host_sync.resident.skin_test` and `host_sync.resident.fallback` (the
-fallback's constants).
+host syncs counted as `host_sync.resident.skin_test` and
+`host_sync.resident.fallback` (the fallback's constants).
 """
 
 from __future__ import annotations
@@ -155,70 +146,22 @@ def fluid_state_from_planes(ps: DensePlaneState, n_fluid: int,
         boundary_pos=ps.boundary_pos)
 
 
-def _integrate_collide(planes, fluid_occ, accels, params: FluidParams,
-                       bounds, restitution, friction):
-    """Semi-implicit Euler + wall collision in plane form; fluid slots only
-    (boundary and empty slots keep their values)."""
-    dt = params.dt
-    new_pos, new_vel, hits = [], [], []
-    for ax, (xn, vn) in enumerate((("x", "vx"), ("y", "vy"), ("z", "vz"))):
-        v = planes[vn] + accels[ax] * dt
-        x = planes[xn] + v * dt
-        if bounds is not None:
-            lo, hi = bounds[0][ax], bounds[1][ax]
-            hit = (x < lo) | (x > hi)
-            x = torch.clamp(x, lo, hi)
-            v = torch.where(hit, -restitution * v, v)
-            hits.append(hit)
-        new_pos.append(x)
-        new_vel.append(v)
-    if bounds is not None:
-        any_hit = hits[0] | hits[1] | hits[2]
-        for ax in range(3):
-            new_vel[ax] = torch.where(any_hit & ~hits[ax],
-                                      (1.0 - friction) * new_vel[ax],
-                                      new_vel[ax])
-    out = {}
-    for ax, (xn, vn) in enumerate((("x", "vx"), ("y", "vy"), ("z", "vz"))):
-        out[xn] = torch.where(fluid_occ, new_pos[ax], planes[xn])
-        out[vn] = torch.where(fluid_occ, new_vel[ax], planes[vn])
-    out["mask"] = planes["mask"]
-    return out
-
-
-def _epilogue_plain(planes, bnd, forces, ext, ref, params: FluidParams,
-                    bounds, restitution, friction):
-    """The epilogue as torch passes, on any device: (new planes, the largest
-    per-axis displacement of a fluid slot from `ref`, the positions at the
-    last rebuild). The accelerations are forces / mass + gravity, or
-    (ext + forces) / mass when `ext` is given."""
-    fluid_occ = (planes["mask"] > 0) & (bnd == 0)
-    if ext is None:
-        accels = [f / params.mass + g for f, g in zip(forces, params.gravity)]
-    else:
-        accels = [(e + f) / params.mass for e, f in zip(ext, forces)]
-    new_planes = _integrate_collide(planes, fluid_occ, accels, params,
-                                    bounds, restitution, friction)
-    disp = torch.maximum(torch.maximum(
-        torch.abs(new_planes["x"] - ref[0]),
-        torch.abs(new_planes["y"] - ref[1])),
-        torch.abs(new_planes["z"] - ref[2]))
-    return new_planes, torch.max(torch.where(fluid_occ, disp, 0.0))
+#: The plain route's integration and wall collision, named here so that a
+#: test can put a fault into the resident step's plain route (the
+#: benchmark's fault tests leave half the particles out through it).
+_integrate_collide = plane_advance._integrate_collide
 
 
 def _epilogue(ps: DensePlaneState, planes, forces, ext, params, bounds,
               restitution, friction):
-    """The step after its force sweeps, by the planes' device: the kernel
-    on the card, the plain version elsewhere. (new x y z vx vy vz and mask
-    planes, largest displacement since the last rebuild)."""
-    args = (planes, ps.bnd, forces, ext, (ps.ref_x, ps.ref_y, ps.ref_z),
-            params, bounds, restitution, friction)
+    """The step after its force sweeps (ops/plane_advance.py): (new x y z
+    vx vy vz and mask planes, largest displacement since the last
+    rebuild)."""
     with span("resident.integrate"):
-        if planes["mask"].is_cuda:
-            count("plane_advance.kernel")
-            return plane_advance.advance(*args)
-        count("plane_advance.plain")
-        return _epilogue_plain(*args)
+        return plane_advance.advance(
+            planes, ps.bnd, forces, ext, (ps.ref_x, ps.ref_y, ps.ref_z),
+            params, bounds, restitution, friction,
+            integrate=_integrate_collide)
 
 
 def _fallback_step(ps: DensePlaneState, params: FluidParams, bounds,

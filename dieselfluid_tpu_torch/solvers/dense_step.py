@@ -11,9 +11,8 @@ sync) against `pci_max_iters` and `pci_max_density_error_ratio`. Its spans
 (utils/profiling.py): `pcisph.loop` (the whole loop), `pcisph.iter` (one
 iteration's body), `pcisph.exit_test` (the read, counted as
 `host_sync.pcisph.exit_test`); the sharded loops use the same names. An
-iteration's plane math (ops/pcisph_iter.py) runs as two kernels on the card
-and as torch passes on the CPU; each iteration counts its route,
-`pcisph_iter.kernel` or `pcisph_iter.plain`.
+iteration's plane math is ops/pcisph_iter.py: two kernels on the card,
+torch passes elsewhere.
 
 Gradients. The static-params WCSPH step is differentiable in the state
 through the fused force sweep, whose backward is its own adjoint sweep (K7).
@@ -205,34 +204,6 @@ def pcisph_continue(err: Optional[torch.Tensor],
         return err.item() > params.pci_max_density_error_ratio
 
 
-def _plane_math(fluid_occ, mass, d0, grad_from):
-    """(predict, update, route counter, mass, d0) of a correction loop:
-    on CUDA planes the pcisph_iter kernels (`pcisph_iter.kernel`), which
-    take the mass and d0 as Python numbers, so 0-d tensors (traced
-    Materials) are read here, once a loop (`host_sync.pcisph.materials`);
-    where a tensor of `grad_from` (the loop's inputs) requires grad, their
-    outputs are tied to it by a node whose backward raises
-    (pcisph_iter.forward_only). On CPU planes the torch passes
-    (`pcisph_iter.plain`) with them as given. The loop counts the route
-    once an iteration."""
-    if not fluid_occ.is_cuda:
-        return (pcisph_iter.predict_plain, pcisph_iter.update_plain,
-                "pcisph_iter.plain", mass, d0)
-    predict, update = pcisph_iter.predict, pcisph_iter.update
-    if torch.is_grad_enabled():
-        tracked = [t for t in (mass, d0, *grad_from)
-                   if torch.is_tensor(t) and t.requires_grad]
-        if tracked:
-            predict, update = pcisph_iter.forward_only(predict, update,
-                                                       tracked)
-    if torch.is_tensor(mass) or torch.is_tensor(d0):
-        count("host_sync.pcisph.materials")
-        mass, d0 = torch.stack([
-            torch.as_tensor(v, dtype=torch.float32, device=fluid_occ.device)
-            for v in (mass, d0)]).tolist()
-    return predict, update, "pcisph_iter.kernel", mass, d0
-
-
 @span("pcisph.loop")
 def pcisph_correction_loop(planes, fluid_occ, extf, press0, spec, k,
                            params: FluidParams, delta: float, mass=None,
@@ -249,12 +220,12 @@ def pcisph_correction_loop(planes, fluid_occ, extf, press0, spec, k,
     Materials): a gradient through them then reaches the prefolded pressure
     sweep, whose backward raises, as reverse mode through the JAX
     while_loop does. On the card the plane math takes their values; a
-    gradient through its kernels raises too (_plane_math).
+    gradient through its kernels raises too (pcisph_iter.prepare).
 
     Returns (iterations, pressure plane, (fpx, fpy, fpz) planes)."""
     mass = params.mass if mass is None else mass
     d0 = params.d0 if d0 is None else d0
-    predict, update, route, mass_n, d0_n = _plane_math(
+    predict, update, mass_n, d0_n = pcisph_iter.prepare(
         fluid_occ, mass, d0, (press0, *extf, *planes.values()))
     zero = torch.zeros(spec.plane_shape, dtype=torch.float32,
                        device=fluid_occ.device)
@@ -262,7 +233,6 @@ def pcisph_correction_loop(planes, fluid_occ, extf, press0, spec, k,
     it, err = 0, None
     while it < params.pci_max_iters and pcisph_continue(err, params):
         with span("pcisph.iter"):
-            count(route)
             star = predict(planes, fluid_occ, extf, fps, mass_n, params.dt,
                            star)
             rho_star = density_planes(star, spec, k, mass)
@@ -314,14 +284,13 @@ def pcisph_skip_loop(planes, fluid_occ, extf, press0, rho_plane, spec, k,
     zero = torch.zeros(spec.plane_shape, dtype=torch.float32,
                        device=mask_p.device)
     press, fps, rho_star = press0, (zero, zero, zero), rho_plane
-    predict, _, route, mass_n, _ = _plane_math(
+    predict, _, mass_n, _ = pcisph_iter.prepare(
         fluid_occ, mass, d0, (press0, rho_plane, *extf, *planes.values()))
     star = None
     active = torch.ones((nx, nyp), dtype=torch.int32, device=mask_p.device)
     it, err = 0, None
     while it < params.pci_max_iters and pcisph_continue(err, params):
         with span("pcisph.iter"):
-            count(route)
             ar = act_rows_of(active, spec)
             star = predict(planes, fluid_occ, extf, fps, mass_n, params.dt,
                            star)

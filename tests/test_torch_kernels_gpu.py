@@ -18,6 +18,7 @@ import torch
 from dieselfluid_tpu_torch.config import FluidParams
 from dieselfluid_tpu_torch.models.particles import dam_break_state
 from dieselfluid_tpu_torch.neighbors.calibrate import lattice_rest_density
+from dieselfluid_tpu_torch.ops import _build
 from dieselfluid_tpu_torch.ops import cellops as tc
 from dieselfluid_tpu_torch.ops import sph_sweep as sw
 from dieselfluid_tpu_torch.ops.smoothing import KernelCoeffs
@@ -663,8 +664,10 @@ def test_rasterizer_kernels_match_plain_and_count_launches(frame, n_out):
     ccts = _cts_of(cspec, n_out, planes["r"].device)
     got = [torch.full(cspec.plane_shape, float("nan"), device=cplanes[
         "r"].device) for _ in range(4)]
-    st._launch(st.SPLAT_BWD, emit, [cplanes[c] for c in st.CHANNELS] + ccts,
-               got, cspec, 12.0, 2.0)
+    _build.launch(st.SPLAT_BWD, got[0].device,
+                  _build.pointers([cplanes[c] for c in st.CHANNELS] + ccts),
+                  _build.pointers(got), cspec.n_tiles, cspec.k,
+                  cspec.patch // 2, 12.0, 2.0, form=int(emit))
     want_g = st.plain.rasterize_bwd(cplanes, ccts, cspec, 12.0, 2.0, emit)
     torch.cuda.synchronize()
     dead = cplanes["r"] < 0.5
@@ -1179,13 +1182,13 @@ def test_plane_advance_equals_the_torch_route_on_the_card(planes, solver,
     s = s._replace(vel=torch.randn(tuple(s.vel.shape), generator=gen).cuda())
     delta = compute_pci_delta(params, DX)
     ps0 = tdr.plane_state_from_fluid(s, spec)
-    before = pa.launches
+    before = pa.KERNEL.launches
     got = _resident_run(params, spec, ps0, solver, 8, delta)
-    assert pa.launches == before + 8
-    monkeypatch.setattr(pa, "advance", tdr._epilogue_plain)
+    assert pa.KERNEL.launches == before + 8
+    monkeypatch.setattr(pa, "advance", pa.advance_plain)
     want = _resident_run(params, spec, ps0, solver, 8, delta)
     monkeypatch.undo()
-    assert pa.launches == before + 8
+    assert pa.KERNEL.launches == before + 8
     assert int(got[0][-1].rebuilds) >= 1
     assert int(got[0][-1].rebuilds) < 8
     for step, (g, w) in enumerate(zip(got[0], want[0])):
@@ -1196,13 +1199,50 @@ def test_plane_advance_equals_the_torch_route_on_the_card(planes, solver,
         assert float(g) > 0.0
 
 
+@pytest.mark.parametrize("entry", ["advance", "predict", "update"])
+def test_plane_math_entries_raise_value_errors(cuda, entry):
+    """A float64 float plane, and a float32 fluid plane, are ValueErrors in
+    the epilogue's and the PCISPH iteration's entries on the card; neither
+    launches."""
+    from dieselfluid_tpu_torch.ops import pcisph_iter as pi
+    from dieselfluid_tpu_torch.ops import plane_advance as pa
+
+    def z(dtype=torch.float32):
+        return torch.zeros(4, 8, dtype=dtype, device=cuda)
+
+    params = FluidParams.for_spacing(DX)
+    occ = torch.zeros(4, 8, dtype=torch.bool, device=cuda)
+    ps = {c: z() for c in ("x", "y", "z", "vx", "vy", "vz", "mask")}
+    bad = dict(ps, vx=z(torch.float64))
+    three = [z(), z(), z()]
+    calls = {
+        "advance": [
+            lambda: pa.advance(bad, z(), three, None, three, params, None,
+                               0.5, 0.1),
+            lambda: pa.advance(ps, z(torch.float64), three, None, three,
+                               params, None, 0.5, 0.1)],
+        "predict": [
+            lambda: pi.predict(bad, occ, three, three, 1.0, 1e-3),
+            lambda: pi.predict(ps, occ.float(), three, three, 1.0, 1e-3)],
+        "update": [
+            lambda: pi.update(occ, z(torch.float64), z(), 1000.0, 1.0),
+            lambda: pi.update(occ.float(), z(), z(), 1000.0, 1.0)],
+    }[entry]
+    before = [k.launches for k in (pa.KERNEL,) + pi.KERNELS]
+    for call in calls:
+        with pytest.raises(ValueError):
+            call()
+    assert [k.launches for k in (pa.KERNEL,) + pi.KERNELS] == before
+
+
 def test_plane_advance_counts_once_a_step_under_tracing(planes):
-    """Under a profiler each resident step counts the kernel's route once,
-    inside a `resident.integrate` span that holds the kernel's device
-    time; the plain route is never counted on the card."""
+    """Under a profiler each resident step launches the kernel once,
+    inside its operator range and a `resident.integrate` span, which hold
+    the kernel's device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from dieselfluid_tpu_torch.ops import plane_advance as pa
     from dieselfluid_tpu_torch.solvers.pcisph import compute_pci_delta
     from dieselfluid_tpu_torch.utils import profiling
 
@@ -1213,6 +1253,7 @@ def test_plane_advance_counts_once_a_step_under_tracing(planes):
     ps = tdr.dense_wcsph_resident_step(ps, params, spec)
     torch.cuda.synchronize()
     profiling.reset()
+    before = pa.KERNEL.launches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
@@ -1221,12 +1262,15 @@ def test_plane_advance_counts_once_a_step_under_tracing(planes):
         torch.cuda.synchronize()
     got = profiling.summary()
     profiling.reset()
-    assert got["counters"]["plane_advance.kernel"] == 4
-    assert "plane_advance.plain" not in got["counters"]
+    assert pa.KERNEL.launches == before + 4
     assert got["spans"]["resident.integrate"]["count"] == 4
     names = [e.name for e in prof.events()
              if e.device_type == DeviceType.CUDA]
     assert sum("plane_advance_kernel" in n for n in names) == 4, names
+    ranges = [e for e in prof.events() if e.name == pa.KERNEL.name
+              and e.device_type == DeviceType.CPU]
+    assert len(ranges) == 4
+    assert sum(e.device_time_total for e in ranges) > 0.0
     us = sum(e.device_time_total for e in prof.events()
              if e.name == "resident.integrate"
              and e.device_type == DeviceType.CPU)
@@ -1270,13 +1314,13 @@ def test_plane_advance_at_1m_against_its_byte_bound(cuda):
         args = (ps.planes, ps.bnd, forces[:3], ext, ref, params, box, 0.3,
                 0.1)
         got, md = pa.advance(*args)
-        want, md_want = tdr._epilogue_plain(*args)
+        want, md_want = pa.advance_plain(*args)
         for c in pa.OUT_NAMES:
             assert _same_bits(got[c], want[c]), (form, c)
         assert _same_bits(md, md_want), form
         ms = {}
         for route, fn in (("kernel", pa.advance),
-                          ("torch", tdr._epilogue_plain)):
+                          ("torch", pa.advance_plain)):
             fn(*args)
             torch.cuda.synchronize()
             start = torch.cuda.Event(enable_timing=True)
@@ -1364,16 +1408,16 @@ def test_pcisph_iter_equals_the_torch_route_on_the_card(cuda, monkeypatch):
     from dieselfluid_tpu_torch.ops import pcisph_iter as pi
 
     params, spec, ps0, delta = _dam1m(cuda, 21)
-    before = dict(pi.launches)
+    before = [k.launches for k in pi.KERNELS]
     got = _loop_run(params, spec, ps0, delta, 12)
     iters = [it for it, _, _ in got[1]]
-    ran = {k: before[k] + sum(iters) for k in before}
-    assert pi.launches == ran
+    ran = [n + sum(iters) for n in before]
+    assert [k.launches for k in pi.KERNELS] == ran
     monkeypatch.setattr(pi, "predict", pi.predict_plain)
     monkeypatch.setattr(pi, "update", pi.update_plain)
     want = _loop_run(params, spec, ps0, delta, 12)
     monkeypatch.undo()
-    assert pi.launches == ran
+    assert [k.launches for k in pi.KERNELS] == ran
     for step, ((gi, gp, gf), (wi, wp, wf)) in enumerate(zip(got[1],
                                                             want[1])):
         assert gi == wi, step
@@ -1388,8 +1432,8 @@ def test_pcisph_iter_equals_the_torch_route_on_the_card(cuda, monkeypatch):
 def test_pcisph_iter_takes_traced_materials_on_the_card(cuda, monkeypatch):
     """Three per-step PCISPH frames (dense_pcisph_step's plane loop) on a
     64,000-particle dam break with Materials that require grad: the plane
-    math takes the kernels, counted once an iteration, with the mass and
-    d0 read once a loop (`host_sync.pcisph.materials`), and equals the
+    math takes the kernels, each launched once an iteration, with the mass
+    and d0 read once a loop (`host_sync.pcisph.materials`), and equals the
     torch passes on the same numbers bit for bit (each frame's iterations
     and state); a gradient through the frame still raises, in the
     prefolded pressure sweep's backward."""
@@ -1421,7 +1465,7 @@ def test_pcisph_iter_takes_traced_materials_on_the_card(cuda, monkeypatch):
             frames.append((int(diag.iters), s))
         return frames
 
-    before = dict(pi.launches)
+    before = [k.launches for k in pi.KERNELS]
     profiling.reset()
     with profile(activities=[ProfilerActivity.CPU]):
         got = run()
@@ -1429,10 +1473,8 @@ def test_pcisph_iter_takes_traced_materials_on_the_card(cuda, monkeypatch):
     profiling.reset()
     iters = sum(it for it, _ in got)
     assert iters >= 3
-    assert counters["pcisph_iter.kernel"] == iters
-    assert "pcisph_iter.plain" not in counters
     assert counters["host_sync.pcisph.materials"] == 3
-    assert pi.launches == {k: before[k] + iters for k in before}
+    assert [k.launches for k in pi.KERNELS] == [n + iters for n in before]
     monkeypatch.setattr(pi, "predict", pi.predict_plain)
     monkeypatch.setattr(pi, "update", pi.update_plain)
     want = run()
@@ -1447,13 +1489,13 @@ def test_pcisph_iter_takes_traced_materials_on_the_card(cuda, monkeypatch):
 
 
 def test_pcisph_iter_counts_once_an_iteration_under_tracing(planes):
-    """Under a profiler each correction iteration counts the kernels'
-    route once, launches each kernel once inside its operator range, and
-    the kernels' device time counts under the `pcisph.iter` span; the
-    plain route is never counted on the card."""
+    """Under a profiler each correction iteration launches each kernel
+    once inside its operator range, and the kernels' device time counts
+    under the `pcisph.iter` span."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from dieselfluid_tpu_torch.ops import pcisph_iter as pi
     from dieselfluid_tpu_torch.solvers.pcisph import compute_pci_delta
     from dieselfluid_tpu_torch.utils import profiling
 
@@ -1464,6 +1506,7 @@ def test_pcisph_iter_counts_once_an_iteration_under_tracing(planes):
     ps, _ = tdr.dense_pcisph_resident_step(ps, params, spec, delta)
     torch.cuda.synchronize()
     profiling.reset()
+    before = [k.launches for k in pi.KERNELS]
     iters = []
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1473,8 +1516,8 @@ def test_pcisph_iter_counts_once_an_iteration_under_tracing(planes):
         torch.cuda.synchronize()
     got = profiling.summary()
     profiling.reset()
-    assert got["counters"]["pcisph_iter.kernel"] == sum(iters)
-    assert "pcisph_iter.plain" not in got["counters"]
+    assert [k.launches for k in pi.KERNELS] == [n + sum(iters)
+                                                for n in before]
     assert got["spans"]["pcisph.iter"]["count"] == sum(iters)
     events = prof.events()
     names = [e.name for e in events if e.device_type == DeviceType.CUDA]

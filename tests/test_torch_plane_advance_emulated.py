@@ -2,8 +2,8 @@
 the CPU by g++ against the emulation of the CUDA features it uses
 (tests/cuda_emu/cuda_runtime.h: a thread per CUDA thread, barriers for
 __syncthreads and the warp reduction, CTAs one at a time on `emu_sms`
-emulated SMs), held to the solver's plain route
-(`dense_resident._epilogue_plain`, the torch passes the CPU runs).
+emulated SMs), held to the plain route
+(`plane_advance.advance_plain`, the torch passes the CPU runs).
 
 Both acceleration forms (WCSPH's f / mass + g, PCISPH's (e + f) / mass),
 with the walls and without (`bounds=None`), on an empty plane, a lone
@@ -30,7 +30,6 @@ import torch
 from dieselfluid_tpu_torch.config import FluidParams
 from dieselfluid_tpu_torch.ops import cellops as tc
 from dieselfluid_tpu_torch.ops import plane_advance as pa
-from dieselfluid_tpu_torch.solvers import dense_resident as tdr
 from test_torch_sweep_emulated import ROOT, compile_emulated, emulated_source
 
 torch.set_num_threads(1)
@@ -162,8 +161,8 @@ def _run_both(lib, name, form, bounds, mass=1.0):
     planes, bnd, forces, ext, ref = _case(name, params)
     ext = ext if form == "pcisph" else None
     got = _kernel(lib, planes, bnd, forces, ext, ref, params, bounds)
-    want = tdr._epilogue_plain(planes, bnd, forces, ext, ref, params,
-                               bounds, REST, FRIC)
+    want = pa.advance_plain(planes, bnd, forces, ext, ref, params, bounds,
+                            REST, FRIC)
     return planes, bnd, got, want
 
 
@@ -230,14 +229,14 @@ def test_kernel_multiplies_by_the_reciprocal_of_an_inexact_mass(lib, form):
         assert max(_ulps((e + f) * inv, (e + f) / 3.0)
                    for e, f in zip(ext, forces)) <= 1
     new, md = _kernel(lib, planes, bnd, forces, ext, ref, params, BOX)
-    same, md_same = tdr._epilogue_plain(
+    same, md_same = pa.advance_plain(
         planes, bnd, pre, pre_ext, ref, params.replace(mass=1.0), BOX, REST,
         FRIC)
     for c in same:
         assert torch.equal(_bits(new[c]), _bits(same[c])), c
     assert torch.equal(_bits(md), _bits(md_same))
-    want, md_want = tdr._epilogue_plain(planes, bnd, forces, ext, ref,
-                                        params, BOX, REST, FRIC)
+    want, md_want = pa.advance_plain(planes, bnd, forces, ext, ref, params,
+                                     BOX, REST, FRIC)
     assert any(not torch.equal(new[c], want[c]) for c in pa.OUT_NAMES)
     for c in pa.OUT_NAMES:
         scale = float(want[c].abs().max())

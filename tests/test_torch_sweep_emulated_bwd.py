@@ -77,7 +77,7 @@ def test_bwd_sweeps_equal_sweep_block_and_plain(lib, sweep, case, sms):
     cts = _cotangents(spec, 37)
     ins, consts, bins, bconsts, plain = _bwd_launch(sweep, params, spec, p,
                                                     cts)
-    sym, n_out = SWEEPS[sweep].symbol, SWEEPS[sweep].n_out
+    sym, n_out = SWEEPS[sweep].symbols[0], SWEEPS[sweep].n_out
     bsym = "emu_block_" + sym[len("dft_"):-len("_sweep")]
     work = _counter()
     got, again = [_call(lib, sym, ins, n_out, spec, consts, work=work)
@@ -102,7 +102,7 @@ def test_bwd_launches_with_own_counters_run_in_turns(lib, sweep, sms):
                                               CASES["full_cap16"]()]):
         ins, consts, *_ = _bwd_launch(sweep, params, spec, p,
                                       _cotangents(spec, 50 + seed))
-        args.append((SWEEPS[sweep].symbol, ins, SWEEPS[sweep].n_out, spec,
+        args.append((SWEEPS[sweep].symbols[0], ins, SWEEPS[sweep].n_out, spec,
                      consts))
     alone = [_call(lib, *a, work=_counter()) for a in args]
     works = [_counter() for _ in args]

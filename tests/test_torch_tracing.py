@@ -19,6 +19,8 @@ from dieselfluid_tpu_torch.models.materials import Materials
 from dieselfluid_tpu_torch.models.particles import dam_break_state
 from dieselfluid_tpu_torch.neighbors.calibrate import lattice_rest_density
 from dieselfluid_tpu_torch.ops import cellops as tc
+from dieselfluid_tpu_torch.ops import pcisph_iter as pi
+from dieselfluid_tpu_torch.ops import plane_advance as pa
 from dieselfluid_tpu_torch.parallel import dense_halo as pdh
 from dieselfluid_tpu_torch.parallel import halo as th
 from dieselfluid_tpu_torch.parallel.mesh import LocalMesh
@@ -169,24 +171,27 @@ def test_resident_wcsph_spans_each_step(setup):
         assert _parents(ev, sweep) == {"resident.step": STEPS}
     # Per step: the skin test, the fallback's gravity and walls, the Tait
     # d0; dense_indices' two device constants, made once (the first
-    # rebuild); the epilogue's route.
+    # rebuild).
     assert got["counters"] == {
         "host_sync.resident.skin_test": STEPS,
         "host_sync.resident.fallback": 3 * STEPS,
         "host_sync.smoothing.tait_eos": STEPS,
-        "host_sync.cellops.dense_indices": 2,
-        "plane_advance.plain": STEPS}
+        "host_sync.cellops.dense_indices": 2}
+
+
+def _launches():
+    return [k.launches for k in (pa.KERNEL,) + pi.KERNELS]
 
 
 @pytest.mark.parametrize("path", ["wcsph", "pcisph"])
 def test_resident_epilogue_takes_the_plain_route_on_cpu_planes(setup, path):
-    """CPU planes: each step's epilogue is the torch passes, counted once
-    as `plane_advance.plain` under a `resident.integrate` span inside
-    `resident.step`; the kernel's route is never counted."""
+    """CPU planes: each step's epilogue is the torch passes, under a
+    `resident.integrate` span inside `resident.step`; neither the
+    epilogue's kernel nor the iteration's launches."""
     run = {"wcsph": lambda: _wcsph(setup), "pcisph": lambda: _pcisph(setup)}
+    before = _launches()
     _, got, ev = _traced(run[path])
-    assert got["counters"]["plane_advance.plain"] == STEPS
-    assert "plane_advance.kernel" not in got["counters"]
+    assert _launches() == before
     assert got["spans"]["resident.integrate"]["count"] == STEPS
     assert got["spans"]["resident.integrate"]["host_ms"] > 0.0
     assert _parents(ev, "resident.integrate") == {"resident.step": STEPS}
@@ -196,6 +201,7 @@ def test_resident_epilogue_takes_the_plain_route_on_cpu_planes(setup, path):
 def test_resident_pcisph_counts_each_iteration_and_exit_test(setup, stop):
     kw = {} if stop == "tolerance" else {"pci_max_density_error_ratio": 0.0,
                                          "pci_max_iters": 3}
+    before = _launches()
     (_, iters), got, ev = _traced(lambda: _pcisph(setup, **kw))
     max_iters = 3 if stop == "max_iters" else setup[0].pci_max_iters
     if stop == "tolerance":
@@ -214,28 +220,30 @@ def test_resident_pcisph_counts_each_iteration_and_exit_test(setup, stop):
     assert _parents(ev, "pcisph.exit_test") == {"pcisph.loop": reads}
     assert _parents(ev, "sweep.pressure_pq") == {"pcisph.iter": sum(iters)}
     assert _parents(ev, "resident.rebuild") == {"resident.step": STEPS}
-    # The iteration's plane math takes the torch passes on CPU planes,
-    # counted once an iteration.
-    assert got["counters"]["pcisph_iter.plain"] == sum(iters)
-    assert "pcisph_iter.kernel" not in got["counters"]
+    # The iteration's plane math takes the torch passes on CPU planes: no
+    # kernel launches.
+    assert _launches() == before
 
 
 @pytest.mark.parametrize("loop", ["plane", "skip", "materials"])
 def test_per_step_pcisph_counts_each_iterations_route(setup, loop):
     """dense_pcisph_step's plane loop, its column_skip loop and its plane
-    loop on traced Materials count the iteration's plane-math route once
-    an iteration: the torch passes, `pcisph_iter.plain`, on the CPU."""
+    loop on traced Materials run one `pcisph.iter` span an iteration, and
+    the iteration's plane math as the torch passes on the CPU: no kernel
+    launches and no read of the Materials."""
     from dieselfluid_tpu_torch.solvers import dense_step as tds
 
     params, spec, _, delta = setup
     s = dam_break_state(N3, params, "cpu")
     kw = {"plane": {}, "skip": {"column_skip": True},
           "materials": {"materials": Materials.from_params(params, "cpu")}}
+    before = _launches()
     (_, diag), got, ev = _traced(lambda: tds.dense_pcisph_step(
         s, params, spec, delta, **kw[loop]))
     assert diag.iters >= 1
-    assert got["counters"]["pcisph_iter.plain"] == diag.iters
-    assert "pcisph_iter.kernel" not in got["counters"]
+    assert _launches() == before
+    assert "host_sync.pcisph.materials" not in got["counters"]
+    assert got["spans"]["pcisph.iter"]["count"] == diag.iters
     assert _parents(ev, "pcisph.iter") == {"pcisph.loop": diag.iters}
 
 

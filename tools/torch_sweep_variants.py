@@ -309,7 +309,7 @@ def main() -> int:
             for cap in (16, 32):
                 smem = ctypes.c_int(0)
                 out.setdefault(s.name, {})[cap] = [
-                    fn(s.symbol.encode(), cap, ctypes.byref(smem)),
+                    fn(s.symbols[0].encode(), cap, ctypes.byref(smem)),
                     smem.value]
         return out
 
